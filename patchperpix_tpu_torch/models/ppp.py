@@ -1,0 +1,135 @@
+"""PatchPerPix model: U-Net backbone + code head + numinst head + decoder.
+
+Counterpart of ``patchperpix_tpu/models/ppp.py`` for the ``unet`` network
+style in 3D.  The API boundary is channels-first (C, *spatial), like the
+JAX package's.
+
+``dtype="bfloat16"`` in the JAX package computes every conv in bf16 from
+float32 parameters that Flax casts on each call.  Here the module is cast
+to bf16 once (``PPPModel.to(model.compute_dtype)``, done by
+``weights.build_model``), which rounds the parameters exactly as that cast
+does, and ``forward`` / ``decode`` cast their input to the same type.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from .autoencoder import PatchDecoder
+from .unet import UNet
+
+
+@dataclass(frozen=True)
+class PPPConfig:
+    patchshape: tuple = (7, 7, 7)
+    num_channels: int = 1
+    # "unet" | "swinunetr"; the port has the unet style only
+    network_style: str = "unet"
+    num_fmaps: int = 20
+    fmap_inc_factors: tuple = (3, 3, 3)
+    fmap_dec_factors: tuple = (1.2, 1.2, 1.2)
+    downsample_factors: tuple = ((2, 2, 2), (2, 2, 2), (2, 2, 2))
+    kernel_size: int = 3
+    num_repetitions: int = 2
+    padding: str = "valid"
+    upsampling: str = "trans_conv"
+    activation: str = "relu"
+    train_code: bool = False
+    code_units: int = 176
+    overlapping_inst: bool = False
+    max_num_inst: int = 2
+    patch_activation: str = "sigmoid"
+    code_activation: str = "sigmoid"
+    # autoencoder (decoder) section
+    ae_code_fmaps: int = 22
+    ae_num_fmaps: tuple = (64, 128)
+    ae_downsample_factors: tuple = ((2, 2, 2), (2, 2, 2))
+    ae_kernel_size: int = 3
+    ae_num_repetitions: int = 2
+    ae_upsampling: str = "resize_conv"
+    num_code_samples: int = 1024
+    dtype: str = "float32"
+
+    @property
+    def patchshape_squeezed(self) -> tuple:
+        return tuple(p for p in self.patchshape if p > 1)
+
+    @property
+    def patchsize(self) -> int:
+        return int(np.prod(self.patchshape_squeezed))
+
+    @property
+    def spatial_dims(self) -> int:
+        return len(self.patchshape_squeezed)
+
+    @property
+    def out_channels_head1(self) -> int:
+        return self.code_units if self.train_code else self.patchsize
+
+    @property
+    def out_channels_head2(self) -> int:
+        return self.max_num_inst + 1 if self.overlapping_inst else 1
+
+
+class PPPModel(nn.Module):
+    def __init__(self, cfg: PPPConfig):
+        super().__init__()
+        if cfg.network_style != "unet":
+            raise NotImplementedError(
+                f"network style {cfg.network_style!r} is not ported")
+        if cfg.spatial_dims != 3:
+            raise NotImplementedError("the port's model is 3D")
+        self.cfg = cfg
+        self.unet = UNet(
+            cfg.num_channels, num_fmaps=cfg.num_fmaps,
+            fmap_inc_factors=cfg.fmap_inc_factors,
+            fmap_dec_factors=cfg.fmap_dec_factors,
+            downsample_factors=cfg.downsample_factors,
+            kernel_size=cfg.kernel_size,
+            num_repetitions=cfg.num_repetitions, padding=cfg.padding,
+            upsampling=cfg.upsampling, activation=cfg.activation)
+        feats = self.unet.out_channels
+        self.head_code_affs = nn.Conv3d(feats, cfg.out_channels_head1, 1)
+        self.head_fgbg_numinst = nn.Conv3d(feats, cfg.out_channels_head2, 1)
+        if cfg.train_code:
+            self.decoder = PatchDecoder(
+                cfg.patchshape_squeezed, code_units=cfg.code_units,
+                code_fmaps=cfg.ae_code_fmaps, num_fmaps=cfg.ae_num_fmaps,
+                downsample_factors=cfg.ae_downsample_factors,
+                kernel_size=cfg.ae_kernel_size,
+                num_repetitions=cfg.ae_num_repetitions,
+                upsampling=cfg.ae_upsampling)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return {"float32": torch.float32,
+                "bfloat16": torch.bfloat16}[self.cfg.dtype]
+
+    def forward(self, raw: torch.Tensor):
+        """raw: (N, C, *spatial) -> (code_affs_logits, fgbg_numinst_logits),
+        both channels-first, in the compute dtype."""
+        feats = self.unet(raw.to(self.compute_dtype))
+        return self.head_code_affs(feats), self.head_fgbg_numinst(feats)
+
+    def decode(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes (N, code_units) -> patch logits (N, *patchshape)."""
+        return self.decoder(codes.to(self.compute_dtype))
+
+
+def apply_activations(cfg: PPPConfig, head1_logits, head2_logits):
+    """Inference-time activations, in the logits' dtype (the JAX package
+    applies them before its bf16 -> f32 cast as well)."""
+    act = {"sigmoid": torch.sigmoid, "relu": torch.relu,
+           "identity": lambda v: v}
+    a1 = act[(cfg.code_activation if cfg.train_code
+              else cfg.patch_activation).lower()]
+    head1 = a1(head1_logits)
+    if cfg.overlapping_inst:
+        head2 = torch.softmax(head2_logits, dim=1)
+    else:
+        head2 = torch.sigmoid(head2_logits)
+    return head1, head2

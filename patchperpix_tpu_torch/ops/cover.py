@@ -1,0 +1,190 @@
+"""Foreground cover stages.
+
+Counterpart of ``patchperpix_tpu/ops/cover.py`` for the main path:
+
+- ``greedy_cover_device``: the ranked-list greedy cover in its exact
+  closed form for the sparse-data threshold (pix_th 0), one min-reduction
+  of rank volumes on the device (``_greedy_cover_min_scatter``,
+  cover.py:84-140).  The dense-data cascade (pix_th 500/100/50/10/0) is a
+  sequential walk and is not ported yet.
+- ``thin_out_cover_device``: the lazy greedy set cover (cover.py:143-234)
+  with its exact full-recompute fallback (:237-284) when the iteration cap
+  is hit.  The patch masks are gathered on the device; the loop itself is
+  sequential and scalar (one argmax and one 7^3 window per step), so it
+  runs on the host over those (n, P) masks: on the card every step would
+  be a host round trip.
+
+Tie-breaking matches the reference: candidates are visited in ranked
+order and the set-cover argmax takes the first maximal patch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .np_reference import interior, patch_offsets
+
+_INF = 2 ** 30
+
+
+def greedy_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
+                        ranked_patches: list, patchshape,
+                        fc_threshold: float = 0.5,
+                        overlap: np.ndarray | None = None,
+                        sparse_data: bool = True):
+    """Greedy foreground cover over the ranked patch list, on
+    ``affs.device``.  Returns (selected list of (center, score),
+    still-uncovered bool volume).
+
+    Closed form (pix_th 0): with m(x) the minimum rank over candidates
+    whose fc-thresholded window contains x, candidate m(x) is always
+    selected, so a candidate is selected iff it owns some pixel's minimum;
+    the reference's stop once every interior to-cover pixel is covered is
+    the rank cutoff r* = max of m over those pixels."""
+    ps = np.asarray(patchshape, dtype=np.int64)
+    rad = ps // 2
+    if not ranked_patches:
+        return [], mask_to_cover.astype(bool).copy()
+    mid = int(np.prod(ps) // 2)
+    pix_ths = (0,) if sparse_data else tuple(
+        t for t in (500, 100, 50, 10, 0) if t < mid)
+    if pix_ths != (0,):
+        raise NotImplementedError(
+            "the dense-data cover cascade is not ported; the port runs "
+            "select_patches_for_sparse_data=True")
+    dev = affs.device
+    vol_shape = tuple(int(s) for s in mask_to_cover.shape)
+    centers = np.array([rp[0] for rp in ranked_patches], dtype=np.int64)
+    n = len(centers)
+    if overlap is not None:
+        overlap_rows = np.asarray(overlap)[tuple(centers.T)] > 0
+    else:
+        overlap_rows = np.zeros(n, dtype=bool)
+    ranks = np.where(overlap_rows, _INF, np.arange(n))
+    rankvol = torch.full(vol_shape, _INF, dtype=torch.int32, device=dev)
+    c_t = torch.as_tensor(centers, device=dev)
+    rankvol[c_t[:, 0], c_t[:, 1], c_t[:, 2]] = torch.as_tensor(
+        ranks, dtype=torch.int32, device=dev)
+
+    # m(x) = min over q of gated_q[x - (off(q) - rad)]; padded by rad
+    # with INF, that read is gp[q][x + 2 rad - off(q)], whose element
+    # offset off(q) . (pixel strides - spatial strides) + x . spatial
+    # strides + 2 rad . spatial strides is affine in (off(q), x): one
+    # strided view of all q, reduced at once
+    pad = []
+    for r in reversed(rad):
+        pad += [int(r), int(r)]
+    gated = torch.where(affs > fc_threshold, rankvol[None],
+                        torch.full_like(rankvol, _INF)[None])
+    gp = F.pad(gated.reshape(tuple(int(p) for p in ps) + gated.shape[1:]),
+               pad, value=_INF)
+    st = gp.stride()
+    view = gp.as_strided(
+        tuple(int(p) for p in ps) + vol_shape,
+        tuple(st[a] - st[a + 3] for a in range(3)) + st[3:],
+        sum(2 * int(r) * st[a + 3] for a, r in enumerate(rad)))
+    m_all = view.amin(dim=(0, 1, 2))
+    mask = torch.as_tensor(np.asarray(mask_to_cover, bool), device=dev)
+    m_all = torch.where(mask, m_all, torch.full_like(m_all, _INF))
+    int_mask = torch.as_tensor(interior(vol_shape, rad), device=dev) & mask
+    r_star = torch.max(torch.where(int_mask, m_all,
+                                   torch.full_like(m_all, -1)))
+    covered = (m_all <= r_star) & (m_all < _INF)
+    idx = torch.where(covered, m_all, torch.full_like(m_all, n))
+    selected = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    selected[idx.reshape(-1).long()] = True
+    selected = selected[:n].cpu().numpy()
+    running = (mask & ~covered).cpu().numpy()
+    return [rp for i, rp in enumerate(ranked_patches) if selected[i]], \
+        running
+
+
+def _thin_cover_lazy(pmasks, win, running, inner, centers, ps):
+    """Exact lazy greedy set cover (cover.py:143-234) over the flat
+    rad-padded volumes ``running`` / ``inner``; ``win[i]`` holds the flat
+    indices of patch i's window.  Returns (selected, capped)."""
+    n = len(centers)
+    max_it = 64 * n + 1024
+    sizes = np.sum(pmasks * running[win], axis=1, dtype=np.float64)
+    stale = np.zeros(n, bool)
+    selected = np.zeros(n, bool)
+    rem = float(np.dot(running, inner))
+    picks = it = 0
+    done = False
+    while not done and picks < n and rem > 0 and it < max_it:
+        it += 1
+        best = int(np.argmax(sizes))
+        if stale[best]:
+            sizes[best] = float(np.dot(pmasks[best], running[win[best]]))
+            stale[best] = False
+            continue
+        best_size = sizes[best]
+        # the reference marks the pick before its zero-size stop
+        selected[best] = True
+        if best_size > 0:
+            w = win[best]
+            newly = pmasks[best] * running[w]
+            rem -= float(np.dot(newly, inner[w]))
+            running[w] -= newly
+            near = np.all(np.abs(centers - centers[best][None]) < ps[None],
+                          axis=1)
+            stale |= near
+            stale[best] = False
+            sizes[best] = 0.0
+        picks += 1
+        done = best_size <= 0
+    return selected, it >= max_it
+
+
+def _thin_cover_full(pmasks, win, running, inner):
+    """Exact full-recompute greedy set cover (cover.py:237-284)."""
+    n = len(pmasks)
+    selected = np.zeros(n, bool)
+    picks, last = 0, 1.0
+    while np.dot(running, inner) > 0 and last > 0 and picks < n:
+        sizes = np.sum(pmasks * running[win], axis=1, dtype=np.float64)
+        best = int(np.argmax(sizes))
+        last = sizes[best]
+        selected[best] = True
+        if last > 0:
+            running[win[best]] -= pmasks[best] * running[win[best]]
+        picks += 1
+    return selected
+
+
+def _thin_cover_volumes(mask_to_cover: np.ndarray, centers: np.ndarray,
+                        ps: np.ndarray):
+    """(win, running, inner) for the set-cover loops: the to-cover mask and
+    the interior, rad-padded and flattened (float32), and for each patch
+    the flat indices of its window, centers[i] + off(p) in padded
+    coordinates."""
+    rad = ps // 2
+    pads = [(int(r), int(r)) for r in rad]
+    running = np.pad(np.asarray(mask_to_cover, np.float32), pads)
+    inner = np.pad(interior(mask_to_cover.shape, rad).astype(np.float32),
+                   pads)
+    pos = centers[:, None, :] + patch_offsets(ps)[None]
+    win = np.ravel_multi_index(tuple(np.moveaxis(pos, -1, 0)), running.shape)
+    return win, running.reshape(-1), inner.reshape(-1)
+
+
+def thin_out_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
+                          selected_patches: list, patchshape,
+                          fc_threshold: float = 0.5) -> list:
+    """Greedy set-cover thinning of the selected patches: repeatedly keep
+    the patch covering the most still-uncovered pixels."""
+    ps = np.asarray(patchshape, dtype=np.int64)
+    if not selected_patches:
+        return []
+    centers = np.array([rp[0] for rp in selected_patches], dtype=np.int64)
+    c_t = torch.as_tensor(centers, device=affs.device)
+    pmasks = (affs[:, c_t[:, 0], c_t[:, 1], c_t[:, 2]].T
+              > fc_threshold).cpu().numpy().astype(np.float32)
+    win, running0, inner = _thin_cover_volumes(mask_to_cover, centers, ps)
+    selected, capped = _thin_cover_lazy(pmasks, win, running0.copy(), inner,
+                                        centers, ps)
+    if capped:
+        selected = _thin_cover_full(pmasks, win, running0.copy(), inner)
+    return [rp for i, rp in enumerate(selected_patches) if selected[i]]

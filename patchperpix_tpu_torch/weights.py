@@ -1,0 +1,89 @@
+"""JAX-package parameter trees -> the port's ``state_dict``.
+
+The JAX package's parameters are a Flax tree ``{"params": {"unet":
+{"ConvPass_0": {"Conv_0": {"kernel", "bias"}}}, ...}}``; the port's
+modules carry the same names, so the mapping is name for name, with
+three changes of layout:
+
+- a Flax conv kernel ``(kz, ky, kx, in, out)`` becomes torch's
+  ``(out, in, kz, ky, kx)``;
+- Flax ``nn.ConvTranspose`` (``transpose_kernel=False``) correlates the
+  stride-dilated input with its kernel, i.e. ``y[s*i + t] = x[i] *
+  w[k-1-t]``, while torch's ``ConvTranspose3d`` computes ``y[s*i + t] =
+  x[i] * W[t]`` with ``W`` laid out ``(in, out, k...)``: the kernel is
+  permuted to ``(in, out, k...)`` and flipped along each spatial axis;
+- biases are unchanged.
+
+``parity/bench_ckpt_params.npz`` holds the trained crop checkpoint's tree
+flattened with '/'-joined keys (``scripts/export_torch_fixtures.py``
+writes it from the orbax checkpoint ``parity/bench_ckpt``).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from .models import PPPConfig, PPPModel
+from .utils.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BENCH_PARAMS = os.path.join(REPO, "parity", "bench_ckpt_params.npz")
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """Nested dict of arrays -> {'a/b/c': array}."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out.update(flatten_tree(dict(v), key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def load_npz(path: str = BENCH_PARAMS) -> dict:
+    """Flat {'params/unet/...': float32 array} from an exported .npz."""
+    with np.load(path) as z:
+        return {k: np.asarray(z[k], np.float32) for k in z.files}
+
+
+def to_state_dict(tree: dict) -> dict:
+    """Flax parameter tree (nested or '/'-flattened) -> torch state_dict."""
+    sd = {}
+    for key, val in flatten_tree(tree).items():
+        parts = key.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        leaf = parts[-1]
+        name = ".".join(parts[:-1])
+        t = torch.from_numpy(np.ascontiguousarray(val, np.float32))
+        if leaf == "bias":
+            sd[name + ".bias"] = t
+        elif leaf == "kernel":
+            nd = t.ndim - 2
+            sp = tuple(range(nd))
+            if parts[-2].startswith("ConvTranspose"):
+                w = t.permute(nd, nd + 1, *sp).flip(
+                    tuple(range(2, 2 + nd)))
+            else:
+                w = t.permute(nd + 1, nd, *sp)
+            sd[name + ".weight"] = w.contiguous()
+        else:
+            raise KeyError(f"unexpected parameter leaf {key!r}")
+    return sd
+
+
+def build_model(cfg: PPPConfig, tree: dict | None = None,
+                device="cuda") -> PPPModel:
+    """PPPModel with the given Flax parameters (default: the committed
+    trained crop checkpoint), in eval mode, cast to the config's compute
+    dtype, on ``device``."""
+    dev = resolve_device(device)
+    model = PPPModel(cfg)
+    sd = to_state_dict(load_npz() if tree is None else tree)
+    model.load_state_dict(sd, strict=True)
+    return model.to(device=dev, dtype=model.compute_dtype).eval()

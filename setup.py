@@ -7,7 +7,8 @@ setup(
                  "segmentation from dense patch predictions "
                  "(JAX/XLA/Pallas)"),
     packages=find_packages(exclude=("tests",)),
-    package_data={"patchperpix_tpu": ["native/*.cpp"]},
+    package_data={"patchperpix_tpu": ["native/*.cpp"],
+                  "patchperpix_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "scipy", "h5py", "tensorstore", "networkx", "pillow"],

@@ -1,0 +1,233 @@
+"""Port's assembly and whole slice vs the JAX package, on the CPU.
+
+The instance maps must be identical up to relabelling.  Their inputs
+agree to ~1e-6 (float32 on both sides, sums in another order), and at
+these sizes no threshold, rank order or graph edge order flips on that;
+the full-size run on the card is held against the stored JAX reference
+by chip_smoke.py with the gates stated there.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import bench
+from patchperpix_tpu.assembly import VoteInstancesParams as JParams
+from patchperpix_tpu.assembly import to_instance_seg as jax_assemble
+from patchperpix_tpu.assembly.vote_instances import \
+    numinst_from_probs as jax_numinst
+from patchperpix_tpu.infer.fused import decode_volume_device as jax_decode
+from patchperpix_tpu.infer.fused import predict_volume_device as jax_predict
+from patchperpix_tpu.models import PPPModel as JModel
+from patchperpix_tpu.ops import synthetic
+from patchperpix_tpu.utils.postprocess import \
+    remove_small_components as jax_rm_small
+from patchperpix_tpu_torch.assembly import (VoteInstancesParams,
+                                            numinst_from_probs,
+                                            to_instance_seg)
+from patchperpix_tpu_torch.infer.fused import (decode_volume_device,
+                                               predict_volume_device)
+from patchperpix_tpu_torch.models import PPPConfig
+from patchperpix_tpu_torch.utils.postprocess import remove_small_components
+from patchperpix_tpu_torch.weights import build_model
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BENCH_VI = dict(patchshape=(7, 7, 7), patch_threshold=0.6, fc_threshold=0.5,
+                overlapping_inst=True, mws=True,
+                select_patches_for_sparse_data=True,
+                skeletonize_foreground=False, numinst_threshs=(0.9, 0.1))
+
+
+def same_up_to_relabelling(a, b) -> bool:
+    """True iff a bijection of ids maps a onto b, with 0 <-> 0."""
+    a, b = np.asarray(a).ravel(), np.asarray(b).ravel()
+    if not np.array_equal(a == 0, b == 0):
+        return False
+    pairs = np.unique(np.stack([a, b], 1), axis=0)
+    return len(np.unique(pairs[:, 0])) == len(pairs) == \
+        len(np.unique(pairs[:, 1]))
+
+
+def test_relabelling_helper():
+    a = np.array([0, 1, 1, 2, 2, 0])
+    assert same_up_to_relabelling(a, np.array([0, 5, 5, 3, 3, 0]))
+    assert not same_up_to_relabelling(a, np.array([0, 5, 5, 5, 5, 0]))
+    assert not same_up_to_relabelling(a, np.array([0, 1, 1, 2, 3, 0]))
+    assert not same_up_to_relabelling(a, np.array([1, 1, 1, 2, 2, 0]))
+
+
+@pytest.mark.parametrize("ps,mws", [((3, 3, 3), True), ((5, 5, 5), True)])
+def test_two_blob_assembly_matches_jax(ps, mws):
+    rng = np.random.RandomState(0)
+    labels = synthetic.two_blob_labels_3d()
+    affs = synthetic.labels_to_affinities(labels, np.array(ps))
+    affs = np.clip(affs * 0.85 + 0.15 * rng.rand(*affs.shape), 0, 1
+                   ).astype(np.float32)
+    fg = labels > 0
+    numinst = fg.astype(np.uint8)
+    kw = dict(patchshape=ps, mws=mws, patch_threshold=0.5)
+    want, _ = jax_assemble(affs, fg, fg.copy(), numinst,
+                           JParams(engine="jax", **kw))
+    got, fg_out = to_instance_seg(affs, fg, fg.copy(), numinst,
+                                  VoteInstancesParams(**kw), device="cpu")
+    assert got.dtype == np.uint16 and np.array_equal(fg_out, fg)
+    assert len(np.unique(want)) == 3
+    assert same_up_to_relabelling(got, want)
+
+
+def test_candidate_sort_is_rank_patch_list():
+    """to_instance_seg sorts the gathered candidate scores with a stable
+    descending argsort; that is the host rank_patch_list order."""
+    from patchperpix_tpu_torch.ops.np_reference import rank_patch_list
+
+    rng = np.random.RandomState(0)
+    scores = rng.randint(0, 5, size=(6, 7, 8)).astype(np.float32)
+    cand = np.argwhere(scores > 0)
+    svals = scores[tuple(cand.T)]
+    order = np.argsort(-svals, kind="stable")
+    want = rank_patch_list([tuple(c) for c in cand], scores)
+    np.testing.assert_array_equal(cand[order], [c for c, _ in want])
+    assert [float(v) for v in svals[order]] == [v for _, v in want]
+
+
+def test_mws_and_paint_match_jax_on_reference_graph():
+    """Mutex watershed and painting on the stored full-size graph of the
+    JAX package's float32 run: same components, same map, exactly."""
+    from patchperpix_tpu.ops import np_reference as JR
+    from patchperpix_tpu_torch.ops import np_reference as TR
+
+    ref = np.load(os.path.join(REPO, "parity", "torch_port_ref_f32.npz"))
+    pairs, weights = ref["pairs"], ref["weights"]
+    comps = TR.graph_components(pairs, weights)
+    assert comps == JR.graph_components(pairs, weights, mws=True)
+    assert len(comps) == int(ref["n_components"])
+    rng = np.random.RandomState(0)
+    patches = {c: rng.rand(343).astype(np.float32)
+               for comp in comps for c in comp}
+    np.testing.assert_array_equal(
+        TR.components_to_instances(comps, patches, (7, 7, 7), (50, 50, 50),
+                                   patch_threshold=0.6),
+        JR.components_to_instances(comps, patches, (7, 7, 7), (50, 50, 50),
+                                   patch_threshold=0.6))
+
+
+S = 20
+
+
+@pytest.fixture(scope="module")
+def jax_slice():
+    """The JAX package's float32 bench pipeline on a 20^3 subcrop."""
+    jm, jcfg = bench.crop_model()
+    params = bench.load_trained_params(jm, jcfg)
+    jcfg = dataclasses.replace(jcfg, dtype="float32")
+    jm = JModel(jcfg)
+    raw = bench.load_raw_clip()[:, :S, :S, :S]
+    code, prob = jax_predict(jm, params, raw, jcfg, (S,) * 3, (S,) * 3)
+    numinst = jax_numinst(np.asarray(prob), JParams(**BENCH_VI))
+    fg = numinst > 0
+    dec = jax_decode(jm, params, code, fg, jcfg)
+    inst, _ = jax_assemble(dec, fg, fg.copy(), numinst,
+                           JParams(engine="jax", **BENCH_VI))
+    inst = np.asarray(inst).copy()
+    inst[~fg] = 0
+    return dict(raw=raw, cfg=jcfg, numinst=numinst, fg=fg,
+                dec=np.asarray(dec), inst=jax_rm_small(inst, 25))
+
+
+def test_assembly_of_jax_decode_matches_jax(jax_slice):
+    j = jax_slice
+    got, _ = to_instance_seg(j["dec"], j["fg"], j["fg"].copy(), j["numinst"],
+                             VoteInstancesParams(**BENCH_VI), device="cpu")
+    got[~j["fg"]] = 0
+    got = remove_small_components(got, 25)
+    assert len(np.unique(j["inst"])) >= 3
+    assert same_up_to_relabelling(got, j["inst"])
+
+
+def test_whole_slice_matches_jax(jax_slice):
+    """Raw -> predict -> numinst -> decode -> assemble -> fg mask -> small
+    component removal, all in the port, vs the JAX package."""
+    j = jax_slice
+    cfg = PPPConfig(**{f.name: getattr(j["cfg"], f.name)
+                       for f in dataclasses.fields(j["cfg"])})
+    model = build_model(cfg, device="cpu")
+    vp = VoteInstancesParams(**BENCH_VI)
+    code, prob = predict_volume_device(model, j["raw"], cfg, (S,) * 3,
+                                       (S,) * 3, device="cpu")
+    numinst = numinst_from_probs(prob.numpy(), vp)
+    np.testing.assert_array_equal(numinst, j["numinst"])
+    fg = numinst > 0
+    dec = decode_volume_device(model, code, fg, cfg, device="cpu")
+    np.testing.assert_allclose(dec.numpy(), j["dec"], atol=1e-4)
+    timings, inter = {}, {}
+    inst, _ = to_instance_seg(dec, fg, fg.copy(), numinst, vp,
+                              device="cpu", timings=timings,
+                              intermediates=inter)
+    inst[~fg] = 0
+    inst = remove_small_components(inst, 25)
+    assert same_up_to_relabelling(inst, j["inst"])
+    assert set(timings) == {"consensus", "rank", "cover", "thin_cover",
+                            "pairs", "graph", "mws_paint"}
+    assert len(inter["pairs"]) == len(inter["weights"]) > 0
+
+
+def test_to_instance_seg_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    labels = synthetic.two_blob_labels_3d()
+    affs = synthetic.labels_to_affinities(labels, np.array((3, 3, 3)))
+    fg = labels > 0
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        to_instance_seg(affs, fg, fg.copy(), fg.astype(np.uint8),
+                        VoteInstancesParams(patchshape=(3, 3, 3)))
+
+
+NO_JAX = r"""
+import importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax",
+                                  "patchperpix_tpu"):
+            raise ImportError("blocked import of " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+import numpy as np, torch
+torch.set_num_threads(1)
+import patchperpix_tpu_torch
+for m in pkgutil.walk_packages(patchperpix_tpu_torch.__path__,
+                               "patchperpix_tpu_torch."):
+    __import__(m.name)
+import chip_smoke
+from patchperpix_tpu_torch.models import PPPConfig
+from patchperpix_tpu_torch.weights import build_model
+from patchperpix_tpu_torch.infer.fused import predict_volume_device
+cfg = PPPConfig(patchshape=(7, 7, 7), num_channels=3, num_fmaps=20,
+                fmap_inc_factors=(3, 3), fmap_dec_factors=(1.0, 1.0),
+                downsample_factors=((2, 2, 2), (2, 2, 2)), padding="same",
+                overlapping_inst=True, train_code=True)
+model = build_model(cfg, device="cpu")
+code, prob = predict_volume_device(
+    model, np.random.RandomState(0).rand(3, 8, 8, 8).astype(np.float32),
+    cfg, (8, 8, 8), (8, 8, 8), device="cpu")
+assert code.shape == (176, 8, 8, 8) and prob.shape == (3, 8, 8, 8)
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "flax", "patchperpix_tpu")]
+assert not bad, bad
+print("NO_JAX_OK")
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", NO_JAX], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "NO_JAX_OK" in r.stdout, r.stderr[-3000:]
