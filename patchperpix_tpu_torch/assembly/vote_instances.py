@@ -3,9 +3,18 @@
 Counterpart of ``patchperpix_tpu/assembly/vote_instances.py`` along its
 main path (``to_instance_seg`` with the consensus and rank kernels,
 vote_instances.py:375-780): consensus (CUDA kernel) -> rank (CUDA kernel)
--> candidate gather and host stable sort -> min-scatter greedy cover ->
-lazy thin cover -> host patch pairs -> symmetrized consensus + graph
-weights -> host mutex watershed -> paint from a thresholded device gather.
+-> candidate gather and host stable sort -> greedy cover (min-scatter for
+sparse data, the threshold cascade for dense data) -> lazy thin cover ->
+host patch pairs -> symmetrized consensus + graph weights -> components
+(host mutex watershed, or label propagation on the device when mws is off)
+-> paint from a thresholded device gather.
+
+3D volumes and 2D ones run the same stages; a 2D volume is the flat-z
+volume (1, H, W) with patchshape (1, p, p), as in the JAX package, and
+takes the 2D kernels (``ops/consensus_kernels.py``).  ``consensus_bf16``
+is honoured as given in 2D as in 3D: the JAX package's automatic switch
+to a bf16 consensus above 1.5 GB answers a 16 GB TPU and is not carried
+over.
 """
 
 from __future__ import annotations
@@ -17,10 +26,12 @@ import numpy as np
 import torch
 
 from ..ops import np_reference as ref
-from ..ops.consensus import (ConsensusConfig, _masks, patch_graph_weights,
+from ..ops.consensus import (ConsensusConfig, patch_graph_weights,
                              symmetrize_half)
-from ..ops.consensus_kernels import consensus_half, rank_scores
+from ..ops.consensus_kernels import (consensus_half, consensus_operands,
+                                     rank_scores)
 from ..ops.cover import greedy_cover_device, thin_out_cover_device
+from ..ops.graph_device import graph_components_device
 from ..utils.device import resolve_device
 
 
@@ -129,7 +140,8 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
                     params: VoteInstancesParams, device="cuda",
                     timings: dict | None = None, intermediates: dict | None
                     = None):
-    """Full assembly of a (P, *vol) affinity stack (3D patchshapes).
+    """Full assembly of a (P, *vol) affinity stack; *vol is (Z, Y, X),
+    with Z == 1 and patchshape (1, p, p) for 2D.
 
     Returns (instances uint16, foreground uint8) as numpy arrays.
     ``timings``, if given, receives per-stage seconds; ``intermediates``,
@@ -140,7 +152,8 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
         raise NotImplementedError("skeletonize_foreground is not ported")
     ps = np.asarray(params.patchshape, dtype=np.int64)
     if len(ps) != 3:
-        raise NotImplementedError("the port assembles 3D patchshapes")
+        raise ValueError("patchshape must have three extents; 2D is "
+                         "(1, p, p) on a (1, H, W) volume")
     rad = ps // 2
     if torch.is_tensor(pred_affs):
         affs = pred_affs.to(device=dev, dtype=torch.float32).contiguous()
@@ -163,15 +176,16 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     overlap = (torch.as_tensor(overlap_mask > 0, device=dev)
                if params.overlapping_inst else None)
 
-    # (1) consensus: masks in PyTorch, the canonical half from the kernel
-    hi, lo, tgt = _masks(affs, ccfg, overlap)
-    cons = consensus_half(affs, hi, lo, ccfg)
+    # (1) consensus: operands in PyTorch (2D: one gated stack and a target
+    # plane; 3D: the mask stacks), the canonical half from the kernel
+    operands = consensus_operands(affs, ccfg, overlap)
+    cons = consensus_half(affs, operands, ccfg)
     stages.mark("consensus")
 
     # (2) rank kernel, then a gather of the candidates' scores and the
     # host stable descending sort (ties keep scan order)
-    scores = rank_scores(affs, cons, hi, lo, tgt, ccfg)
-    del hi, lo, tgt
+    scores = rank_scores(affs, cons, operands, ccfg)
+    del operands
     cand = np.argwhere(foreground & inner)
     if len(cand) == 0:
         return instances, foreground.astype(np.uint8)
@@ -214,11 +228,12 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     inter["pairs"], inter["weights"] = pairs, weights
     stages.mark("graph")
 
-    # (6) components (host union-find / mutex watershed) -> painting
-    if not params.mws:
-        raise NotImplementedError(
-            "label propagation without mws (graph_device) is not ported")
-    comps = ref.graph_components(pairs, weights)
+    # (6) components (host mutex watershed, or label propagation on the
+    # device) -> painting
+    if params.mws:
+        comps = ref.graph_components(pairs, weights)
+    else:
+        comps = graph_components_device(pairs, weights, dev)
     paint = _paint_src(affs, comps, params.patch_threshold)
     instances = ref.components_to_instances(
         comps, paint, ps, vol_shape, patch_threshold=params.patch_threshold)

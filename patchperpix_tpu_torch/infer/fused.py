@@ -9,6 +9,11 @@ The JAX package edge-pads the last decode chunk with a real index
 (``_dec_scatter``) because XLA keeps an arbitrary winner among duplicate
 scatter targets.  Here every chunk scatters only its own unique
 foreground indices (``index_copy_``), so no padding is needed.
+
+A 2D model (``PPPConfig.spatial_dims`` 2) predicts and decodes (H, W)
+windows; ``lift_2d`` turns the decoded stack and its volumes into the
+flat-z volume (1, H, W) that ``to_instance_seg`` assembles with
+patchshape (1, p, p).
 """
 
 from __future__ import annotations
@@ -87,3 +92,13 @@ def decode_volume_device(model: PPPModel, code: torch.Tensor,
             patches = torch.sigmoid(logits).reshape(len(idx), P)
             out.index_copy_(1, idx, patches.T.float())
     return out.reshape((P,) + vol_shape)
+
+
+def lift_2d(dec: torch.Tensor, *volumes):
+    """A 2D window's decoded stack (P, H, W) and its (H, W) volumes
+    (foreground, numinst, ...) as (P, 1, H, W) and (1, H, W): the flat-z
+    layout in which 2D data is assembled.  Stacks and volumes that already
+    carry the z axis pass through."""
+    if dec.ndim == 3:
+        dec = dec[:, None]
+    return (dec,) + tuple(v if v.ndim == 3 else v[None] for v in volumes)

@@ -3,9 +3,10 @@
 Counterpart of ``patchperpix_tpu/models/autoencoder.py``: a flat code
 vector is reshaped to a small spatial grid of ``code_fmaps`` channels,
 expanded by a 1x1 conv, upsampled with resize-convs and cropped to the
-patch shape.  The Flax decoder reshapes codes channels-last
-(``(N, s, s, s, code_fmaps)``), so this one reshapes the same way and
-then permutes to channels-first.
+patch shape, in 2D (``patchshape`` (25, 25): an s x s grid) or 3D.  The
+Flax decoder reshapes codes channels-last (``(N, s, ..., s,
+code_fmaps)``), so this one reshapes the same way and then permutes to
+channels-first.
 """
 
 from __future__ import annotations
@@ -26,18 +27,20 @@ class PatchDecoder(nn.Module):
                  upsampling: str = "resize_conv", activation: str = "relu"):
         super().__init__()
         self.patchshape = tuple(int(p) for p in patchshape)
-        if len(self.patchshape) != 3:
-            raise NotImplementedError("the port's decoder is 3D")
+        nd = self.spatial_dims = len(self.patchshape)
+        if nd not in (2, 3):
+            raise ValueError(f"decoder patchshape {self.patchshape}: 2 or 3 "
+                             "extents (size-1 axes squeezed out)")
         self.code_units = code_units
         self.code_fmaps = code_fmaps
-        s = round((code_units / code_fmaps) ** (1.0 / 3))
-        if s ** 3 * code_fmaps != code_units:
-            raise ValueError("code_units must factor as code_fmaps * s^3")
+        s = round((code_units / code_fmaps) ** (1.0 / nd))
+        if s ** nd * code_fmaps != code_units:
+            raise ValueError("code_units must factor as code_fmaps * s^ndim")
         self.code_spatial = int(s)
         nf_bottom = num_fmaps[-1]
-        self.ConvPass_0 = ConvPass(code_fmaps, nf_bottom, (1, 1, 1), 1,
+        self.ConvPass_0 = ConvPass(code_fmaps, nf_bottom, (1,) * nd, 1,
                                    "SAME", activation)
-        ks = (kernel_size,) * 3
+        ks = (kernel_size,) * nd
         up_features = list(reversed(num_fmaps))[1:] + [1]
         prev = nf_bottom
         self.n_up = len(up_features)
@@ -52,9 +55,10 @@ class PatchDecoder(nn.Module):
 
     def forward(self, code: torch.Tensor) -> torch.Tensor:
         """code: (N, code_units) -> patch logits (N, *patchshape)."""
-        s = self.code_spatial
-        x = code.reshape(-1, s, s, s, self.code_fmaps)
-        x = x.permute(0, 4, 1, 2, 3)
+        nd = self.spatial_dims
+        x = code.reshape((-1,) + (self.code_spatial,) * nd
+                         + (self.code_fmaps,))
+        x = x.permute(0, nd + 1, *range(1, nd + 1))
         x = self.ConvPass_0(x)
         for i in range(self.n_up):
             x = getattr(self, f"Upsample_{i}")(x)

@@ -1,8 +1,10 @@
 """PatchPerPix model: U-Net backbone + code head + numinst head + decoder.
 
 Counterpart of ``patchperpix_tpu/models/ppp.py`` for the ``unet`` network
-style in 3D.  The API boundary is channels-first (C, *spatial), like the
-JAX package's.
+style, in 3D and in 2D (``patchshape`` (1, p, p): ``spatial_dims`` 2, the
+leading size-1 axis squeezed out of the per-level factors, ``Conv2d``
+modules, raw (N, C, H, W)).  The API boundary is channels-first
+(C, *spatial), like the JAX package's.
 
 ``dtype="bfloat16"`` in the JAX package computes every conv in bf16 from
 float32 parameters that Flax casts on each call.  Here the module is cast
@@ -81,25 +83,31 @@ class PPPModel(nn.Module):
         if cfg.network_style != "unet":
             raise NotImplementedError(
                 f"network style {cfg.network_style!r} is not ported")
-        if cfg.spatial_dims != 3:
-            raise NotImplementedError("the port's model is 3D")
+        nd = cfg.spatial_dims
+        if nd not in (2, 3):
+            raise ValueError(f"patchshape {cfg.patchshape}: 2 or 3 extents "
+                             "above 1")
         self.cfg = cfg
+        # squeeze leading size-1 patch axes out of the per-level factors
+        ds = tuple(tuple(f[-nd:]) for f in cfg.downsample_factors)
+        ae_ds = tuple(tuple(f[-nd:]) for f in cfg.ae_downsample_factors)
+        conv = nn.Conv2d if nd == 2 else nn.Conv3d
         self.unet = UNet(
             cfg.num_channels, num_fmaps=cfg.num_fmaps,
             fmap_inc_factors=cfg.fmap_inc_factors,
             fmap_dec_factors=cfg.fmap_dec_factors,
-            downsample_factors=cfg.downsample_factors,
+            downsample_factors=ds,
             kernel_size=cfg.kernel_size,
             num_repetitions=cfg.num_repetitions, padding=cfg.padding,
             upsampling=cfg.upsampling, activation=cfg.activation)
         feats = self.unet.out_channels
-        self.head_code_affs = nn.Conv3d(feats, cfg.out_channels_head1, 1)
-        self.head_fgbg_numinst = nn.Conv3d(feats, cfg.out_channels_head2, 1)
+        self.head_code_affs = conv(feats, cfg.out_channels_head1, 1)
+        self.head_fgbg_numinst = conv(feats, cfg.out_channels_head2, 1)
         if cfg.train_code:
             self.decoder = PatchDecoder(
                 cfg.patchshape_squeezed, code_units=cfg.code_units,
                 code_fmaps=cfg.ae_code_fmaps, num_fmaps=cfg.ae_num_fmaps,
-                downsample_factors=cfg.ae_downsample_factors,
+                downsample_factors=ae_ds,
                 kernel_size=cfg.ae_kernel_size,
                 num_repetitions=cfg.ae_num_repetitions,
                 upsampling=cfg.ae_upsampling)

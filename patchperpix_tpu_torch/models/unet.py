@@ -1,9 +1,12 @@
-"""3D U-Net backbone, valid- or same-padding.
+"""U-Net backbone (2D or 3D), valid- or same-padding.
 
 Counterpart of ``patchperpix_tpu/models/unet.py``.  Layout is PyTorch's
-channels-first (N, C, Z, Y, X).  Submodules carry the Flax package's
-auto-generated names (``ConvPass_0``, ``Conv_1``, ``Upsample_0`` ...) so
-that ``weights.py`` maps a parameter tree onto this module name for name.
+channels-first (N, C, *spatial); the number of spatial dims follows the
+kernel sizes and factors given (``Conv2d`` / ``ConvTranspose2d`` /
+``max_pool2d`` for two, the 3D modules for three).  Submodules carry the
+Flax package's auto-generated names (``ConvPass_0``, ``Conv_1``,
+``Upsample_0`` ...) so that ``weights.py`` maps a parameter tree onto
+this module name for name.
 """
 
 from __future__ import annotations
@@ -32,6 +35,11 @@ def _padding(padding: str, kernel_size) -> tuple:
     return tuple(k // 2 for k in kernel_size)
 
 
+_CONV = {2: nn.Conv2d, 3: nn.Conv3d}
+_CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+_MAX_POOL = {2: nn.functional.max_pool2d, 3: nn.functional.max_pool3d}
+
+
 def _act(name):
     return {"relu": torch.relu, None: None}[name]
 
@@ -46,7 +54,7 @@ class ConvPass(nn.Module):
         self.activation = _act(activation)
         pad = _padding(padding, kernel_size)
         for i in range(num_repetitions):
-            self.add_module(f"Conv_{i}", nn.Conv3d(
+            self.add_module(f"Conv_{i}", _CONV[len(kernel_size)](
                 in_channels if i == 0 else features, features,
                 tuple(kernel_size), padding=pad))
         self.num_repetitions = num_repetitions
@@ -62,8 +70,8 @@ class ConvPass(nn.Module):
 class Upsample(nn.Module):
     """Transposed-conv or nearest-resize + 1x1-conv upsampling.
 
-    The transposed conv is ``nn.ConvTranspose3d`` with kernel = stride =
-    factors; its weight is the Flax kernel spatially flipped (Flax's
+    The transposed conv is ``nn.ConvTranspose2d`` / ``3d`` with kernel =
+    stride = factors; its weight is the Flax kernel spatially flipped (Flax's
     ``ConvTranspose`` does not transpose the kernel, see weights.py)."""
 
     def __init__(self, in_channels: int, factors: Sequence[int],
@@ -74,10 +82,10 @@ class Upsample(nn.Module):
         self.factors = tuple(int(f) for f in factors)
         self.activation = _act(activation)
         if mode == "trans_conv":
-            self.ConvTranspose_0 = nn.ConvTranspose3d(
+            self.ConvTranspose_0 = _CONV_T[len(self.factors)](
                 in_channels, features, self.factors, stride=self.factors)
         elif mode == "resize_conv":
-            self.Conv_0 = nn.Conv3d(in_channels, features, 1)
+            self.Conv_0 = _CONV[len(self.factors)](in_channels, features, 1)
         else:
             raise ValueError(f"unknown upsampling mode {mode!r}")
 
@@ -108,7 +116,8 @@ class UNet(nn.Module):
         self.fmap_dec_factors = tuple(fmap_dec_factors)
         self.downsample_factors = tuple(tuple(f) for f in downsample_factors)
         pad = "VALID" if padding == "valid" else "SAME"
-        ks = (kernel_size,) * 3
+        self.spatial_dims = len(self.downsample_factors[0])
+        ks = (kernel_size,) * self.spatial_dims
         L = self.levels
         # creation order = Flax's auto-naming order in UNet.__call__
         n_conv = 0
@@ -158,7 +167,7 @@ class UNet(nn.Module):
             x = getattr(self, f"ConvPass_{level}")(x)
             skips.append(x)
             f = self.downsample_factors[level]
-            x = nn.functional.max_pool3d(x, f, stride=f)
+            x = _MAX_POOL[self.spatial_dims](x, f, stride=f)
         x = getattr(self, f"ConvPass_{L}")(x)
         for n_up, level in enumerate(reversed(range(L))):
             x = getattr(self, f"Upsample_{n_up}")(x)

@@ -10,7 +10,8 @@ together:
 
 into ``patchperpix_tpu_torch/build/`` (listed in ``.gitignore``).  The
 file name carries a hash of the source and the flags, so an edited source
-is rebuilt.  The library is loaded once per process.
+is rebuilt.  The library is loaded once per process.  ``CudaKernel`` is
+one entry point of such a library with its launch count.
 """
 
 from __future__ import annotations
@@ -87,3 +88,29 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         _loaded[name] = ctypes.CDLL(path)
     return _loaded[name]
+
+
+class CudaKernel:
+    """One kernel of ``csrc/``: its C entry point and its launch count."""
+
+    def __init__(self, name: str, symbol: str, argtypes, replaces: str):
+        self.name = name
+        self.source = f"patchperpix_tpu_torch/csrc/{name}.cu"
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.replaces = replaces
+        self.launches = 0
+
+    def launch(self, *args):
+        lib = load(self.name)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        err = fn(*args)
+        if err != 0:
+            msg = getattr(lib, f"ppp_{self.name}_error_string")
+            msg.argtypes = [ctypes.c_int]
+            msg.restype = ctypes.c_char_p
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {err} ({msg(err).decode()})")
+        self.launches += 1

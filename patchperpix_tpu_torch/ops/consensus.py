@@ -13,7 +13,15 @@ holds the plain versions of the two hand-written kernels
   version of ``csrc/rank.cu``; ``rank_epilogue`` finishes the score;
 - ``symmetrize_half`` / ``embed_half``;
 - ``patch_graph_weights``: the per-pair patch-graph weight in the JAX
-  package's expectation form.
+  package's expectation form;
+- the 2D path (``ps = (1, p, p)`` on a ``(P, 1, H, W)`` stack, square odd
+  p >= 3: ``is_2d``), counterpart of
+  ``patchperpix_tpu/ops/pallas_consensus_2d.py``: ``gated_stack_2d`` (one
+  sentinel-gated stack and a target plane instead of four stacks),
+  ``consensus_half_2d_plain`` and ``rank_acc_2d_plain``, the plain
+  versions of ``csrc/consensus2d.cu`` and ``csrc/rank2d.cu``, and
+  ``rank_epilogue_2d``.  The 2D canonical half is ``(p, 2p-1, H, W)``:
+  row displacement d >= 0, and at d == 0 only dx > 0.
 
 Conventions follow ``ops/np_reference.py``: affs is (P, *vol) float32,
 the full consensus is (*neigh, *vol) with neigh = 2*ps-1, the offset index
@@ -24,6 +32,7 @@ entries of the dz == 0 plane zero.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -275,10 +284,136 @@ def rank_epilogue(acc: torch.Tensor, affs: torch.Tensor, hi: torch.Tensor,
                        torch.full_like(score, sentinel)).to(torch.float32)
 
 
+def is_2d(cfg: ConsensusConfig, vol_shape=None) -> bool:
+    """True where the 2D kernels cover this configuration: a flat-z
+    volume and a square odd 2D patch of side >= 3."""
+    ps = cfg.ps
+    if len(ps) != 3 or int(ps[0]) != 1:
+        return False
+    if vol_shape is not None and int(vol_shape[0]) != 1:
+        return False
+    p = int(ps[1])
+    return p == int(ps[2]) and p % 2 == 1 and p >= 3
+
+
+def _rows_cfg(cfg: ConsensusConfig) -> ConsensusConfig:
+    """The (1, p, p) patch over (1, H, W) relabelled as a (p, p, 1) patch
+    over (H, W, 1): the same pixels in the same memory order, and the 3D
+    canonical half (psz, ndy, ndx = 1, H, W, 1) of that labelling is the 2D
+    canonical half (p, 2p-1, H, W), so the 3D plain versions serve 2D."""
+    p = int(cfg.ps[1])
+    return dataclasses.replace(cfg, patchshape=(p, p, 1))
+
+
+def gated_stack_2d(affs: torch.Tensor, cfg: ConsensusConfig,
+                   overlap: torch.Tensor | None = None,
+                   center_valid: torch.Tensor | None = None):
+    """The operands of the 2D kernels: (ag (P, H, W), tgt (H, W)), float32.
+
+    ag[q][c] = affs[q][c] where c is an eligible center (foreground,
+    interior, ``center_valid``), else the sentinel -1; tgt is 1 where a
+    pixel is target-eligible (foreground and, with ``overlapping_inst``,
+    outside ``overlap``).  With affs in [0, 1] the four stacks of the 3D
+    path follow from them per pixel (``derive_2d``), so device memory
+    holds one (P, H, W) stack instead of four.  The stack is centre-
+    aligned: the target of ag[q][c] is pixel c + off(q) - rad."""
+    if not is_2d(cfg, affs.shape[1:]) or affs.shape[0] != cfg.P:
+        raise ValueError(f"expected affs (P={cfg.P}, 1, H, W) for a square "
+                         f"odd 2D patchshape, got {tuple(affs.shape)}, ps "
+                         f"{tuple(cfg.ps)}")
+    H, W = (int(s) for s in affs.shape[2:])
+    a2 = affs.reshape(cfg.P, H, W)
+    fg = a2[cfg.mid] > cfg.patch_threshold
+    center_ok = fg & interior_mask((1, H, W), cfg.rad, affs.device)[0]
+    if center_valid is not None:
+        center_ok = center_ok & center_valid.to(
+            device=affs.device, dtype=torch.bool).reshape(H, W)
+    tgt_ok = fg
+    if cfg.overlapping_inst and overlap is not None:
+        tgt_ok = tgt_ok & ~overlap.to(device=affs.device,
+                                      dtype=torch.bool).reshape(H, W)
+    ag = torch.where(center_ok[None], a2.to(torch.float32),
+                     a2.new_full((), -1.0, dtype=torch.float32))
+    return ag.contiguous(), tgt_ok.to(torch.float32)
+
+
+def _target_windows_2d(tgt: torch.Tensor, p: int) -> torch.Tensor:
+    """(H, W) -> a (p, p, H, W) view: out[qy, qx][c] = tgt[c + q - rad],
+    zero outside the image."""
+    rad = p // 2
+    w = F.pad(tgt, (rad, rad, rad, rad)).unfold(0, p, 1).unfold(1, p, 1)
+    return w.permute(2, 3, 0, 1)
+
+
+def derive_2d(ag: torch.Tensor, tgt: torch.Tensor, cfg: ConsensusConfig):
+    """(hi, lo), each (P, H, W) float32, from the gated stack and the
+    target plane: hi = (ag > th) * tgt[target], lo = (0 <= ag < bg_th) *
+    tgt[target]; a = ag * hi and b = (1 - ag) * lo follow."""
+    P, H, W = ag.shape
+    t = _target_windows_2d(tgt, int(cfg.ps[1])).reshape(P, H, W)
+    hi = (ag > cfg.patch_threshold).to(torch.float32) * t
+    lo = ((ag >= 0) & (ag < cfg.bg_th)).to(torch.float32) * t
+    return hi, lo
+
+
+def consensus_half_2d_plain(ag: torch.Tensor, tgt: torch.Tensor,
+                            cfg: ConsensusConfig) -> torch.Tensor:
+    """2D canonical-half consensus (p, 2p-1, H, W), float32 or bf16
+    (``cfg.cons_bf16``): what ``unfold_consensus`` of the JAX package
+    holds before it symmetrizes.  Runs ``consensus_half_plain`` over the
+    active centers on the relabelled patch (``_rows_cfg``)."""
+    P, H, W = ag.shape
+    hi, lo = derive_2d(ag, tgt, cfg)
+    half = consensus_half_plain(ag[..., None], hi[..., None], lo[..., None],
+                                _rows_cfg(cfg))
+    return half.reshape(int(cfg.ps[1]), int(cfg.neigh[2]), H, W)
+
+
+def rank_acc_2d_plain(ag: torch.Tensor, tgt: torch.Tensor,
+                      cons_half: torch.Tensor,
+                      cfg: ConsensusConfig) -> torch.Tensor:
+    """Unnormalized 2D rank sum (H, W) over the (p, 2p-1, H, W) half."""
+    P, H, W = ag.shape
+    hi, lo = derive_2d(ag, tgt, cfg)
+    p, nd = int(cfg.ps[1]), int(cfg.neigh[2])
+    acc = rank_acc_plain(hi[..., None], lo[..., None],
+                         cons_half.reshape(p, nd, 1, H, W, 1),
+                         _rows_cfg(cfg))
+    return acc.reshape(H, W)
+
+
+def rank_epilogue_2d(acc: torch.Tensor, ag: torch.Tensor, tgt: torch.Tensor,
+                     cfg: ConsensusConfig) -> torch.Tensor:
+    """``rank_epilogue`` for 2D without (P, H, W) mask stacks: (1, H, W).
+
+    n_tgt is the p x p box sum of the target plane, n_hi the count of
+    patch pixels above threshold whose target is eligible; both are zero
+    off eligible centers (ag is -1 there, and the center gate is
+    ag[mid] >= 0).  fg_cnt = n_hi (n_tgt - 1) - n_hi (n_hi - 1) / 2."""
+    P, H, W = ag.shape
+    p = int(cfg.ps[1])
+    center_ok = ag[cfg.mid] >= 0
+    win = _target_windows_2d(tgt, p)
+    n_tgt = torch.where(center_ok, win.sum(dim=(0, 1)),
+                        torch.zeros_like(tgt))
+    n_hi = ((ag.reshape(p, p, H, W) > cfg.patch_threshold)
+            & (win > 0)).sum(dim=(0, 1)).to(torch.float32)
+    fg_cnt = n_hi * (n_tgt - 1.0) - n_hi * (n_hi - 1.0) / 2.0
+    sentinel = -1.0 if cfg.norm_rank else -9999999.0
+    score = acc / torch.clamp(fg_cnt, min=1.0) if cfg.norm_rank else acc
+    return torch.where(center_ok, score, torch.full_like(score, sentinel)
+                       ).to(torch.float32).reshape(1, H, W)
+
+
 def embed_half(cons_half: torch.Tensor,
                cfg: ConsensusConfig) -> torch.Tensor:
     """Canonical half -> full-extent canonical array (lex-negative planes
-    zero), the layout ``consensus_jax.consensus_array`` returns."""
+    zero), the layout ``consensus_jax.consensus_array`` returns.  A 2D
+    half (p, 2p-1, H, W) gives (1, 2p-1, 2p-1, 1, H, W)."""
+    if cons_half.ndim == 4:
+        p, nd, H, W = cons_half.shape
+        return embed_half(cons_half.reshape(p, nd, 1, H, W, 1),
+                          _rows_cfg(cfg)).reshape(1, nd, nd, 1, H, W)
     psz = int(cfg.ps[0])
     assert cons_half.shape[0] == psz and cons_half.ndim == 6
     zeros = torch.zeros((psz - 1,) + tuple(cons_half.shape[1:]),
@@ -296,7 +431,13 @@ def symmetrize_half(cons_half: torch.Tensor,
     H, read at x + e - m.  Zero-padded by m on every spatial side, that
     read is Hp[e][x + e]: one strided view of Hp, since the element
     offset e . (offset strides + spatial strides) + x . spatial strides
-    is affine in (e, x)."""
+    is affine in (e, x) (strides are 64-bit, so the 2D array at 520x696
+    and 25x25, 8.7e8 elements, is addressed like any other).  A 2D half
+    (p, 2p-1, H, W) gives (1, 2p-1, 2p-1, 1, H, W)."""
+    if cons_half.ndim == 4:
+        p, nd, H, W = cons_half.shape
+        return symmetrize_half(cons_half.reshape(p, nd, 1, H, W, 1),
+                               _rows_cfg(cfg)).reshape(1, nd, nd, 1, H, W)
     full = embed_half(cons_half, cfg)
     psz = int(cfg.ps[0])
     m = [int(v) for v in cfg.ps - 1]

@@ -2,11 +2,15 @@
 
 Counterpart of ``patchperpix_tpu/ops/cover.py`` for the main path:
 
-- ``greedy_cover_device``: the ranked-list greedy cover in its exact
-  closed form for the sparse-data threshold (pix_th 0), one min-reduction
-  of rank volumes on the device (``_greedy_cover_min_scatter``,
-  cover.py:84-140).  The dense-data cascade (pix_th 500/100/50/10/0) is a
-  sequential walk and is not ported yet.
+- ``greedy_cover_device``: the ranked-list greedy cover.  For the
+  sparse-data threshold (pix_th 0) its exact closed form, one
+  min-reduction of rank volumes on the device
+  (``_greedy_cover_min_scatter``, cover.py:84-140).  For dense data the
+  cascade of ranked-order sweeps, one per pix_th in 500/100/50/10/0 below
+  P // 2 (``_greedy_cover_volume``, cover.py:30-81): the candidates'
+  fc-thresholded columns are gathered once on the device, and the sweep,
+  sequential by nature, runs on the host over them
+  (``_greedy_cover_cascade``).
 - ``thin_out_cover_device``: the lazy greedy set cover (cover.py:143-234)
   with its exact full-recompute fallback (:237-284) when the iteration cap
   is hit.  The patch masks are gathered on the device; the loop itself is
@@ -50,10 +54,6 @@ def greedy_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
     mid = int(np.prod(ps) // 2)
     pix_ths = (0,) if sparse_data else tuple(
         t for t in (500, 100, 50, 10, 0) if t < mid)
-    if pix_ths != (0,):
-        raise NotImplementedError(
-            "the dense-data cover cascade is not ported; the port runs "
-            "select_patches_for_sparse_data=True")
     dev = affs.device
     vol_shape = tuple(int(s) for s in mask_to_cover.shape)
     centers = np.array([rp[0] for rp in ranked_patches], dtype=np.int64)
@@ -62,6 +62,16 @@ def greedy_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
         overlap_rows = np.asarray(overlap)[tuple(centers.T)] > 0
     else:
         overlap_rows = np.zeros(n, dtype=bool)
+    if pix_ths != (0,):
+        pmasks = _patch_masks(affs, centers, fc_threshold)
+        win, running, inner = _thin_cover_volumes(mask_to_cover, centers, ps)
+        selected = _greedy_cover_cascade(pmasks, win, running, inner,
+                                         overlap_rows, pix_ths)
+        pad_shape = tuple(int(s + 2 * r) for s, r in zip(vol_shape, rad))
+        crop = tuple(slice(int(r), int(r) + s)
+                     for r, s in zip(rad, vol_shape))
+        return [rp for i, rp in enumerate(ranked_patches) if selected[i]], \
+            running.reshape(pad_shape)[crop] > 0.5
     ranks = np.where(overlap_rows, _INF, np.arange(n))
     rankvol = torch.full(vol_shape, _INF, dtype=torch.int32, device=dev)
     c_t = torch.as_tensor(centers, device=dev)
@@ -99,6 +109,50 @@ def greedy_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
     running = (mask & ~covered).cpu().numpy()
     return [rp for i, rp in enumerate(ranked_patches) if selected[i]], \
         running
+
+
+def _patch_masks(affs: torch.Tensor, centers: np.ndarray,
+                 fc_threshold: float) -> np.ndarray:
+    """(n, P) float32 0/1 on the host: each center's patch column above
+    the cover threshold, gathered and thresholded on ``affs.device``."""
+    c_t = torch.as_tensor(centers, device=affs.device)
+    return (affs[:, c_t[:, 0], c_t[:, 1], c_t[:, 2]].T
+            > fc_threshold).cpu().numpy().astype(np.float32)
+
+
+def _greedy_cover_cascade(pmasks, win, running, inner, overlap_rows,
+                          pix_ths, chunk: int = 256) -> np.ndarray:
+    """Ranked-order greedy cover, one sweep per pixel threshold
+    (cover.py:30-81): candidate i (not selected yet, not on an overlap
+    pixel) is taken iff its fc-thresholded window covers more than pix_th
+    still-uncovered pixels while interior to-cover pixels remain (an exact
+    integer count).  ``running`` / ``inner`` are the flat rad-padded
+    volumes and ``win[i]`` the flat indices of patch i's window; ``running``
+    is updated in place.
+
+    Coverage only falls as the sweep goes on, so the count of a whole
+    chunk of candidates at the chunk's start bounds each one's count at
+    its visit from above: candidates at or below pix_th there are passed
+    over without a visit, the rest are visited in order with their exact
+    count.  Once nothing remains no later candidate is taken in any sweep."""
+    n = len(pmasks)
+    selected = np.zeros(n, bool)
+    rem = int(np.count_nonzero(running * inner > 0.5))
+    for pix_th in pix_ths:
+        for s in range(0, n, chunk):
+            if rem <= 0:
+                return selected
+            idx = np.arange(s, min(n, s + chunk))
+            idx = idx[~selected[idx] & ~overlap_rows[idx]]
+            bound = np.sum(pmasks[idx] * running[win[idx]], axis=1)
+            for i in idx[bound > pix_th]:
+                w = win[i]
+                newly = pmasks[i] * running[w]
+                if rem > 0 and newly.sum() > pix_th:
+                    rem -= int(np.count_nonzero(newly * inner[w] > 0.5))
+                    running[w] -= newly
+                    selected[i] = True
+    return selected
 
 
 def _thin_cover_lazy(pmasks, win, running, inner, centers, ps):
@@ -165,8 +219,11 @@ def _thin_cover_volumes(mask_to_cover: np.ndarray, centers: np.ndarray,
     running = np.pad(np.asarray(mask_to_cover, np.float32), pads)
     inner = np.pad(interior(mask_to_cover.shape, rad).astype(np.float32),
                    pads)
-    pos = centers[:, None, :] + patch_offsets(ps)[None]
-    win = np.ravel_multi_index(tuple(np.moveaxis(pos, -1, 0)), running.shape)
+    # the flat index is linear in the coordinates: lin(c + off) = lin(c) +
+    # lin(off)
+    strides = np.array([np.prod(running.shape[a + 1:], dtype=np.int64)
+                        for a in range(len(ps))])
+    win = (centers @ strides)[:, None] + (patch_offsets(ps) @ strides)[None]
     return win, running.reshape(-1), inner.reshape(-1)
 
 
@@ -179,9 +236,7 @@ def thin_out_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
     if not selected_patches:
         return []
     centers = np.array([rp[0] for rp in selected_patches], dtype=np.int64)
-    c_t = torch.as_tensor(centers, device=affs.device)
-    pmasks = (affs[:, c_t[:, 0], c_t[:, 1], c_t[:, 2]].T
-              > fc_threshold).cpu().numpy().astype(np.float32)
+    pmasks = _patch_masks(affs, centers, fc_threshold)
     win, running0, inner = _thin_cover_volumes(mask_to_cover, centers, ps)
     selected, capped = _thin_cover_lazy(pmasks, win, running0.copy(), inner,
                                         centers, ps)

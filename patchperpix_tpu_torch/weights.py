@@ -5,13 +5,14 @@ The JAX package's parameters are a Flax tree ``{"params": {"unet":
 modules carry the same names, so the mapping is name for name, with
 three changes of layout:
 
-- a Flax conv kernel ``(kz, ky, kx, in, out)`` becomes torch's
-  ``(out, in, kz, ky, kx)``;
+- a Flax conv kernel ``(kz, ky, kx, in, out)`` (2D: ``(ky, kx, in,
+  out)``) becomes torch's ``(out, in, k...)``;
 - Flax ``nn.ConvTranspose`` (``transpose_kernel=False``) correlates the
   stride-dilated input with its kernel, i.e. ``y[s*i + t] = x[i] *
-  w[k-1-t]``, while torch's ``ConvTranspose3d`` computes ``y[s*i + t] =
-  x[i] * W[t]`` with ``W`` laid out ``(in, out, k...)``: the kernel is
-  permuted to ``(in, out, k...)`` and flipped along each spatial axis;
+  w[k-1-t]``, while torch's ``ConvTranspose2d`` / ``3d`` computes
+  ``y[s*i + t] = x[i] * W[t]`` with ``W`` laid out ``(in, out, k...)``:
+  the kernel is permuted to that layout and flipped along each spatial axis
+  (two in 2D, three in 3D);
 - biases are unchanged.
 
 ``parity/bench_ckpt_params.npz`` holds the trained crop checkpoint's tree
@@ -22,6 +23,7 @@ writes it from the orbax checkpoint ``parity/bench_ckpt``).
 from __future__ import annotations
 
 import os
+import zlib
 
 import numpy as np
 import torch
@@ -49,6 +51,26 @@ def load_npz(path: str = BENCH_PARAMS) -> dict:
     """Flat {'params/unet/...': float32 array} from an exported .npz."""
     with np.load(path) as z:
         return {k: np.asarray(z[k], np.float32) for k in z.files}
+
+
+def seeded_tree(leaves, seed: int = 0) -> dict:
+    """Reproducible random parameters without storing them: ``leaves`` is a
+    list of ('/'-joined Flax leaf name, shape); each leaf is drawn from
+    ``np.random.default_rng([seed, crc32(name)])``, kernels normal with
+    variance 2 / fan_in (fan_in = all axes but the last), biases normal
+    with deviation 0.1.  Returns the flat {'params/...': float32 array}
+    tree ``to_state_dict`` takes; the same call feeds the Flax model."""
+    out = {}
+    for name, shape in leaves:
+        shape = tuple(int(s) for s in shape)
+        rng = np.random.default_rng([int(seed), zlib.crc32(name.encode())])
+        v = rng.standard_normal(shape)
+        if name.endswith("/bias"):
+            v *= 0.1
+        else:
+            v *= np.sqrt(2.0 / max(1, int(np.prod(shape[:-1]))))
+        out[name] = v.astype(np.float32)
+    return out
 
 
 def to_state_dict(tree: dict) -> dict:

@@ -13,8 +13,21 @@ Writes, from the repository's own files (nothing is downloaded):
   staged run is checked against one ``to_instance_seg`` call on the same
   decoded affinities.
 
+- ``parity/torch_port_ref2d_f32.npz`` / ``.json`` (``--2d [H W]``): the
+  JAX package's float32 CPU run (``engine="jax"``: the XLA scan) of the 2D
+  path chip_smoke.py drives, the worm image at 25x25 patches under settings
+  (A) and (B) (``chip_smoke.PATH2D``), staged like the 3D run: instance
+  maps, ranked candidate scores, cover / thin-cover centers, pairs and
+  weights.  H W is the top-left crop of the 520x696 image the run is cut
+  to (multiples of 8); the JSON names it.
+- ``parity/torch_port_model2d_ref.npz`` / ``.json`` (``--model2d``): the
+  BBBC010 model (``configs/bbbc010.toml`` widths) with seeded weights
+  (``patchperpix_tpu_torch.weights.seeded_tree`` over the leaf names and
+  shapes stored in the JSON) on one seeded 512x512 window: code, numinst
+  probabilities and decoded 25x25 patches at 512 seeded pixel positions.
+
 Usage: JAX_PLATFORMS=cpu python scripts/export_torch_fixtures.py
-       [--params-only]
+       [--params-only | --2d [H W] | --model2d]
 """
 
 import json
@@ -28,6 +41,10 @@ sys.path.insert(0, ROOT)
 PARAMS_NPZ = os.path.join(ROOT, "parity", "bench_ckpt_params.npz")
 REF_NPZ = os.path.join(ROOT, "parity", "torch_port_ref_f32.npz")
 REF_JSON = os.path.join(ROOT, "parity", "torch_port_ref_f32.json")
+REF2D_NPZ = os.path.join(ROOT, "parity", "torch_port_ref2d_f32.npz")
+REF2D_JSON = os.path.join(ROOT, "parity", "torch_port_ref2d_f32.json")
+MODEL2D_NPZ = os.path.join(ROOT, "parity", "torch_port_model2d_ref.npz")
+MODEL2D_JSON = os.path.join(ROOT, "parity", "torch_port_model2d_ref.json")
 
 
 def flatten(tree, prefix=""):
@@ -92,15 +109,26 @@ def staged_assembly(dec, fg, numinst, params):
     ranked = [(cand[i], float(svals[i])) for i in order]
     cover, _ = greedy_cover_device(
         dec, mask_to_cover, ranked, ps, fc_threshold=params.fc_threshold,
-        overlap=overlap_mask, sparse_data=True, want_running=False)
+        overlap=overlap_mask,
+        sparse_data=params.select_patches_for_sparse_data,
+        want_running=False)
     thin = thin_out_cover_device(dec, mask_to_cover, cover, ps,
                                  fc_threshold=params.fc_threshold)
-    pairs, _ = ref.patch_pairs_reference(thin, ps, max_ps_dist=2.0,
-                                         include_singleton=True)
+    pairs, _ = ref.patch_pairs_reference(
+        thin, ps, max_ps_dist=params.max_total_patch_distance_in_ps_multiples,
+        include_singleton=params.includeSinglePatchCCS)
     sym = symmetrize_consensus(cons, ccfg)
-    weights = np.asarray(patch_graph_weights(dec, sym, pairs, ccfg),
-                         np.float32)
-    comps = ref.graph_components(pairs, weights, mws=True)
+    del cons
+    weights = np.asarray(patch_graph_weights(
+        dec, sym, pairs, ccfg, drop_intersection=params.removeIntersection),
+        np.float32)
+    del sym
+    if params.mws:
+        comps = ref.graph_components(pairs, weights, mws=True)
+    else:
+        from patchperpix_tpu.ops.graph_device import graph_components_device
+
+        comps = graph_components_device(pairs, weights)
     paint = _device_paint_src(dec, comps, params.patch_threshold)
     inst = ref.components_to_instances(
         comps, paint, ps, vol_shape,
@@ -197,10 +225,124 @@ def export_reference():
     print(json.dumps(meta))
 
 
+def export_reference_2d(crop):
+    """Settings (A) and (B) of the 2D path through the JAX package."""
+    import numpy as np
+
+    import chip_smoke
+    from patchperpix_tpu.assembly import VoteInstancesParams, to_instance_seg
+
+    # the staged run equals one to_instance_seg call (checked on a small
+    # crop, where both are cheap)
+    for name in chip_smoke.PATH2D:
+        inp = chip_smoke.path2d_inputs(name, (96, 432))
+        vp = VoteInstancesParams(engine="jax", **chip_smoke.PATH2D[name])
+        st = staged_assembly(inp["affs"], inp["fg"], inp["numinst"], vp)
+        call, _ = to_instance_seg(inp["affs"], inp["fg"], inp["fg"].copy(),
+                                  inp["numinst"], vp)
+        assert st["inst_assembled"].max() > 0
+        assert np.array_equal(np.asarray(call), st["inst_assembled"]), \
+            f"staged 2D assembly ({name}) disagrees with to_instance_seg"
+    print("staged 2D assembly equals to_instance_seg on (96, 432)",
+          flush=True)
+
+    arrays, meta = {}, {
+        "source": "scripts/export_torch_fixtures.py --2d: JAX package, CPU, "
+                  "float32, engine jax (XLA scan), chip_smoke.PATH2D on "
+                  "worm_labels(520, 696, 16, seed 0) at (1, 25, 25)",
+        "crop": [int(c) for c in crop], "full": list(chip_smoke.IMG2D)}
+    for name in chip_smoke.PATH2D:
+        inp = chip_smoke.path2d_inputs(name, crop)
+        vp = VoteInstancesParams(engine="jax", **chip_smoke.PATH2D[name])
+        t0 = time.perf_counter()
+        st = staged_assembly(inp["affs"], inp["fg"], inp["numinst"], vp)
+        inst = st["inst_assembled"]
+        meta[name] = {
+            "seconds": round(time.perf_counter() - t0, 1),
+            "fg_vox": int(inp["fg"].sum()),
+            "gt_instances": int(len(np.unique(inp["labels"])) - 1),
+            "n_candidates": int(len(st["ranked_centers"])),
+            "n_cover": int(len(st["cover_centers"])),
+            "n_thin": int(len(st["thin_centers"])),
+            "n_pairs": int(len(st["pairs"])),
+            "n_components": int(st["n_components"]),
+            "n_instances": int(len(np.unique(inst[inst > 0]))),
+            "own_fg_vox": int((inst > 0).sum())}
+        print(name, json.dumps(meta[name]), flush=True)
+        for key in ("ranked_centers", "ranked_scores", "cover_centers",
+                    "thin_centers", "pairs", "weights", "n_components"):
+            arrays[f"{name}_{key}"] = st[key]
+        arrays[f"{name}_inst"] = inst
+    np.savez_compressed(REF2D_NPZ, **arrays)
+    with open(REF2D_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+
+
+def export_model_2d():
+    """The seeded BBBC010 model's outputs at seeded pixel positions."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    import chip_smoke
+    from patchperpix_tpu.infer.fused import predict_volume_device
+    from patchperpix_tpu.models import PPPConfig, PPPModel
+    from patchperpix_tpu_torch.weights import seeded_tree
+
+    cfg = PPPConfig(**chip_smoke.BBBC010_MODEL)
+    model = PPPModel(cfg)
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0),
+                           jnp.zeros((1, 1, 32, 32), jnp.float32),
+                           method=model.full_init))
+    leaves = [[k, list(v.shape)] for k, v in sorted(flatten(shapes).items())]
+    flat = seeded_tree(leaves, chip_smoke.MODEL2D_SEED)
+    params = {}
+    for key, val in flat.items():
+        node = params
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = jnp.asarray(val)
+
+    raw, pos = chip_smoke.model2d_sample()
+    win = chip_smoke.MODEL2D_WINDOW
+    t0 = time.perf_counter()
+    code, prob = predict_volume_device(model, params, raw, cfg, win, win)
+    code = np.asarray(code, np.float32).reshape(cfg.code_units, -1)[:, pos]
+    prob = np.asarray(prob, np.float32).reshape(3, -1)[:, pos]
+    logits = model.apply(params, jnp.asarray(code.T), method=PPPModel.decode)
+    patches = np.asarray(jax.nn.sigmoid(logits), np.float32)
+    print(f"model2d {time.perf_counter() - t0:.1f}s: code "
+          f"[{code.min():.3f}, {code.max():.3f}] std {code.std():.3f}, "
+          f"patches std {patches.std():.3f}", flush=True)
+    np.savez_compressed(MODEL2D_NPZ, code=code.T, prob=prob.T,
+                        patches=patches)
+    with open(MODEL2D_JSON, "w") as f:
+        json.dump({
+            "source": "scripts/export_torch_fixtures.py --model2d: JAX "
+                      "package, CPU, float32, configs/bbbc010.toml widths, "
+                      "weights from weights.seeded_tree(leaves, seed)",
+            "seed": chip_smoke.MODEL2D_SEED, "n_positions": int(len(pos)),
+            "n_parameters": int(sum(v.size for v in flat.values())),
+            "leaves": leaves}, f)
+
+
 def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if "--2d" in sys.argv:
+        rest = [int(a) for a in sys.argv[sys.argv.index("--2d") + 1:]
+                if a.isdigit()]
+        import chip_smoke
+
+        export_reference_2d(tuple(rest[:2]) if len(rest) >= 2
+                            else chip_smoke.IMG2D)
+        return
+    if "--model2d" in sys.argv:
+        export_model_2d()
+        return
     export_params()
     if "--params-only" not in sys.argv:
         export_reference()

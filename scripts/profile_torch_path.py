@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's main path on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_path.py [--trace PATH]
+    python3 scripts/profile_torch_path.py [--trace PATH] [--2d]
 
 Runs chip_smoke.py's main path (the trained crop model on the 50^3
 FlyLight fixture) in float32 and then in bfloat16, as chip_smoke.py does:
 for each, once to warm up and once under ``torch.profiler`` (CPU and
-CUDA activities).  Prints one JSON line per dtype:
+CUDA activities).  With ``--2d`` it runs chip_smoke.py's 2D path instead
+(the 520x696 worm image at 25x25 patches, float32, settings A and B).
+Prints one JSON line per dtype (per setting with ``--2d``):
 
 - ``device`` and ``nvidia_smi``: the card, its name and power limit;
 - ``stages``: for each stage of ``chip_smoke.run_path``, its wall seconds
@@ -103,7 +105,9 @@ def summarize(prof, times, h0, gcs, trace, dtype, device, smi) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace", help="also write the float32 run's Chrome "
-                    "trace here")
+                    "trace here (with --2d: setting A's)")
+    ap.add_argument("--2d", dest="two_d", action="store_true",
+                    help="profile the 2D assembly path instead")
     args = ap.parse_args()
 
     import torch
@@ -127,12 +131,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     _build.build([k.name for k in KERNELS])
-    raw = np.clip(ZarrV2Reader(cs.FIXTURE).read("volumes/raw").astype(
-        np.float32), 0, 1500.0) / 1500.0
-    for dtype in ("float32", "bfloat16"):
-        cfg = cs.crop_config(dtype)
-        model = build_model(cfg, device=dev)
-        cs.run_path(model, cfg, raw, dev)
+
+    def profiled(run_once):
+        """(profile, run_once()'s result, host clock at its start, garbage
+        collections) of one run under the profiler."""
         gcs, t_gc = [], {}
 
         def on_gc(phase, info):
@@ -148,13 +150,36 @@ def main() -> int:
                                      ProfilerActivity.CUDA]) as prof:
                 with record_function("main_path"):
                     h0 = time.perf_counter()
-                    run = cs.run_path(model, cfg, raw, dev)
+                    res = run_once()
         finally:
             gc.callbacks.remove(on_gc)
+        return prof, res, h0, gcs
+
+    kind = torch.cuda.get_device_name(0)
+    if args.two_d:
+        inputs = {s: cs.path2d_inputs(s) for s in cs.PATH2D}
+        affs = torch.as_tensor(inputs["A"]["affs"], device=dev)
+        for s in cs.PATH2D:
+            cs.assemble_2d(s, inputs[s], affs, dev)
+            times = {}
+            prof, _, h0, gcs = profiled(
+                lambda: cs.assemble_2d(s, inputs[s], affs, dev, times))
+            print(json.dumps(summarize(
+                prof, times, h0, gcs, args.trace if s == "A" else None,
+                f"float32, 2D setting {s}", kind, smi)), flush=True)
+            del prof
+        return 0
+    raw = np.clip(ZarrV2Reader(cs.FIXTURE).read("volumes/raw").astype(
+        np.float32), 0, 1500.0) / 1500.0
+    for dtype in ("float32", "bfloat16"):
+        cfg = cs.crop_config(dtype)
+        model = build_model(cfg, device=dev)
+        cs.run_path(model, cfg, raw, dev)
+        prof, run, h0, gcs = profiled(
+            lambda: cs.run_path(model, cfg, raw, dev))
         trace = args.trace if dtype == "float32" else None
         print(json.dumps(summarize(prof, run["times"], h0, gcs, trace,
-                                   dtype, torch.cuda.get_device_name(0),
-                                   smi)), flush=True)
+                                   dtype, kind, smi)), flush=True)
         del model, run, prof
         torch.cuda.empty_cache()
     return 0

@@ -219,6 +219,31 @@ code, prob = predict_volume_device(
     model, np.random.RandomState(0).rand(3, 8, 8, 8).astype(np.float32),
     cfg, (8, 8, 8), (8, 8, 8), device="cpu")
 assert code.shape == (176, 8, 8, 8) and prob.shape == (3, 8, 8, 8)
+# the 2D slice: model, probe script, synthetic worms, assembly
+import runpy
+probe = runpy.run_path("scripts/probe_window_cuda.py", run_name="probe")
+sys.argv = ["probe_window_cuda.py", "cpu"]
+assert probe["main"]() == 0
+cfg2 = PPPConfig(**{**chip_smoke.BBBC010_MODEL, "num_fmaps": 4,
+                    "downsample_factors": ((1, 2, 2),) * 2,
+                    "fmap_inc_factors": (2, 2),
+                    "fmap_dec_factors": (1.0, 1.0)})
+from patchperpix_tpu_torch.models import PPPModel
+model2 = PPPModel(cfg2).eval()
+code, prob = predict_volume_device(
+    model2, np.random.RandomState(0).rand(1, 16, 16).astype(np.float32),
+    cfg2, (16, 16), (16, 16), device="cpu")
+assert code.shape == (512, 16, 16) and prob.shape == (3, 16, 16)
+from patchperpix_tpu_torch.assembly import (VoteInstancesParams,
+                                            to_instance_seg)
+from patchperpix_tpu_torch.ops import synthetic
+labels = synthetic.worm_labels(72, 176, 2, seed=1)
+inst, _ = to_instance_seg(
+    synthetic.labels_to_affinities(labels, (1, 9, 9)), labels > 0,
+    labels > 0, (labels > 0).astype(np.uint8),
+    VoteInstancesParams(**{**chip_smoke.PATH2D["B"],
+                           "patchshape": (1, 9, 9)}), device="cpu")
+assert len(np.unique(inst)) == 3
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "flax", "patchperpix_tpu")]
 assert not bad, bad

@@ -43,9 +43,9 @@ def _cfgs(ps, **kw):
 
 def _port_half(affs, cfg, ov=None):
     a = torch.from_numpy(affs)
-    hi, lo, tgt = C._masks(a, cfg, None if ov is None
-                           else torch.from_numpy(ov))
-    return a, (hi, lo, tgt), K.consensus_half(a, hi, lo, cfg)
+    ops = K.consensus_operands(a, cfg, None if ov is None
+                               else torch.from_numpy(ov))
+    return a, ops, K.consensus_half(a, ops, cfg)
 
 
 CASES = [  # (ps, shape, seed, overlap, config, also vs Pallas interpret)
@@ -103,8 +103,8 @@ def test_rank_matches_pallas(use_ov, kw):
     shape = (8, 9, 10)
     affs = _random_affs(shape, 27, 11)
     ov = _overlap(shape) if use_ov else None
-    a, (hi, lo, tgt), half = _port_half(affs, tc, ov)
-    got = K.rank_scores(a, half, hi, lo, tgt, tc).numpy()
+    a, ops, half = _port_half(affs, tc, ov)
+    got = K.rank_scores(a, half, ops, tc).numpy()
     # the Pallas rank kernel on the same canonical half
     want = np.asarray(rank_scores_pallas(affs, half.numpy(), jc, overlap=ov,
                                          interpret=True))
@@ -164,10 +164,16 @@ def test_wrappers_refuse_other_devices():
     tc = C.ConsensusConfig(patchshape=(3, 3, 3))
     meta = torch.zeros((27, 5, 5, 5), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
-        K.consensus_half(meta, meta, meta, tc)
+        K.consensus_half(meta, (meta, meta, meta), tc)
     with pytest.raises(ValueError, match="not CUDA"):
         K.consensus_half_cuda(*(torch.zeros(27, 5, 5, 5),) * 4, tc)
     with pytest.raises(ValueError, match="not CUDA"):
         K.rank_acc_cuda(torch.zeros(27, 5, 5, 5), torch.zeros(27, 5, 5, 5),
                         torch.zeros(3, 5, 5, 5, 5, 5), tc)
-    assert K.CONSENSUS.launches == 0 and K.RANK.launches == 0
+    flat = torch.zeros(25, 6, 7)
+    tc2 = C.ConsensusConfig(patchshape=(1, 5, 5))
+    with pytest.raises(ValueError, match="not CUDA"):
+        K.consensus_half_2d_cuda(flat, flat[0], tc2)
+    with pytest.raises(ValueError, match="not CUDA"):
+        K.rank_acc_2d_cuda(flat, flat[0], torch.zeros(5, 9, 6, 7), tc2)
+    assert all(k.launches == 0 for k in K.KERNELS)

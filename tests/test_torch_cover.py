@@ -81,8 +81,25 @@ def test_thin_cover_full_fallback_equals_lazy():
     np.testing.assert_array_equal(lazy, full)
 
 
-def test_dense_cascade_is_refused():
-    affs, mask, ranked, _ = _data(0)
-    with pytest.raises(NotImplementedError):
-        tcover.greedy_cover_device(torch.from_numpy(affs), mask, ranked, PS,
-                                   sparse_data=False)
+@pytest.mark.parametrize("seed,fc,use_overlap", [(0, 0.5, True),
+                                                 (1, 0.5, False),
+                                                 (2, 0.7, True)])
+def test_dense_cascade_is_refused(seed, fc, use_overlap):
+    """The dense-data cascade (one ranked sweep per pixel threshold below
+    P // 2) is no longer refused: it selects what the JAX package's
+    selects, in order, and leaves the same pixels uncovered."""
+    affs, mask, ranked, overlap = _data(seed)
+    ov = overlap if use_overlap else None
+    want, want_run = jcover.greedy_cover_device(
+        affs, mask, ranked, PS, fc_threshold=fc, overlap=ov,
+        sparse_data=False)
+    got, got_run = tcover.greedy_cover_device(
+        torch.from_numpy(affs), mask, ranked, PS, fc_threshold=fc,
+        overlap=ov, sparse_data=False)
+    sparse, _ = tcover.greedy_cover_device(
+        torch.from_numpy(affs), mask, ranked, PS, fc_threshold=fc,
+        overlap=ov, sparse_data=True)
+    assert 0 < len(want) < len(sparse)
+    np.testing.assert_array_equal([c for c, _ in got], [c for c, _ in want])
+    assert [s for _, s in got] == [s for _, s in want]
+    np.testing.assert_array_equal(got_run, np.asarray(want_run))
