@@ -18,8 +18,8 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    per-stage times; each CUDA kernel is held against its plain PyTorch
    version on this run's decoded affinities (consensus atol = rtol =
    1e-4, rank atol 1e-3 / rtol 1e-4: the JAX package's own kernel
-   tolerances) and timed against it (plain, kernel, kernel, plain; CUDA
-   events; medians);
+   tolerances), launched a second time for equal bits, and timed against
+   it (plain, kernel, kernel, plain; CUDA events; medians);
 4. held against the JAX package's float32 CPU run stored in
    parity/torch_port_ref_f32.npz: foreground agreement >= 99.9 %, equal
    instance count, >= 99 % of foreground voxels agreeing after best-IoU
@@ -292,12 +292,20 @@ def check_kernels(run, dev):
     err_r = float((acc_k - acc_p).abs().max())
     ok_r = bool(torch.all((acc_k - acc_p).abs()
                           <= 1e-3 + 1e-4 * acc_p.abs()))
+    # a second launch of each gives the same bits (sums in a fixed order)
+    same_c = bool(torch.equal(half_k,
+                              K.consensus_half_cuda(a, b, hi, lo, ccfg)))
+    same_r = bool(torch.equal(acc_k, K.rank_acc_cuda(hi, lo, half_k, ccfg)))
     emit({"phase": "kernel_check", "consensus_max_abs_err": err_c,
           "consensus_ok": ok_c, "consensus_max_abs": float(
               half_p.abs().max()), "rank_max_abs_err": err_r,
-          "rank_ok": ok_r, "rank_max_abs": float(acc_p.abs().max())})
+          "rank_ok": ok_r, "rank_max_abs": float(acc_p.abs().max()),
+          "consensus_two_launches_equal": same_c,
+          "rank_two_launches_equal": same_r})
     if not (ok_c and ok_r):
         raise AssertionError("a CUDA kernel disagrees with its plain version")
+    if not (same_c and same_r):
+        raise AssertionError("two launches of a CUDA kernel differ")
 
     ms_c, plain_c = time_pair(
         lambda: C.consensus_half_plain(dec, hi, lo, ccfg),

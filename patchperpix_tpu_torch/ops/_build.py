@@ -9,9 +9,10 @@ together:
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so <name>.cu
 
 into ``patchperpix_tpu_torch/build/`` (listed in ``.gitignore``).  The
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt.  The library is loaded once per process.  ``CudaKernel`` is
-one entry point of such a library with its launch count.
+file name carries a hash of the source, of every header ``csrc/*.cuh``
+(sources include them) and of the flags, so an edited source is rebuilt.
+The library is loaded once per process.  ``CudaKernel`` is one entry
+point of such a library with its launch count.
 """
 
 from __future__ import annotations
@@ -43,8 +44,11 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 

@@ -7,7 +7,9 @@ Counterpart of ``patchperpix_tpu/ops/pallas_consensus.py`` and
   ``_kernel_v5`` of ``consensus_array_pallas``: the canonical half of the
   consensus array;
 - ``RANK`` (``csrc/rank.cu``) replaces ``_rank_kernel_v5`` of
-  ``rank_scores_pallas``: the rank sum over that half;
+  ``rank_scores_pallas``: the rank sum over that half.  Both first pack
+  the 0/1 mask stacks to bits (``csrc/pack_codes.cuh``, plain version
+  ``pack_codes``) into scratch that the wrapper allocates;
 - ``CONSENSUS2D`` (``csrc/consensus2d.cu``) replaces ``_cons2d_kernel`` of
   ``consensus_fold_pallas_2d``: the 2D canonical half (p, 2p-1, H, W) from
   one sentinel-gated stack and a target plane;
@@ -44,6 +46,7 @@ from .consensus import (ConsensusConfig, _masks, consensus_half_2d_plain,
                         consensus_half_plain, gated_stack_2d, is_2d,
                         rank_acc_2d_plain, rank_acc_plain, rank_epilogue,
                         rank_epilogue_2d)
+from .np_reference import patch_offsets
 from .probe import PROBE
 
 _P = ctypes.c_void_p
@@ -54,12 +57,12 @@ _WEIGHT_MODES = {"norm_prob_product": 0, "prob_product": 1, "count": 2}
 CONSENSUS = CudaKernel(
     "consensus", "ppp_consensus_half",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-     _I, _P],
+     _I, _P, _P, _P, _P],
     "patchperpix_tpu/ops/pallas_consensus.py:209 _kernel_v5 "
     "(consensus_array_pallas :311, pallas_call :395)")
 RANK = CudaKernel(
     "rank", "ppp_rank_half",
-    [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "patchperpix_tpu/ops/pallas_consensus.py:514 _rank_kernel_v5 "
     "(rank_scores_pallas :598, pallas_call :656)")
 CONSENSUS2D = CudaKernel(
@@ -91,13 +94,106 @@ def _half_shape(cfg: ConsensusConfig, vol) -> tuple:
         tuple(int(s) for s in vol)
 
 
+def _n_words(cfg: ConsensusConfig) -> int:
+    """32-bit words that hold one bit per patch pixel."""
+    return (cfg.P + 31) // 32
+
+
+def _pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """bool (P, n) -> int32 (ceil(P / 32), n): bit q % 32 of word q // 32
+    is bits[q]."""
+    P, n = bits.shape
+    W = (P + 31) // 32
+    padded = torch.zeros((W * 32, n), dtype=torch.int64, device=bits.device)
+    padded[:P] = bits
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=bits.device),
+        torch.arange(32, device=bits.device)).reshape(1, 32, 1)
+    w = (padded.reshape(W, 32, n) * weights).sum(1)
+    # as int32 bit patterns
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def _padded(vol, cfg: ConsensusConfig) -> tuple:
+    return tuple(int(s) + 2 * int(r) for s, r in zip(vol, cfg.rad))
+
+
+def pack_codes(hi: torch.Tensor, lo: torch.Tensor,
+               cfg: ConsensusConfig) -> tuple:
+    """Plain version of the centre-aligned pack pass (``csrc/
+    pack_codes.cuh``), which the 3D rank kernel runs first: the 0/1 mask
+    stacks hi, lo (P, *vol) as bits, and the planes the kernels leave
+    early on.
+
+    - codes (W, *vol, 2) int32, W = ceil(P / 32): bit q % 32 of
+      codes[q // 32, c, 0] is hi[q, c] != 0, of codes[q // 32, c, 1] is
+      lo[q, c] != 0;
+    - E (*vol) uint8: 1 where any bit of center c is set.  The rank sum is
+      exactly zero at every other center;
+    - T (vol + 2 rad) uint8: 1 at the padded voxel c + q, the target voxel
+      c + q - rad of every set bit (q, c).  The consensus half at (d, x)
+      is exactly zero unless T holds at x + rad and at x + d + rad.
+    """
+    P = cfg.P
+    vol = tuple(int(s) for s in hi.shape[1:])
+    codes = torch.stack([_pack_words((t != 0).reshape(P, -1))
+                         for t in (hi, lo)], dim=-1)
+    live = (hi != 0) | (lo != 0)
+    T = pack_target_codes(hi, lo, cfg).ne(0).any(dim=-1).any(dim=0)
+    return (codes.reshape((-1,) + vol + (2,)),
+            live.any(dim=0).to(torch.uint8), T.to(torch.uint8))
+
+
+def pack_target_codes(hi: torch.Tensor, lo: torch.Tensor,
+                      cfg: ConsensusConfig) -> torch.Tensor:
+    """Plain version of the target-aligned pack pass, which the 3D
+    consensus kernel runs first: (W, *(vol + 2 rad), 2) int32, where the
+    bit of (q, c) sits at the padded voxel c + q, its target voxel
+    c + q - rad.  A voxel's words say which patch pixels of which centers
+    point at it; T of ``pack_codes`` is where any of them is set."""
+    P = cfg.P
+    vol = tuple(int(s) for s in hi.shape[1:])
+    padded = _padded(vol, cfg)
+    words = []
+    for t in (hi, lo):
+        bits = torch.zeros((P,) + padded, dtype=torch.bool, device=hi.device)
+        for q, off in enumerate(patch_offsets(cfg.ps)):
+            bits[(q,) + tuple(slice(int(o), int(o) + s)
+                              for o, s in zip(off, vol))] = t[q] != 0
+        words.append(_pack_words(bits.reshape(P, -1)))
+    return torch.stack(words, dim=-1).reshape((-1,) + padded + (2,))
+
+
+def unpack_codes(codes: torch.Tensor, cfg: ConsensusConfig) -> tuple:
+    """(hi != 0, lo != 0), each bool (P, *vol), from ``pack_codes``'
+    words."""
+    shifts = torch.arange(32, device=codes.device).reshape(
+        (1, 32) + (1,) * (codes.ndim - 1))
+    bits = (torch.bitwise_right_shift(codes[:, None], shifts) & 1).bool()
+    bits = bits.reshape((-1,) + tuple(codes.shape[1:]))[:cfg.P]
+    return bits[..., 0], bits[..., 1]
+
+
 def _stream(device) -> _P:
     return _P(torch.cuda.current_stream(device).cuda_stream)
 
 
-def consensus_half_cuda(a, b, hi, lo, cfg: ConsensusConfig) -> torch.Tensor:
-    """Launch ``csrc/consensus.cu`` on the centre-aligned stacks
-    a = affs*hi, b = (1-affs)*lo, hi, lo (each (P, Z, Y, X) float32)."""
+def _pack_scratch(cfg: ConsensusConfig, vol, dev, targets: bool):
+    """Uninitialised scratch of the pack pass (``csrc/pack_codes.cuh``),
+    which fills it: centre-aligned codes (W, *vol, 2) int32 and E (*vol)
+    uint8 for the rank kernel, or with ``targets`` the target-aligned
+    codes and T over the rad-padded volume for the consensus kernel."""
+    vox = _padded(vol, cfg) if targets else tuple(int(s) for s in vol)
+    return (torch.empty((_n_words(cfg),) + vox + (2,), dtype=torch.int32,
+                        device=dev),
+            torch.empty(vox, dtype=torch.uint8, device=dev))
+
+
+def _consensus_launch(a, b, hi, lo, cfg: ConsensusConfig) -> tuple:
+    """``consensus_half_cuda`` with the pack pass's scratch: (half,
+    target-aligned codes, T, vals); vals (2, *vol, P), centre-major, holds
+    a - b wherever a bit is set and b wherever lo is set, and nothing
+    elsewhere."""
     dev = hi.device
     if dev.type != "cuda":
         raise ValueError(f"consensus kernel: tensors on {dev}, not CUDA")
@@ -110,16 +206,28 @@ def consensus_half_cuda(a, b, hi, lo, cfg: ConsensusConfig) -> torch.Tensor:
     out_dtype = torch.bfloat16 if cfg.cons_bf16 else torch.float32
     out = torch.empty(_half_shape(cfg, vol), dtype=out_dtype, device=dev)
     psz, psy, psx = (int(p) for p in cfg.ps)
+    codes, targets = _pack_scratch(cfg, vol, dev, targets=True)
+    vals = torch.empty((2,) + vol + (cfg.P,), dtype=torch.float32,
+                       device=dev)
     CONSENSUS.launch(
         a.data_ptr(), b.data_ptr(), hi.data_ptr(), lo.data_ptr(),
         out.data_ptr(), int(cfg.cons_bf16), *vol, psz, psy, psx,
         _WEIGHT_MODES[cfg.weight_mode], float(cfg.patch_threshold),
-        int(cfg.norm_aff), _stream(dev))
-    return out
+        int(cfg.norm_aff), codes.data_ptr(), targets.data_ptr(),
+        vals.data_ptr(), _stream(dev))
+    return out, codes, targets, vals
+
+
+def consensus_half_cuda(a, b, hi, lo, cfg: ConsensusConfig) -> torch.Tensor:
+    """Launch ``csrc/consensus.cu`` on the centre-aligned stacks
+    a = affs*hi, b = (1-affs)*lo and the 0/1 masks hi, lo (each
+    (P, Z, Y, X) float32; a is zero where hi is, b where lo is)."""
+    return _consensus_launch(a, b, hi, lo, cfg)[0]
 
 
 def rank_acc_cuda(hi, lo, cons_half, cfg: ConsensusConfig) -> torch.Tensor:
-    """Launch ``csrc/rank.cu``: the unnormalized rank sum (Z, Y, X)."""
+    """Launch ``csrc/rank.cu`` on the 0/1 masks hi, lo and the canonical
+    half: the unnormalized rank sum (Z, Y, X)."""
     dev = hi.device
     if dev.type != "cuda":
         raise ValueError(f"rank kernel: tensors on {dev}, not CUDA")
@@ -134,9 +242,11 @@ def rank_acc_cuda(hi, lo, cons_half, cfg: ConsensusConfig) -> torch.Tensor:
            s_dtype, dev)
     acc = torch.empty(vol, dtype=torch.float32, device=dev)
     psz, psy, psx = (int(p) for p in cfg.ps)
+    codes, elig = _pack_scratch(cfg, vol, dev, targets=False)
     RANK.launch(hi.data_ptr(), lo.data_ptr(), cons_half.data_ptr(),
                 int(s_dtype == torch.bfloat16), acc.data_ptr(), *vol,
-                psz, psy, psx, int(cfg.rank_int_counter), _stream(dev))
+                psz, psy, psx, int(cfg.rank_int_counter), codes.data_ptr(),
+                elig.data_ptr(), _stream(dev))
     return acc
 
 

@@ -177,3 +177,92 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="not CUDA"):
         K.rank_acc_2d_cuda(flat, flat[0], torch.zeros(5, 9, 6, 7), tc2)
     assert all(k.launches == 0 for k in K.KERNELS)
+
+
+def _general_masks(ps, shape, seed):
+    """0/1 masks that are nonzero at border centers too, with about half
+    of the centers dead (no live patch pixel)."""
+    rng = np.random.RandomState(seed)
+    P = int(np.prod(ps))
+    hi = (rng.rand(P, *shape) > 0.7).astype(np.float32)
+    lo = (rng.rand(P, *shape) > 0.7).astype(np.float32) * (1 - hi)
+    dead = rng.rand(*shape) > 0.5
+    hi[:, dead] = 0
+    lo[:, dead] = 0
+    return torch.from_numpy(hi), torch.from_numpy(lo)
+
+
+# what the kernels' shortcuts rest on (csrc/pack_codes.cuh), shown on the
+# plain versions
+@pytest.mark.parametrize("ps,shape", [((3, 3, 3), (6, 7, 8)),
+                                      ((1, 5, 3), (4, 9, 7)),
+                                      ((3, 5, 3), (5, 6, 7)),
+                                      ((4, 4, 2), (5, 6, 7))])
+def test_pack_codes_round_trips(ps, shape):
+    tc = C.ConsensusConfig(patchshape=ps)
+    hi, lo = _general_masks(ps, shape, 21)
+    codes, elig, targets = K.pack_codes(hi, lo, tc)
+    assert codes.dtype == torch.int32 and codes.shape == (
+        (tc.P + 31) // 32,) + shape + (2,)
+    got_hi, got_lo = K.unpack_codes(codes, tc)
+    assert torch.equal(got_hi, hi != 0) and torch.equal(got_lo, lo != 0)
+    live = ((hi != 0) | (lo != 0)).numpy()
+    np.testing.assert_array_equal(elig.numpy(), live.any(0))
+    want = np.zeros(tuple(s + 2 * (p // 2) for s, p in zip(shape, ps)), bool)
+    for q, c0, c1, c2 in np.argwhere(live):
+        o = np.unravel_index(q, ps)
+        want[c0 + o[0], c1 + o[1], c2 + o[2]] = True
+    np.testing.assert_array_equal(targets.numpy(), want)
+    assert 0 < elig.sum() < elig.numel()
+    # target-aligned: the bit of (q, c) at the padded voxel c + q
+    tcodes = K.pack_target_codes(hi, lo, tc)
+    assert tcodes.shape == ((tc.P + 31) // 32,) + want.shape + (2,)
+    t_hi, t_lo = K.unpack_codes(tcodes, tc)
+    for q in range(tc.P):
+        o = np.unravel_index(q, ps)
+        win = tuple(slice(int(a), int(a) + s) for a, s in zip(o, shape))
+        assert torch.equal(t_hi[q][win], hi[q] != 0)
+        assert torch.equal(t_lo[q][win], lo[q] != 0)
+    assert int(t_hi.sum()) == int((hi != 0).sum())
+    assert int(t_lo.sum()) == int((lo != 0).sum())
+
+
+@pytest.mark.parametrize("kw", [{}, {"weight_mode": "count",
+                                     "norm_aff": False}])
+def test_consensus_plain_is_zero_where_a_target_is_dead(kw):
+    ps, shape = (3, 3, 3), (6, 7, 8)
+    tc = C.ConsensusConfig(patchshape=ps, **kw)
+    hi, lo = _general_masks(ps, shape, 22)
+    affs = torch.from_numpy(_random_affs(shape, 27, 22))
+    half = C.consensus_half_plain(affs, hi, lo, tc).numpy()
+    t = K.pack_codes(hi, lo, tc)[2].numpy().astype(bool)
+    rad = [p // 2 for p in ps]
+    tp = np.pad(t, [(0, p) for p in ps])     # x + d + rad may pass T's end
+    n_live = 0
+    for dz in range(ps[0]):
+        for dy in range(-ps[1] + 1, ps[1]):
+            for dx in range(-ps[2] + 1, ps[2]):
+                at_x = tp[rad[0]:rad[0] + shape[0], rad[1]:rad[1] + shape[1],
+                          rad[2]:rad[2] + shape[2]]
+                at_xd = np.roll(tp, (-dz, -dy, -dx), (0, 1, 2))[
+                    rad[0]:rad[0] + shape[0], rad[1]:rad[1] + shape[1],
+                    rad[2]:rad[2] + shape[2]]
+                # a negative shift wraps the zero padding around: x + d + rad
+                # below 0 reads zeros, as it must
+                both = at_x & at_xd
+                plane = half[dz, dy + ps[1] - 1, dx + ps[2] - 1]
+                assert not plane[~both].any()
+                n_live += int(np.count_nonzero(plane))
+    assert n_live > 100
+
+
+@pytest.mark.parametrize("int_counter", [False, True])
+def test_rank_plain_is_zero_off_eligible_centers(int_counter):
+    ps, shape = (3, 3, 3), (6, 7, 8)
+    tc = C.ConsensusConfig(patchshape=ps, rank_int_counter=int_counter)
+    hi, lo = _general_masks(ps, shape, 23)
+    half = torch.from_numpy(np.random.RandomState(23).randn(
+        3, 5, 5, *shape).astype(np.float32))
+    acc = C.rank_acc_plain(hi, lo, half, tc).numpy()
+    elig = K.pack_codes(hi, lo, tc)[1].numpy().astype(bool)
+    assert not acc[~elig].any() and np.count_nonzero(acc[elig]) > 20

@@ -86,6 +86,66 @@ def test_rank_kernel_matches_plain_on_border_centers(dev, int_counter):
                                atol=1e-3, rtol=1e-4)
 
 
+def _sparse_affs(shape, ps, seed, dev):
+    """Noisy affinities of a few box instances filling about 15 % of the
+    volume: the sparse foreground the 3D main path sees."""
+    from patchperpix_tpu_torch.ops.synthetic import labels_to_affinities
+
+    rng = np.random.RandomState(seed)
+    lab = np.zeros(shape, np.int32)
+    for i in range(1, 7):
+        lo = [rng.randint(0, s - 4) for s in shape]
+        hi = [min(s, a + rng.randint(5, max(6, s // 2))) for a, s in
+              zip(lo, shape)]
+        lab[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = i
+    affs = labels_to_affinities(lab, np.array(ps))
+    affs = np.clip(0.8 * affs + 0.2 * rng.rand(*affs.shape), 0, 1)
+    return torch.from_numpy(affs.astype(np.float32)).to(dev), lab > 0
+
+
+@pytest.mark.parametrize("shape", [(20, 24, 40), (9, 10, 37)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernels_match_plain_on_sparse_foreground(dev, shape, bf16):
+    """The main path's shape class (7^3 patch, sparse foreground), also
+    with an X that is no multiple of 32; the pack pass's scratch against
+    its plain version; two launches give equal bits."""
+    cfg = C.ConsensusConfig(patchshape=(7, 7, 7), patch_threshold=0.6,
+                            cons_bf16=bf16)
+    affs, fg = _sparse_affs(shape, (7, 7, 7), 5, dev)
+    assert 0.05 < fg.mean() < 0.4
+    hi, lo, _ = C._masks(affs, cfg)
+    a, b = affs * hi, (1.0 - affs) * lo
+    half, codes, targets, vals = K._consensus_launch(a, b, hi, lo, cfg)
+    assert torch.equal(codes, K.pack_target_codes(hi, lo, cfg))
+    assert torch.equal(targets, K.pack_codes(hi, lo, cfg)[2])
+    any_bit = ((hi != 0) | (lo != 0)).movedim(0, -1)
+    assert torch.equal(vals[0][any_bit], (a - b).movedim(0, -1)[any_bit])
+    lo_bit = (lo != 0).movedim(0, -1)
+    assert torch.equal(vals[1][lo_bit], b.movedim(0, -1)[lo_bit])
+    want = C.consensus_half_plain(affs, hi, lo, cfg)
+    assert float(want.float().abs().max()) > 0.1
+    torch.testing.assert_close(half.float(), want.float(), atol=1e-4,
+                               rtol=2.0 ** -7 if bf16 else 1e-4)
+    assert torch.equal(half, K.consensus_half_cuda(a, b, hi, lo, cfg))
+    acc = K.rank_acc_cuda(hi, lo, half, cfg)
+    want = C.rank_acc_plain(hi, lo, half, cfg)
+    assert float(want.abs().max()) > 1.0
+    torch.testing.assert_close(acc, want, atol=1e-3, rtol=1e-4)
+    assert torch.equal(acc, K.rank_acc_cuda(hi, lo, half, cfg))
+
+
+@pytest.mark.parametrize("int_counter", [False, True])
+def test_kernels_on_all_zero_masks(dev, int_counter):
+    cfg = C.ConsensusConfig(patchshape=(3, 3, 3),
+                            rank_int_counter=int_counter)
+    shape = (6, 7, 40)
+    z = torch.zeros((27,) + shape, device=dev)
+    half = K.consensus_half_cuda(z, z, z, z, cfg)
+    assert half.shape == (3, 5, 5) + shape and not half.any()
+    acc = K.rank_acc_cuda(z, z, torch.randn(half.shape, device=dev), cfg)
+    assert acc.shape == shape and not acc.any()
+
+
 def test_wrappers_check_inputs(dev):
     cfg = C.ConsensusConfig(patchshape=(3, 3, 3))
     affs = _affs((6, 6, 6), 27, 0, dev)
