@@ -42,7 +42,10 @@ under 400 voxels go.  Phases, each printed as one JSON line:
 8. kernels2d: the 2D consensus and rank kernels against their plain
    versions on path2d's inputs, f32 and bf16 half (consensus atol = rtol =
    1e-4 in f32, 1e-4 + 2^-7 |x| in bf16, one rounding step of the stored
-   type; rank atol 1e-3 / rtol 1e-4), timed like phase 3;
+   type; rank atol 1e-3 / rtol 1e-4), each launched a second time for
+   equal bits, timed like phase 3; then the same checks and the kernels'
+   times on dense2d, a denser worm image (64 worms, seed 1, setting (A)),
+   a kernel check only (no path, no JAX reference);
 9. model2d: the BBBC010 model (configs/bbbc010.toml widths, seeded
    weights) on one 512x512 window, predict and decode at seeded pixel
    positions, against parity/torch_port_model2d_ref.npz (1e-4 + 1e-4 |x|);
@@ -131,6 +134,18 @@ def path2d_inputs(setting, crop=None):
         numinst[crossing] = 2
     return dict(labels=labels, fg=fg, numinst=numinst,
                 affs=labels_to_affinities(labels, np.array(PS2D)))
+
+
+def dense2d_affs():
+    """Ideal 25x25 affinities of the dense2d image: 64 worms (seed 1) at
+    520x696, about four times path2d's foreground."""
+    import numpy as np
+
+    from patchperpix_tpu_torch.ops.synthetic import (labels_to_affinities,
+                                                     worm_labels)
+
+    labels, _ = worm_labels(*IMG2D, n_worms=64, seed=1, with_crossings=True)
+    return labels_to_affinities(labels, np.array(PS2D))
 
 
 def model2d_sample(n=512):
@@ -514,77 +529,17 @@ def run_path2d(dev, kernels):
     return launches, affs, full
 
 
-def check_kernels_2d(affs, full, dev):
-    """Phase kernels2d: the 2D kernels against their plain versions on
-    path2d's inputs; errors under both settings and both storage types,
-    times and bounds for (A) in f32."""
-    import dataclasses
-
+def bounds_2d(ag, tgt, cfg, half):
+    """What the data needs of the 2D kernels: operations over the eligible
+    pair terms, as for the 3D kernels; bytes: the mid plane (the center
+    gate), the stack's columns at eligible centers (the rest holds the
+    sentinel), the target plane; K3 writes the whole half (zeros
+    included), K4 reads only the half's live entries (both ends
+    target-eligible) and writes one plane."""
     import torch
 
-    from patchperpix_tpu_torch.assembly import VoteInstancesParams
     from patchperpix_tpu_torch.ops import consensus as C
-    from patchperpix_tpu_torch.ops import consensus_kernels as K
 
-    def close(got, want, atol, rtol):
-        d = (got.float() - want.float()).abs()
-        return float(d.max()), bool(torch.all(d <= atol + rtol
-                                              * want.float().abs()))
-
-    def check(s, bf16):
-        """Errors of both kernels under setting ``s`` and one storage type;
-        also the operands and the kernel's half, for the timing."""
-        cfg = dataclasses.replace(
-            VoteInstancesParams(**PATH2D[s]).consensus_config(),
-            cons_bf16=bf16)
-        overlap = torch.as_tensor(full[s]["numinst"] > 1, device=dev)
-        ag, tgt = C.gated_stack_2d(affs, cfg, overlap)
-        half_k = K.consensus_half_2d_cuda(ag, tgt, cfg)
-        half_p = C.consensus_half_2d_plain(ag, tgt, cfg)
-        err_c, ok_c = close(half_k, half_p, 1e-4, 2.0 ** -7 if bf16 else 1e-4)
-        acc_k = K.rank_acc_2d_cuda(ag, tgt, half_k, cfg)
-        acc_p = C.rank_acc_2d_plain(ag, tgt, half_k, cfg)
-        torch.cuda.synchronize(dev)
-        err_r, ok_r = close(acc_k, acc_p, 1e-3, 1e-4)
-        return {"setting": s, "half": "bf16" if bf16 else "f32",
-                "consensus2d_max_abs_err": err_c, "consensus2d_ok": ok_c,
-                "consensus2d_max_abs": float(half_p.float().abs().max()),
-                "rank2d_max_abs_err": err_r, "rank2d_ok": ok_r,
-                "rank2d_max_abs": float(acc_p.abs().max())}, \
-            (cfg, ag, tgt, half_k)
-
-    first, (cfg, ag, tgt, half) = check("A", False)
-    checks = [first] + [check(s, bf16)[0] for s, bf16 in
-                        (("A", True), ("B", False), ("B", True))]
-    err_c, err_r = first["consensus2d_max_abs_err"], \
-        first["rank2d_max_abs_err"]
-    emit({"phase": "kernels2d_check", "checks": checks})
-    if not all(c["consensus2d_ok"] and c["rank2d_ok"] for c in checks):
-        raise AssertionError("a 2D CUDA kernel disagrees with its plain "
-                             "version")
-
-    ms_c, plain_c = time_pair(
-        lambda: C.consensus_half_2d_plain(ag, tgt, cfg),
-        lambda: K.consensus_half_2d_cuda(ag, tgt, cfg), dev)
-    ms_r, plain_r = time_pair(
-        lambda: C.rank_acc_2d_plain(ag, tgt, half, cfg),
-        lambda: K.rank_acc_2d_cuda(ag, tgt, half, cfg), dev)
-    cfg16 = dataclasses.replace(cfg, cons_bf16=True)
-    half16 = K.consensus_half_2d_cuda(ag, tgt, cfg16)
-    ms_c16, _ = time_pair(lambda: None,
-                          lambda: K.consensus_half_2d_cuda(ag, tgt, cfg16),
-                          dev)
-    ms_r16, _ = time_pair(lambda: None,
-                          lambda: K.rank_acc_2d_cuda(ag, tgt, half16, cfg16),
-                          dev)
-    del half16
-
-    # bounds from this run's inputs.  Operations: the eligible pair terms,
-    # as for the 3D kernels.  Bytes, what this data needs: the mid plane
-    # (the center gate), the stack's columns at eligible centers (the rest
-    # holds the sentinel), the target plane; K3 writes the whole half
-    # (zeros included), K4 reads only the half's live entries (both ends
-    # target-eligible) and writes one plane
     hi, lo = C.derive_2d(ag, tgt, cfg)
     elig = ((hi != 0) | (lo != 0)).sum(0).double()
     n_lo = (lo != 0).sum(0).double()
@@ -598,20 +553,144 @@ def check_kernels_2d(affs, full, dev):
         n = (win[dy + p - 1] * tgt).sum(dim=(1, 2))
         live += int(n[p:].sum() if dy == 0 else n.sum())
     in_bytes = 4 * (2 * tgt.numel() + cfg.P * n_centers)
-    bytes_c = in_bytes + half.numel() * half.element_size()
-    bytes_r = in_bytes + live * half.element_size() + 4 * tgt.numel()
-    dense = 4 * (ag.numel() + tgt.numel()) + half.numel() * half.element_size()
-    emit({"phase": "kernels2d_bounds", "setting": "A", "pair_terms": terms,
-          "eligible_centers": n_centers, "live_half_entries": live,
-          "consensus2d_bytes": bytes_c, "rank2d_bytes": bytes_r,
-          "dense_bytes": dense, "consensus2d_bf16_ms": ms_c16,
-          "rank2d_bf16_ms": ms_r16})
-    return [
+    size = half.element_size()
+    return {"pair_terms": terms, "eligible_centers": n_centers,
+            "target_pixels": int((tgt != 0).sum()),
+            "live_half_entries": live,
+            "consensus2d_bytes": in_bytes + half.numel() * size,
+            "rank2d_bytes": in_bytes + live * size + 4 * tgt.numel(),
+            "dense_bytes": 4 * (ag.numel() + tgt.numel())
+            + half.numel() * size}
+
+
+def check_kernels_2d(affs, full, dev):
+    """Phase kernels2d: the 2D kernels against their plain versions on
+    path2d's inputs; errors and two launches under both settings and both
+    storage types, times and bounds for (A) in f32; then the same checks and
+    the kernels' times on dense2d."""
+    import dataclasses
+
+    import torch
+
+    from patchperpix_tpu_torch.assembly import VoteInstancesParams
+    from patchperpix_tpu_torch.ops import consensus as C
+    from patchperpix_tpu_torch.ops import consensus_kernels as K
+
+    def close(got, want, atol, rtol):
+        d = (got.float() - want.float()).abs()
+        return float(d.max()), bool(torch.all(d <= atol + rtol
+                                              * want.float().abs()))
+
+    def check(name, cfg, ag, tgt):
+        """Errors of both kernels and the two-launch test under one
+        configuration; also the kernel's half, for the timing."""
+        half_k = K.consensus_half_2d_cuda(ag, tgt, cfg)
+        half_p = C.consensus_half_2d_plain(ag, tgt, cfg)
+        err_c, ok_c = close(half_k, half_p, 1e-4,
+                            2.0 ** -7 if cfg.cons_bf16 else 1e-4)
+        max_c = float(half_p.float().abs().max())
+        del half_p
+        acc_k = K.rank_acc_2d_cuda(ag, tgt, half_k, cfg)
+        acc_p = C.rank_acc_2d_plain(ag, tgt, half_k, cfg)
+        torch.cuda.synchronize(dev)
+        err_r, ok_r = close(acc_k, acc_p, 1e-3, 1e-4)
+        # a second launch of each gives the same bits (sums in a fixed order)
+        same_c = bool(torch.equal(half_k,
+                                  K.consensus_half_2d_cuda(ag, tgt, cfg)))
+        same_r = bool(torch.equal(acc_k,
+                                  K.rank_acc_2d_cuda(ag, tgt, half_k, cfg)))
+        return {"case": name, "half": "bf16" if cfg.cons_bf16 else "f32",
+                "consensus2d_max_abs_err": err_c, "consensus2d_ok": ok_c,
+                "consensus2d_max_abs": max_c,
+                "consensus2d_two_launches_equal": same_c,
+                "rank2d_max_abs_err": err_r, "rank2d_ok": ok_r,
+                "rank2d_max_abs": float(acc_p.abs().max()),
+                "rank2d_two_launches_equal": same_r}, half_k
+
+    def gate(checks, what):
+        if not all(c["consensus2d_ok"] and c["rank2d_ok"] for c in checks):
+            raise AssertionError(f"a 2D CUDA kernel disagrees with its plain "
+                                 f"version ({what})")
+        if not all(c["consensus2d_two_launches_equal"]
+                   and c["rank2d_two_launches_equal"] for c in checks):
+            raise AssertionError(f"two launches of a 2D CUDA kernel differ "
+                                 f"({what})")
+
+    def kernel_ms(cfg, ag, tgt, half):
+        ms_c, _ = time_pair(lambda: None,
+                            lambda: K.consensus_half_2d_cuda(ag, tgt, cfg),
+                            dev)
+        ms_r, _ = time_pair(lambda: None,
+                            lambda: K.rank_acc_2d_cuda(ag, tgt, half, cfg),
+                            dev)
+        return ms_c, ms_r
+
+    def setting(s, bf16):
+        cfg = dataclasses.replace(
+            VoteInstancesParams(**PATH2D[s]).consensus_config(),
+            cons_bf16=bf16)
+        overlap = torch.as_tensor(full[s]["numinst"] > 1, device=dev)
+        return (cfg,) + C.gated_stack_2d(affs, cfg, overlap)
+
+    cfg, ag, tgt = setting("A", False)
+    first, half = check("A", cfg, ag, tgt)
+    checks = [first]
+    for s, bf16 in (("A", True), ("B", False), ("B", True)):
+        c, h = check(s, *setting(s, bf16))
+        checks.append(c)
+        del h
+    err_c, err_r = first["consensus2d_max_abs_err"], \
+        first["rank2d_max_abs_err"]
+    emit({"phase": "kernels2d_check", "checks": checks})
+    gate(checks, "path2d")
+
+    ms_c, plain_c = time_pair(
+        lambda: C.consensus_half_2d_plain(ag, tgt, cfg),
+        lambda: K.consensus_half_2d_cuda(ag, tgt, cfg), dev)
+    ms_r, plain_r = time_pair(
+        lambda: C.rank_acc_2d_plain(ag, tgt, half, cfg),
+        lambda: K.rank_acc_2d_cuda(ag, tgt, half, cfg), dev)
+    cfg16 = dataclasses.replace(cfg, cons_bf16=True)
+    half16 = K.consensus_half_2d_cuda(ag, tgt, cfg16)
+    ms_c16, ms_r16 = kernel_ms(cfg16, ag, tgt, half16)
+    del half16
+    b = bounds_2d(ag, tgt, cfg, half)
+    emit({"phase": "kernels2d_bounds", "setting": "A", **b,
+          "consensus2d_bf16_ms": ms_c16, "rank2d_bf16_ms": ms_r16})
+    rows = [
         kernel_row(K.CONSENSUS2D, err_c, ms_c, plain_c,
-                   bound_ms(bytes_c, CONS_OPS_PER_TERM * terms)),
+                   bound_ms(b["consensus2d_bytes"],
+                            CONS_OPS_PER_TERM * b["pair_terms"])),
         kernel_row(K.RANK2D, err_r, ms_r, plain_r,
-                   bound_ms(bytes_r, RANK_OPS_PER_TERM * terms)),
+                   bound_ms(b["rank2d_bytes"],
+                            RANK_OPS_PER_TERM * b["pair_terms"])),
     ]
+    del ag, tgt, half
+
+    # dense2d: setting (A)'s configuration on the 64-worm image
+    affs_d = torch.as_tensor(dense2d_affs(), device=dev)
+    res = {"phase": "kernels2d_dense", "size": list(IMG2D),
+           "n_worms": 64, "checks": []}
+    for bf16 in (False, True):
+        c = dataclasses.replace(cfg, cons_bf16=bf16)
+        ag, tgt = C.gated_stack_2d(affs_d, c)
+        chk, half = check("dense2d", c, ag, tgt)
+        res["checks"].append(chk)
+        ms_c, ms_r = kernel_ms(c, ag, tgt, half)
+        res[f"consensus2d_{chk['half']}_ms"] = ms_c
+        res[f"rank2d_{chk['half']}_ms"] = ms_r
+        if not bf16:
+            b = bounds_2d(ag, tgt, c, half)
+            res.update(b)
+            res["consensus2d_bound_ms"], res["consensus2d_bound_by"] = \
+                bound_ms(b["consensus2d_bytes"],
+                         CONS_OPS_PER_TERM * b["pair_terms"])
+            res["rank2d_bound_ms"], res["rank2d_bound_by"] = bound_ms(
+                b["rank2d_bytes"], RANK_OPS_PER_TERM * b["pair_terms"])
+        del ag, tgt, half
+    emit(res)
+    gate(res["checks"], "dense2d")
+    return rows
 
 
 def check_model2d(dev):

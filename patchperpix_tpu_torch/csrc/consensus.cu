@@ -43,7 +43,7 @@
 //     centers point at it (15 MB instead of 343 MB at the crop: it stays in
 //     L2); the byte plane T of voxels with any bit; and the values a - b
 //     (and b) under set bits, centre-major.
-// (2) fill_zero_kernel writes the whole half as zeros in address order at
+// (2) fill_zero.cuh writes the whole half as zeros in address order at
 //     the memory's rate: on the crop 95 % of it stays zero.
 // (3) A block owns up to 32 voxels of one row for all displacements.  An
 //     output (d, x) can be nonzero only where T[x] and T[x + d] both hold;
@@ -76,6 +76,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "fill_zero.cuh"
 #include "pack_codes.cuh"
 
 namespace {
@@ -92,20 +93,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kLanes * kWarps;
 constexpr int kDPerWarp = 16;  // displacements per warp in one round
 constexpr int kListMax = kThreads * kDPerWarp;
-
-// Zero fill of the half, 16 bytes a thread and turn: most of the half is
-// zero, and whole-line stores in address order reach the memory's rate,
-// which the tiles' scattered zeros would not.
-__global__ void fill_zero_kernel(unsigned char* __restrict__ p,
-                                 long long n_bytes) {
-  const long long n16 = n_bytes / 16;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  uint4* p16 = reinterpret_cast<uint4*>(p);
-  for (long long i = t; i < n16; i += step)
-    p16[i] = make_uint4(0u, 0u, 0u, 0u);
-  if (t < n_bytes - n16 * 16) p[n16 * 16 + t] = 0;
-}
 
 struct Shape {
   int Z, Y, X, psz, psy, psx;
@@ -297,10 +284,7 @@ int launch(const float* vals, const void* G, const unsigned char* T,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const long long n_bytes = rows * sh.X * sh.psz * ndy * ndx * sizeof(OutT);
-  const long long fill_blocks = min(n_bytes / (16 * 256) + 1, 132LL * 16);
-  fill_zero_kernel<<<(unsigned)fill_blocks, 256, 0, s>>>(
-      static_cast<unsigned char*>(out), n_bytes);
+  ppp::fill_zero(out, rows * sh.X * sh.psz * ndy * ndx * sizeof(OutT), s);
   const dim3 grid((unsigned)((sh.X + kLanes - 1) / kLanes), (unsigned)rows);
   const dim3 block(kLanes, kWarps);
   consensus_half_kernel<OutT><<<grid, block, smem, s>>>(

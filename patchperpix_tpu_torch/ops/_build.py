@@ -106,9 +106,17 @@ class CudaKernel:
         self.launches = 0
 
     def launch(self, *args):
+        """Run the kernel's entry point and count the launch."""
+        self.call(self.symbol, self.argtypes, *args)
+        self.launches += 1
+
+    def call(self, symbol: str, argtypes, *args):
+        """Run another entry point of the same library (a step that sizes
+        the kernel's scratch), not counted as a launch; raises on a CUDA
+        error."""
         lib = load(self.name)
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         err = fn(*args)
         if err != 0:
@@ -117,4 +125,3 @@ class CudaKernel:
             msg.restype = ctypes.c_char_p
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {err} ({msg(err).decode()})")
-        self.launches += 1

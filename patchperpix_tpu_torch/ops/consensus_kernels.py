@@ -12,7 +12,9 @@ Counterpart of ``patchperpix_tpu/ops/pallas_consensus.py`` and
   ``pack_codes``) into scratch that the wrapper allocates;
 - ``CONSENSUS2D`` (``csrc/consensus2d.cu``) replaces ``_cons2d_kernel`` of
   ``consensus_fold_pallas_2d``: the 2D canonical half (p, 2p-1, H, W) from
-  one sentinel-gated stack and a target plane;
+  one sentinel-gated stack and a target plane.  Its first step counts the
+  target pixels, so that the wrapper sizes the scratch of the rest by them
+  (plain version of that scratch: ``pack_target_codes_2d``);
 - ``RANK2D`` (``csrc/rank2d.cu``) replaces ``_rank2d_kernel``: the 2D rank
   sum over that half.
 
@@ -40,12 +42,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ._build import CudaKernel
 from .consensus import (ConsensusConfig, _masks, consensus_half_2d_plain,
-                        consensus_half_plain, gated_stack_2d, is_2d,
-                        rank_acc_2d_plain, rank_acc_plain, rank_epilogue,
-                        rank_epilogue_2d)
+                        consensus_half_plain, derive_2d, gated_stack_2d,
+                        is_2d, rank_acc_2d_plain, rank_acc_plain,
+                        rank_epilogue, rank_epilogue_2d)
 from .np_reference import patch_offsets
 from .probe import PROBE
 
@@ -68,7 +71,7 @@ RANK = CudaKernel(
 CONSENSUS2D = CudaKernel(
     "consensus2d", "ppp_consensus2d_half",
     [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I,
-     _P],
+     _P, _I, _P, _P, _P, _P],
     "patchperpix_tpu/ops/pallas_consensus_2d.py:261 _cons2d_kernel "
     "(consensus_fold_pallas_2d :387, pallas_call :445)")
 RANK2D = CudaKernel(
@@ -78,6 +81,9 @@ RANK2D = CudaKernel(
     "patchperpix_tpu/ops/pallas_consensus_2d.py:531 _rank2d_kernel "
     "(_rank2d_call :664, pallas_call :709)")
 KERNELS = (CONSENSUS, RANK, CONSENSUS2D, RANK2D, PROBE)
+# csrc/consensus2d.cu's first step: the target pixels per row, so that the
+# wrapper can size the scratch of the rest
+CONSENSUS2D_COUNT = ("ppp_consensus2d_count", [_P, _I, _I, _P, _P])
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device):
@@ -174,6 +180,36 @@ def unpack_codes(codes: torch.Tensor, cfg: ConsensusConfig) -> tuple:
     return bits[..., 0], bits[..., 1]
 
 
+def pack_target_codes_2d(ag: torch.Tensor, tgt: torch.Tensor,
+                         cfg: ConsensusConfig) -> tuple:
+    """Plain version of the scratch that ``csrc/consensus2d.cu`` fills from
+    the gated stack and the target plane:
+
+    - idx (H, W) int32: a target pixel's place in row-major order, -1 off
+      the target (tgt == 0);
+    - pix (n) int32: the flat pixel of each listed target pixel;
+    - G (W, n, 2) int32, W = ceil(P / 32), target-aligned: bit q % 32 of
+      G[q // 32, i, 0] / G[q // 32, i, 1] is hi / lo of patch pixel q of the
+      eligible center pix[i] - (q - rad), whose pixel q points at pix[i].
+    """
+    P, H, W = ag.shape
+    rad = int(cfg.ps[1]) // 2
+    pix = torch.nonzero(tgt.reshape(-1) != 0)[:, 0]
+    idx = torch.full((H * W,), -1, dtype=torch.int32, device=ag.device)
+    idx[pix] = torch.arange(len(pix), dtype=torch.int32, device=ag.device)
+    gate = (ag[cfg.mid] >= 0).to(torch.float32)
+    words = []
+    for t in derive_2d(ag, tgt, cfg):
+        t = F.pad(t * gate, (rad, rad, rad, rad))
+        bits = torch.stack([
+            t[q, 2 * rad - int(o[1]):2 * rad - int(o[1]) + H,
+              2 * rad - int(o[2]):2 * rad - int(o[2]) + W]
+            for q, o in enumerate(patch_offsets(cfg.ps))]) != 0
+        words.append(_pack_words(bits.reshape(P, -1)[:, pix]))
+    return (idx.reshape(H, W), pix.to(torch.int32),
+            torch.stack(words, dim=-1))
+
+
 def _stream(device) -> _P:
     return _P(torch.cuda.current_stream(device).cuda_stream)
 
@@ -266,20 +302,37 @@ def _check_2d_operands(name: str, ag, tgt, cfg: ConsensusConfig):
     return dev, H, W
 
 
-def consensus_half_2d_cuda(ag, tgt, cfg: ConsensusConfig) -> torch.Tensor:
-    """Launch ``csrc/consensus2d.cu`` on the gated stack ag (P, H, W) and
-    the target plane tgt (H, W) of ``gated_stack_2d``: the 2D canonical
-    half (p, 2p-1, H, W), float32 or bf16."""
+def _consensus2d_launch(ag, tgt, cfg: ConsensusConfig) -> tuple:
+    """``consensus_half_2d_cuda`` with the scratch of its steps: (half,
+    idx, pix, G), as ``pack_target_codes_2d`` describes them.  The scratch
+    is sized by the n target pixels, which the kernel's first step counts
+    and the host reads (one sync)."""
     dev, H, W = _check_2d_operands("consensus2d kernel", ag, tgt, cfg)
     p = int(cfg.ps[1])
     out = torch.empty((p, 2 * p - 1, H, W), device=dev,
                       dtype=torch.bfloat16 if cfg.cons_bf16
                       else torch.float32)
+    row_off = torch.empty(H + 1, dtype=torch.int32, device=dev)
+    stream = _stream(dev)
+    CONSENSUS2D.call(*CONSENSUS2D_COUNT, tgt.data_ptr(), H, W,
+                     row_off.data_ptr(), stream)
+    n = int(row_off[H])
+    idx = torch.empty((H, W), dtype=torch.int32, device=dev)
+    pix = torch.empty(n, dtype=torch.int32, device=dev)
+    G = torch.empty((_n_words(cfg), n, 2), dtype=torch.int32, device=dev)
     CONSENSUS2D.launch(
         ag.data_ptr(), tgt.data_ptr(), out.data_ptr(), int(cfg.cons_bf16),
         H, W, p, _WEIGHT_MODES[cfg.weight_mode], float(cfg.patch_threshold),
-        float(cfg.bg_th), int(cfg.norm_aff), _stream(dev))
-    return out
+        float(cfg.bg_th), int(cfg.norm_aff), row_off.data_ptr(), n,
+        idx.data_ptr(), pix.data_ptr(), G.data_ptr(), stream)
+    return out, idx, pix, G
+
+
+def consensus_half_2d_cuda(ag, tgt, cfg: ConsensusConfig) -> torch.Tensor:
+    """Launch ``csrc/consensus2d.cu`` on the gated stack ag (P, H, W) and
+    the target plane tgt (H, W) of ``gated_stack_2d``: the 2D canonical
+    half (p, 2p-1, H, W), float32 or bf16."""
+    return _consensus2d_launch(ag, tgt, cfg)[0]
 
 
 def rank_acc_2d_cuda(ag, tgt, cons_half, cfg: ConsensusConfig

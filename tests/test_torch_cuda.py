@@ -199,6 +199,69 @@ def test_kernels_2d_match_plain(dev, p, shape, kw):
     assert K.RANK2D.launches == n0 + 1 and tuple(scores.shape) == shape
 
 
+def _worm_operands(n_worms, seed, cfg, dev, W=201):
+    """The 2D kernels' operands on a 120 x W worm image (5-pixel-wide
+    worms, ideal affinities blended with noise): sparse foreground with a
+    few worms, dense with many; overlaps on the crossings."""
+    from patchperpix_tpu_torch.ops.synthetic import (labels_to_affinities,
+                                                     worm_labels)
+
+    lab, cross = worm_labels(120, W, n_worms=n_worms, seed=seed,
+                             with_crossings=True)
+    affs = labels_to_affinities(lab, np.array(cfg.ps))
+    rng = np.random.RandomState(seed)
+    affs = np.clip(0.85 * affs + 0.15 * rng.rand(*affs.shape), 0, 1)
+    ag, tgt = C.gated_stack_2d(
+        torch.from_numpy(affs.astype(np.float32)).to(dev), cfg,
+        torch.from_numpy(cross).to(dev))
+    return ag, tgt, float((lab > 0).mean())
+
+
+@pytest.mark.parametrize("n_worms,fg_range", [(3, (0.01, 0.1)),
+                                              (40, (0.25, 0.7))])
+@pytest.mark.parametrize("bf16,int_counter", [(False, False), (True, True)])
+def test_kernels_2d_on_worm_images(dev, n_worms, fg_range, bf16,
+                                   int_counter):
+    """25x25 patches on sparse and dense worm foreground, W no multiple of
+    32; the consensus kernel's scratch against its plain version; two
+    launches of each kernel give equal bits."""
+    cfg = C.ConsensusConfig(patchshape=(1, 25, 25), patch_threshold=0.5,
+                            overlapping_inst=True, cons_bf16=bf16,
+                            rank_int_counter=int_counter)
+    ag, tgt, fg = _worm_operands(n_worms, 2, cfg, dev)
+    assert fg_range[0] < fg < fg_range[1]
+    half, idx, pix, G = K._consensus2d_launch(ag, tgt, cfg)
+    want_idx, want_pix, want_G = K.pack_target_codes_2d(ag, tgt, cfg)
+    assert torch.equal(idx, want_idx) and torch.equal(pix, want_pix)
+    assert torch.equal(G, want_G)
+    want = C.consensus_half_2d_plain(ag, tgt, cfg)
+    assert float(want.float().abs().max()) > 0.1
+    torch.testing.assert_close(half.float(), want.float(), atol=1e-4,
+                               rtol=2.0 ** -7 if bf16 else 1e-4)
+    assert torch.equal(half, K.consensus_half_2d_cuda(ag, tgt, cfg))
+    acc = K.rank_acc_2d_cuda(ag, tgt, half, cfg)
+    want = C.rank_acc_2d_plain(ag, tgt, half, cfg)
+    assert float(want.abs().max()) > 1.0
+    torch.testing.assert_close(acc, want, atol=1e-3, rtol=1e-4)
+    assert torch.equal(acc, K.rank_acc_2d_cuda(ag, tgt, half, cfg))
+
+
+@pytest.mark.parametrize("int_counter", [False, True])
+def test_kernels_2d_on_empty_inputs(dev, int_counter):
+    """All-sentinel stack (no eligible center) on a set target plane, and a
+    gated stack on an empty target plane: zero half, zero sum."""
+    cfg = C.ConsensusConfig(patchshape=(1, 25, 25),
+                            rank_int_counter=int_counter)
+    ag, tgt, _ = _worm_operands(3, 2, cfg, dev, W=150)
+    sentinel = torch.full_like(ag, -1.0)
+    no_target = torch.zeros_like(tgt)
+    for a, t in ((sentinel, tgt), (ag, no_target)):
+        half = K.consensus_half_2d_cuda(a, t, cfg)
+        assert half.shape == (25, 49) + tuple(tgt.shape) and not half.any()
+        acc = K.rank_acc_2d_cuda(a, t, torch.randn_like(half), cfg)
+        assert acc.shape == tgt.shape and not acc.any()
+
+
 def test_wrappers_2d_check_inputs(dev):
     cfg = C.ConsensusConfig(patchshape=(1, 5, 5))
     affs = _affs((1, 12, 14), 25, 0, dev)
