@@ -49,7 +49,34 @@ under 400 voxels go.  Phases, each printed as one JSON line:
 9. model2d: the BBBC010 model (configs/bbbc010.toml widths, seeded
    weights) on one 512x512 window, predict and decode at seeded pixel
    positions, against parity/torch_port_model2d_ref.npz (1e-4 + 1e-4 |x|);
-10. the kernels line, then the contract's last line.
+10. blockwise (run right after phase 4, with phase 3's float32 model and
+   decoded affinities): the out-of-core sample path, the reference CLI's
+   predict -> decode -> label --blockwise, on a stand-in sample: the 50^3
+   crop reflected to 100^3, larger than the 52^3 window.
+   predict_sample_to_zarr writes pred_code / pred_numinst (f16, zlib) to
+   a temporary store;
+   blockwise_vote_instances_zarr streams codes through CodeAffReader
+   (chunksize 64^3, 70^3 block windows: K1 + K2 per block, K1 per stitch
+   window), counted from zero; then the staged variant, decode_sample in
+   at least two z-slabs and blockwise from the dense pred_affs store
+   (ZarrAffReader, no decoder); one stitch-sized window's read split into
+   zlib, decoder and crossing seconds; and the whole volume at 100^3 for
+   comparison (information only).  Gates: (a) the stored heads equal
+   predict_volume_device within 1e-3; (b) the code-reader map equals the
+   staged map after relabel, with equal foreground, each run having read
+   through its own reader; (c) the blockwise map (chunksize 32^3, in
+   memory) of phase 3's f32 decoded affinities agrees with the JAX
+   package's f32 CPU blockwise run in
+   parity/torch_port_blockwise_ref_f32.npz (at the size stored there)
+   under phase 4's limits; (d) benchmarks/blockwise_scale.py's synthetic
+   120^3 tube volume (ops/synthetic.py's copy), written as an f16 store
+   and assembled blockwise at chunksize 64: 12 instances, each
+   ground-truth tube matched by exactly one at IoU >= 0.5; (e) K1 and K2 on a border block window
+   (center_valid set) against their plain versions at phase 3's
+   tolerances, equal bits on two launches.  K1 / K2 launches on the path
+   must equal the blocks (K2) and the blocks plus stitch windows (K1) that
+   reached the consensus stage;
+11. the kernels line, then the contract's last line.
 
 Any failure raises and exits non-zero before the last line; with no CUDA
 device, or without the repository beside it, it exits 2.
@@ -71,7 +98,19 @@ REF2D_NPZ = os.path.join(REPO, "parity", "torch_port_ref2d_f32.npz")
 REF2D_JSON = os.path.join(REPO, "parity", "torch_port_ref2d_f32.json")
 MODEL2D_NPZ = os.path.join(REPO, "parity", "torch_port_model2d_ref.npz")
 MODEL2D_JSON = os.path.join(REPO, "parity", "torch_port_model2d_ref.json")
+BW_REF_NPZ = os.path.join(REPO, "parity", "torch_port_blockwise_ref_f32.npz")
+BW_REF_JSON = os.path.join(REPO, "parity",
+                           "torch_port_blockwise_ref_f32.json")
 WIN = (52, 52, 52)
+# the blockwise phase: the crop reflected by 25 per side stands in for a
+# FlyLight sample; predicted in batches of 2, assembled in 64^3 blocks;
+# decode_sample's host budget forces three z-slabs at 100^3
+SAMPLE_PAD = 25
+SAMPLE_BATCH = 2
+SAMPLE_CHUNK = (64, 64, 64)
+DECODE_RAM_MB = 1024.0
+DECODE_BATCH = 4096
+SYNTH_EXTENT = 120
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the
 # float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -744,6 +783,390 @@ def check_model2d(dev):
         raise AssertionError("the 2D model disagrees with the JAX outputs")
 
 
+def extra_peak_gb(dev, base):
+    """Device memory a run needed above what was allocated before it (the
+    caller resets the peak and reads ``base`` just before the run)."""
+    import torch
+
+    return (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+
+def sample_params(**kw):
+    """The main path's [vote_instances] for blockwise assembly from a
+    prediction store."""
+    import dataclasses
+
+    return dataclasses.replace(
+        vote_params(), blockwise=True, numinst_key="volumes/pred_numinst",
+        chunksize=SAMPLE_CHUNK, **kw)
+
+
+def map_agreement(got, want, fg_got, fg_want):
+    """Phase 4's three numbers for two instance maps."""
+    import numpy as np
+
+    agree, same = match_agreement(got, want)
+    return {"fg_agreement": float(np.mean(fg_got == fg_want)),
+            "n_instances": n_instances(got), "ref_n_instances":
+            n_instances(want), "matched_agreement": agree,
+            "identical_up_to_relabel": same}
+
+
+def gate_agreement(res, what):
+    if res["fg_agreement"] < 0.999:
+        raise AssertionError(f"{what}: foreground agreement "
+                             f"{res['fg_agreement']} < 0.999")
+    if res["n_instances"] != res["ref_n_instances"]:
+        raise AssertionError(f"{what}: instance count differs")
+    if res["matched_agreement"] < 0.99:
+        raise AssertionError(f"{what}: instance agreement "
+                             f"{res['matched_agreement']} < 0.99")
+
+
+def check_border_window(model, cfg, store, fg_mask, numinst, dev):
+    """Gate (e): K1 and K2 on the sample's first border block window, with
+    the window's center_valid, against their plain versions; also the
+    peak device memory of that one block, its window read included."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch.assembly import to_instance_seg
+    from patchperpix_tpu_torch.assembly.blockwise import (
+        _crop, _global_center_valid, get_offsets)
+    from patchperpix_tpu_torch.infer.decode import CodeAffReader, CodeDecoder
+    from patchperpix_tpu_torch.ops import consensus as C
+    from patchperpix_tpu_torch.ops import consensus_kernels as K
+
+    vp = sample_params()
+    rad = np.asarray(vp.patchshape) // 2
+    vol = np.array(fg_mask.shape)
+    nz = np.argwhere(fg_mask)
+    bb_start = np.maximum(nz.min(axis=0) - rad, 0)
+    bb_stop = np.minimum(nz.max(axis=0) + rad + 1, vol)
+    chunk = np.asarray(SAMPLE_CHUNK)
+    for off in get_offsets(bb_stop - bb_start, chunk):
+        w_start = bb_start + off - rad
+        w_stop = bb_start + off + chunk + rad
+        core = np.minimum(bb_start + off + chunk, bb_stop) - bb_start - off
+        cv = _global_center_valid(w_start, w_stop - w_start, vol, rad)
+        if cv is not None:
+            break
+    if cv is None:
+        raise AssertionError("(e) the sample has no border block")
+    reader = CodeAffReader(store, CodeDecoder(model, cfg, DECODE_BATCH, dev))
+    ni = _crop(numinst, w_start, w_stop)
+    fg_w = _crop(fg_mask, w_start, w_stop)
+    # the block as compute_blocks runs it (its core as the mask), its
+    # window read included, measured like the blockwise run's peak
+    mask_w = np.zeros_like(fg_w)
+    mask_w[tuple(slice(int(r), int(r + c)) for r, c in zip(rad, core))] = \
+        True
+    mask_w &= fg_w & (ni <= 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    affs = reader.read_window(w_start, w_stop)
+    to_instance_seg(affs, fg_w, mask_w, ni, dataclasses.replace(
+        vp, return_intermediates=True, center_valid=cv), device=dev)
+    peak_block = extra_peak_gb(dev, base)
+    reader.close()
+    ccfg = vp.consensus_config()
+    cv_t = torch.as_tensor(cv, device=dev)
+    hi, lo, _ = C._masks(affs, ccfg, torch.as_tensor(ni > 1, device=dev),
+                         cv_t)
+    a, b = affs * hi, (1.0 - affs) * lo
+    half_k = K.consensus_half_cuda(a, b, hi, lo, ccfg)
+    half_p = C.consensus_half_plain(affs, hi, lo, ccfg)
+    err_c = float((half_k - half_p).abs().max())
+    ok_c = bool(torch.all((half_k - half_p).abs()
+                          <= 1e-4 + 1e-4 * half_p.abs()))
+    del half_p
+    acc_k = K.rank_acc_cuda(hi, lo, half_k, ccfg)
+    acc_p = C.rank_acc_plain(hi, lo, half_k, ccfg)
+    err_r = float((acc_k - acc_p).abs().max())
+    ok_r = bool(torch.all((acc_k - acc_p).abs()
+                          <= 1e-3 + 1e-4 * acc_p.abs()))
+    same_c = bool(torch.equal(half_k,
+                              K.consensus_half_cuda(a, b, hi, lo, ccfg)))
+    same_r = bool(torch.equal(acc_k, K.rank_acc_cuda(hi, lo, half_k, ccfg)))
+    gated = int((~cv_t).sum())
+    live_gated = bool(hi[:, ~cv_t].any() or lo[:, ~cv_t].any())
+    del hi, lo, a, b, half_k, acc_k, acc_p, affs
+    torch.cuda.empty_cache()
+    res = {"window_start": [int(v) for v in w_start],
+           "window_shape": [int(v) for v in w_stop - w_start],
+           "centers_gated_out": gated,
+           "consensus_max_abs_err": err_c, "consensus_ok": ok_c,
+           "rank_max_abs_err": err_r, "rank_ok": ok_r,
+           "consensus_two_launches_equal": same_c,
+           "rank_two_launches_equal": same_r}
+    if not (ok_c and ok_r) or live_gated:
+        raise AssertionError(f"(e) a kernel disagrees with its plain version "
+                             f"on a border window: {res}")
+    if not (same_c and same_r):
+        raise AssertionError("(e) two launches differ on a border window")
+    return res, peak_block
+
+
+def synthetic_case(dev, work):
+    """Gate (d): benchmarks/blockwise_scale.py's tube volume at 120^3."""
+    import numpy as np
+
+    from patchperpix_tpu_torch.assembly import VoteInstancesParams
+    from patchperpix_tpu_torch.assembly.blockwise import (
+        BlockStats, blockwise_vote_instances_zarr)
+    from patchperpix_tpu_torch.ops.synthetic import (labels_to_affinities,
+                                                     synth_labels)
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    ps = (7, 7, 7)
+    labels = synth_labels(SYNTH_EXTENT)
+    affs = labels_to_affinities(labels, np.array(ps)).astype(np.float16)
+    path = os.path.join(work, "synth.zarr")
+    io = IoZarr(path, mode="w")
+    io.create("volumes/pred_affs", affs.shape, np.float16,
+              chunks=(affs.shape[0], 32, 32, 32))
+    io.write(affs, key="volumes/pred_affs")
+    io.close()
+    del affs
+    # benchmarks/blockwise_scale.py's [vote_instances]
+    vp = VoteInstancesParams(
+        patchshape=ps, patch_threshold=0.5, fc_threshold=0.5, mws=True,
+        blockwise=True, chunksize=(64, 64, 64), consensus_bf16=True,
+        select_patches_for_sparse_data=True)
+    stats = BlockStats()
+    t0 = time.perf_counter()
+    inst, _ = blockwise_vote_instances_zarr(path, vp, chunksize=(64, 64, 64),
+                                            device=dev, stats=stats)
+    wall = time.perf_counter() - t0
+    n_gt = n_instances(labels)
+    counts = gt_match_counts(inst, labels)
+    res = {"extent": SYNTH_EXTENT, "fg_vox": int((labels > 0).sum()),
+           "n_gt": n_gt, "n_pred": n_instances(inst), "wall_s": wall,
+           "matches_per_gt": counts, **stats.as_dict()}
+    if res["n_pred"] != n_gt or n_gt != 12 or \
+            not all(c == 1 for c in counts.values()):
+        raise AssertionError(f"(d) synthetic 120^3: {res}")
+    return res
+
+
+def reader_split(store, dec, fg, extent, dev):
+    """One stitch-sized window (a block's where the run had no stitch
+    window) at the volume's center, read from a cold store, split into its
+    stages: zlib (the store read), the decoder (codes to the dense window
+    on the card), the crossing of the f16 dense window (staged), each
+    synchronised."""
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    vol = np.array(fg.shape)
+    extent = np.asarray(extent if extent else SAMPLE_CHUNK)
+    lo = np.maximum((vol - extent) // 2, 0)
+    box = tuple(slice(int(a), int(min(a + e, v)))
+                for a, e, v in zip(lo, extent, vol))
+    out = {"window": [b.stop - b.start for b in box]}
+    for key in ("volumes/pred_code", "volumes/pred_affs"):
+        io = IoZarr(store)
+        t0 = time.perf_counter()
+        data = io.read(bb=(slice(None),) + box, key=key)
+        out["zlib_s_" + key.split("_")[-1]] = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if key.endswith("code"):
+            dec.decode_dense(data, fg[box]).half().float()
+            name = "decoder_s"
+        else:
+            torch.from_numpy(data).to(dev).float()
+            name = "crossing_s_affs"
+        torch.cuda.synchronize(dev)
+        out[name] = time.perf_counter() - t0
+        io.close()
+    return out
+
+
+def run_blockwise(model, cfg, raw, run, dev, kernels):
+    """Phase blockwise (gates (a)-(e)); returns the K1 / K2 launches of the
+    counted code-reader run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch.assembly import (numinst_from_probs,
+                                                to_instance_seg)
+    from patchperpix_tpu_torch.assembly.blockwise import (
+        BlockStats, blockwise_vote_instances, blockwise_vote_instances_zarr)
+    from patchperpix_tpu_torch.infer.decode import (CodeDecoder,
+                                                    _slab_height,
+                                                    decode_sample)
+    from patchperpix_tpu_torch.infer.fused import predict_volume_device
+    from patchperpix_tpu_torch.infer.predict import (predict_sample_to_zarr,
+                                                     predict_volume)
+    from patchperpix_tpu_torch.utils.io import IoZarr
+    from patchperpix_tpu_torch.utils.postprocess import relabel
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ppp_blockwise_")
+    try:
+        sample = np.pad(raw, [(0, 0)] + [(SAMPLE_PAD, SAMPLE_PAD)] * 3,
+                        mode="reflect")
+        store = os.path.join(work, "sample.zarr")
+        t = {}
+        # a warm-up (batch-2 convolution setup), then predict alone, then
+        # predict + store: the store write is the difference
+        predict_volume(model, sample, cfg, WIN, WIN, SAMPLE_BATCH,
+                       device=dev)
+        t0 = time.perf_counter()
+        predict_volume(model, sample, cfg, WIN, WIN, SAMPLE_BATCH,
+                       device=dev)
+        t["predict"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        predict_sample_to_zarr(model, sample, cfg, WIN, WIN, store,
+                               batch_size=SAMPLE_BATCH, device=dev)
+        t["store_write"] = time.perf_counter() - t0 - t["predict"]
+
+        # (a) the stored heads against the device-resident prediction
+        io = IoZarr(store)
+        code16 = io.read(key="volumes/pred_code")
+        prob16 = io.read(key="volumes/pred_numinst")
+        code_d, prob_d = predict_volume_device(model, sample, cfg, WIN, WIN,
+                                               device=dev)
+        err_a = max(
+            float((torch.as_tensor(code16, device=dev).float()
+                   - code_d).abs().max()),
+            float((torch.as_tensor(prob16, device=dev).float()
+                   - prob_d).abs().max()))
+        del code_d, prob_d
+        emit({"phase": "blockwise_store", "sample": list(sample.shape),
+              "pred_code": list(code16.shape),
+              "store_mb": sum(os.path.getsize(os.path.join(d, f))
+                              for d, _, fs in os.walk(store) for f in fs)
+              / 2 ** 20, "heads_max_abs_err": err_a})
+        if not err_a <= 1e-3:
+            raise AssertionError(f"(a) stored heads differ by {err_a}")
+        numinst = numinst_from_probs(prob16.astype(np.float32),
+                                     sample_params())
+        fg = numinst > 0
+        del code16, prob16
+
+        # the code-reader path, counted from zero
+        vp = sample_params()
+        dec = CodeDecoder(model, cfg, DECODE_BATCH, dev)
+        stats = BlockStats()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        inst_c, fg_c = blockwise_vote_instances_zarr(
+            store, vp, SAMPLE_CHUNK, os.path.join(work, "codes"),
+            decoder=dec, device=dev, stats=stats)
+        torch.cuda.synchronize(dev)
+        t["blockwise_codes"] = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        peak_codes = extra_peak_gb(dev, base)
+        k1, k2 = kernels
+        if not (launches[k2.name] == stats.blocks_consensus >= 1
+                and launches[k1.name] == stats.blocks_consensus
+                + stats.stitch_consensus):
+            raise AssertionError(f"blockwise launches {launches} disagree "
+                                 f"with the run: {stats.as_dict()}")
+
+        # the staged variant: decode to a dense store in z-slabs, assemble
+        sz = _slab_height(sample.shape[1:], cfg.patchsize, cfg.code_units,
+                          DECODE_RAM_MB)
+        t0 = time.perf_counter()
+        decode_sample(model, store, cfg, batch_size=DECODE_BATCH,
+                      max_ram_mb=DECODE_RAM_MB, device=dev)
+        t["decode"] = time.perf_counter() - t0
+        stats_s = BlockStats()
+        t0 = time.perf_counter()
+        inst_s, fg_s = blockwise_vote_instances_zarr(
+            store, vp, SAMPLE_CHUNK, os.path.join(work, "staged"),
+            device=dev, stats=stats_s)
+        torch.cuda.synchronize(dev)
+        t["blockwise_staged"] = time.perf_counter() - t0
+        if (stats.reader, stats_s.reader) != ("CodeAffReader",
+                                              "ZarrAffReader"):
+            raise AssertionError(f"(b) the runs read through {stats.reader} "
+                                 f"and {stats_s.reader}")
+        # (b) equal after relabel, equal foreground
+        same_b = bool(np.array_equal(fg_c, fg_s) and np.array_equal(
+            relabel(inst_c), relabel(inst_s)))
+        readers = reader_split(store, dec, fg, stats.stitch_extent, dev)
+
+        # whole volume at 100^3 (information only: it differs by design)
+        mask = fg.copy()
+        mask[numinst > 1] = False
+        affs16 = IoZarr(store).read(key="volumes/pred_affs")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        affs = torch.as_tensor(affs16, device=dev).float()
+        inst_w, _ = to_instance_seg(affs, fg, mask, numinst, vote_params(),
+                                    device=dev)
+        torch.cuda.synchronize(dev)
+        t_whole = time.perf_counter() - t0
+        peak_whole = extra_peak_gb(dev, base)
+        del affs, affs16
+        torch.cuda.empty_cache()
+        emit({"phase": "blockwise", "sample": list(sample.shape[1:]),
+              "chunksize": list(SAMPLE_CHUNK), "wall_s": t,
+              "codes": stats.as_dict(), "staged": stats_s.as_dict(),
+              "decode_slabs": -(-sample.shape[1] // sz), "slab_z": sz,
+              "launches": launches, "fg_vox": int(fg_c.sum()),
+              "n_instances": n_instances(inst_c),
+              "codes_equal_staged_after_relabel": same_b,
+              "stitch_window_read": readers,
+              "peak_mem_gb_codes_run": peak_codes,
+              "whole_volume": {
+                  "seconds": t_whole, "peak_mem_gb": peak_whole,
+                  "n_instances": n_instances(inst_w),
+                  **{f"vs_blockwise_{k}": v for k, v in map_agreement(
+                      inst_c * fg, inst_w * fg, fg_c > 0, fg).items()}}})
+        if not same_b:
+            raise AssertionError("(b) the code-reader map differs from the "
+                                 "staged map")
+
+        # (c) the f32 crop against the JAX package's blockwise run
+        ref, meta = np.load(BW_REF_NPZ), json.load(open(BW_REF_JSON))
+        sl = tuple(slice(0, int(n)) for n in meta["size"])
+        fg32, ni32 = run["fg"][sl], run["numinst"][sl]
+        stats_c = BlockStats()
+        t0 = time.perf_counter()
+        inst32, fg32_out = blockwise_vote_instances(
+            run["dec"][(slice(None),) + sl].contiguous(), fg32, ni32, vp,
+            chunksize=tuple(meta["chunksize"]), device=dev, stats=stats_c)
+        res_c = map_agreement(inst32, ref["inst"], fg32_out > 0,
+                              ref["fg"].astype(bool))
+        emit({"phase": "blockwise_vs_jax_f32", "size": meta["size"],
+              "chunksize": meta["chunksize"],
+              "seconds": time.perf_counter() - t0,
+              "ref_cpu_seconds": meta["cpu_seconds"], **res_c,
+              **stats_c.as_dict()})
+        if stats_c.blocks < 8:
+            raise AssertionError("(c) fewer than 2 blocks per axis")
+        gate_agreement(res_c, "(c) blockwise vs the JAX f32 run")
+
+        # (d) synthetic 120^3, (e) a border window
+        emit({"phase": "blockwise_synthetic", **synthetic_case(dev, work)})
+        res_e, peak_block = check_border_window(model, cfg, store, fg,
+                                                numinst, dev)
+        emit({"phase": "blockwise_border_window", **res_e,
+              "peak_mem_gb_one_block": peak_block,
+              "phase_wall_s": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def compare_reference(run):
     """Gates against the stored JAX float32 run, plus per-stage agreement."""
     import numpy as np
@@ -809,7 +1232,7 @@ def main() -> int:
         return 2
     if not (os.path.isdir(os.path.join(REPO, "patchperpix_tpu_torch"))
             and all(os.path.exists(f) for f in (REF_NPZ, REF2D_NPZ,
-                                                MODEL2D_NPZ))):
+                                                MODEL2D_NPZ, BW_REF_NPZ))):
         print("chip_smoke: the repository is not beside this script",
               file=sys.stderr)
         return 2
@@ -821,7 +1244,7 @@ def main() -> int:
     from patchperpix_tpu_torch.ops import _build
     from patchperpix_tpu_torch.ops import consensus_kernels as K
     from patchperpix_tpu_torch.ops.consensus_kernels import KERNELS
-    from patchperpix_tpu_torch.utils.io import ZarrV2Reader
+    from patchperpix_tpu_torch.utils.io import IoZarr
     from patchperpix_tpu_torch.weights import build_model
 
     dev = torch.device("cuda", 0)
@@ -842,10 +1265,10 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln]
                     for n, v in info.items()}})
 
-    io = ZarrV2Reader(FIXTURE)
-    raw = np.clip(io.read("volumes/raw").astype(np.float32), 0,
+    io = IoZarr(FIXTURE)
+    raw = np.clip(io.read(key="volumes/raw").astype(np.float32), 0,
                   1500.0) / 1500.0
-    gt = io.read("volumes/gt_instances").astype(np.int32)
+    gt = io.read(key="volumes/gt_instances").astype(np.int32)
 
     # f32 main path: warm-up, then the counted run
     cfg = crop_config("float32")
@@ -872,6 +1295,7 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
     ref = compare_reference(run)
     ap32 = average_precision(run["inst"], gt, 0.5, keep_gt_shape=True)
+    run_blockwise(model, cfg, raw, run, dev, (K.CONSENSUS, K.RANK))
     del run
     torch.cuda.empty_cache()
 

@@ -9,6 +9,14 @@ host patch pairs -> symmetrized consensus + graph weights -> components
 (host mutex watershed, or label propagation on the device when mws is off)
 -> paint from a thresholded device gather.
 
+The blockwise contract (``assembly/blockwise.py``) is that of the JAX
+package: ``center_valid`` gates the candidate centers and the kernels'
+operands to the interior of the whole volume; ``return_intermediates``
+returns (pairs, weights), or (None, None), instead of an instance map;
+``selected_patch_pairs`` with ``skipRanking`` (stitch windows) runs the
+consensus and the graph weights of the given pairs, and no rank and no
+cover.
+
 3D volumes and 2D ones run the same stages; a 2D volume is the flat-z
 volume (1, H, W) with patchshape (1, p, p), as in the JAX package, and
 takes the 2D kernels (``ops/consensus_kernels.py``).  ``consensus_bf16``
@@ -59,6 +67,23 @@ class VoteInstancesParams:
     patch_graph_norm_aff: bool = True
     max_total_patch_distance_in_ps_multiples: float = 2.0
     numinst_threshs: tuple = (0.9, 0.1)
+    # blockwise assembly (assembly/blockwise.py) and its prediction store
+    blockwise: bool = False
+    ignore_small_comps: int = 0
+    chunksize: tuple = (92, 92, 92)
+    num_parallel_blocks: int = 1
+    chessboard: bool = False
+    block_devices: int = 0           # > 1: the multi-device slice, raises
+    aff_key: str = "volumes/pred_affs"
+    code_key: str = "volumes/pred_code"
+    numinst_key: str | None = None
+    fg_key: str | None = None
+    fg_thresh_vi: float = -1.0
+    # the blockwise contract of to_instance_seg
+    return_intermediates: bool = False
+    skipRanking: bool = False
+    selected_patch_pairs: np.ndarray | None = None
+    center_valid: np.ndarray | None = None
 
     @property
     def bg_mode(self) -> str:
@@ -103,6 +128,36 @@ def numinst_from_probs(prob: np.ndarray,
     return np.argmax(prob, axis=0).astype(np.uint8)
 
 
+def _derive_fg_numinst(io, params: VoteInstancesParams,
+                       center_channel_reader=None):
+    """(numinst, foreground) from a prediction store without reading the
+    dense affinities: numinst from the class probabilities under
+    ``numinst_key``, else the ``fg_key`` probability above the threshold,
+    else the center affinity channel that ``center_channel_reader``
+    returns.  Closes ``io``."""
+    fg_thresh = params.fg_thresh_vi if params.fg_thresh_vi > 0 \
+        else params.patch_threshold
+    numinst = None
+    if params.numinst_key:
+        prob = np.squeeze(io.read(key=params.numinst_key)).astype(np.float32)
+        if prob.ndim == 3:
+            prob = prob[:, None]
+        numinst = numinst_from_probs(prob, params)
+        foreground = numinst > 0
+    elif params.fg_key:
+        fg_prob = np.squeeze(io.read(key=params.fg_key))
+        if fg_prob.ndim == 2:
+            fg_prob = fg_prob[None]
+        foreground = fg_prob > fg_thresh
+    else:
+        assert center_channel_reader is not None
+        foreground = center_channel_reader() > fg_thresh
+    io.close()
+    if numinst is None:
+        numinst = foreground.astype(np.uint8)
+    return numinst, foreground.astype(bool)
+
+
 def _paint_src(affs: torch.Tensor, comps, patch_threshold: float) -> dict:
     """Component nodes' patch columns, thresholded on the device
     (``> patch_threshold``, the only test the painter applies), as a
@@ -143,10 +198,12 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     """Full assembly of a (P, *vol) affinity stack; *vol is (Z, Y, X),
     with Z == 1 and patchshape (1, p, p) for 2D.
 
-    Returns (instances uint16, foreground uint8) as numpy arrays.
-    ``timings``, if given, receives per-stage seconds; ``intermediates``,
-    if given, receives the candidate order, the selected patches, the
-    pairs and the graph weights."""
+    Returns (instances uint16, foreground uint8) as numpy arrays, or with
+    ``params.return_intermediates`` (pairs, weights), (None, None) where
+    nothing is assembled.  ``timings``, if given, receives per-stage
+    seconds; ``intermediates``, if given, receives the candidate order,
+    the selected patches, the pairs and the graph weights, and
+    ``consensus`` True once the consensus kernel has run."""
     dev = resolve_device(device)
     if params.skeletonize_foreground:
         raise NotImplementedError("skeletonize_foreground is not ported")
@@ -167,59 +224,88 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     mask_to_cover = np.asarray(mask_to_cover).astype(bool).copy()
     mask_to_cover[overlap_mask > 0] = False
     instances = np.zeros(vol_shape, dtype=np.uint16)
-    if not np.any(mask_to_cover & inner):
+
+    def nothing():
+        if params.return_intermediates:
+            return None, None
         return instances, foreground.astype(np.uint8)
+
+    if not np.any(mask_to_cover & inner):
+        return nothing()
 
     stages = _Stages(timings, dev)
     inter = intermediates if intermediates is not None else {}
     ccfg = params.consensus_config()
     overlap = (torch.as_tensor(overlap_mask > 0, device=dev)
                if params.overlapping_inst else None)
+    cv = None
+    if params.center_valid is not None:
+        cv_np = np.asarray(params.center_valid, dtype=bool)
+        if cv_np.shape != vol_shape:
+            raise ValueError(f"center_valid {cv_np.shape} != volume "
+                             f"{vol_shape}")
+        inner = inner & cv_np
+        cv = torch.as_tensor(cv_np, device=dev)
+    injected = params.selected_patch_pairs is not None
+    skip_rank = params.skipRanking and injected
 
     # (1) consensus: operands in PyTorch (2D: one gated stack and a target
     # plane; 3D: the mask stacks), the canonical half from the kernel
-    operands = consensus_operands(affs, ccfg, overlap)
+    operands = consensus_operands(affs, ccfg, overlap, cv)
     cons = consensus_half(affs, operands, ccfg)
+    inter["consensus"] = True
     stages.mark("consensus")
 
     # (2) rank kernel, then a gather of the candidates' scores and the
-    # host stable descending sort (ties keep scan order)
-    scores = rank_scores(affs, cons, operands, ccfg)
-    del operands
+    # host stable descending sort (ties keep scan order); injected pairs
+    # with skipRanking (stitch windows) need neither
     cand = np.argwhere(foreground & inner)
-    if len(cand) == 0:
-        return instances, foreground.astype(np.uint8)
-    flat = torch.as_tensor(np.ravel_multi_index(tuple(cand.T), vol_shape),
-                           device=dev)
-    svals = scores.reshape(-1)[flat].cpu().numpy().astype(np.float32)
-    order = np.argsort(-svals, kind="stable")
-    ranked = [(cand[i], float(svals[i])) for i in order]
-    inter["ranked_centers"] = cand[order]
-    inter["ranked_scores"] = svals[order]
+    if skip_rank:
+        del operands
+        if len(cand) == 0:
+            return nothing()
+    else:
+        scores = rank_scores(affs, cons, operands, ccfg, cv)
+        del operands
+        if len(cand) == 0:
+            return nothing()
+        flat = torch.as_tensor(
+            np.ravel_multi_index(tuple(cand.T), vol_shape), device=dev)
+        svals = scores.reshape(-1)[flat].cpu().numpy().astype(np.float32)
+        del scores
+        order = np.argsort(-svals, kind="stable")
+        ranked = [(cand[i], float(svals[i])) for i in order]
+        inter["ranked_centers"] = cand[order]
+        inter["ranked_scores"] = svals[order]
     stages.mark("rank")
 
-    # (3) greedy cover (4) thin-out set cover
-    selected, _ = greedy_cover_device(
-        affs, mask_to_cover, ranked, ps, fc_threshold=params.fc_threshold,
-        overlap=overlap_mask,
-        sparse_data=params.select_patches_for_sparse_data)
-    inter["cover_centers"] = np.array([c for c, _ in selected])
-    stages.mark("cover")
-    if selected:
-        selected = thin_out_cover_device(
-            affs, mask_to_cover, selected, ps,
-            fc_threshold=params.fc_threshold)
-    inter["thin_centers"] = np.array([c for c, _ in selected])
-    stages.mark("thin_cover")
-
-    # (5) patch pairs (host) + patch-graph weights (device)
-    pairs, _ = ref.patch_pairs_reference(
-        selected, ps,
-        max_ps_dist=params.max_total_patch_distance_in_ps_multiples,
-        include_singleton=params.includeSinglePatchCCS)
+    if injected:
+        # (3)-(5) the pair list is given: the cover stages would only feed
+        # the pair generation
+        pairs = np.asarray(params.selected_patch_pairs, dtype=np.uint32)
+    else:
+        # (3) greedy cover (4) thin-out set cover
+        selected, _ = greedy_cover_device(
+            affs, mask_to_cover, ranked, ps,
+            fc_threshold=params.fc_threshold, overlap=overlap_mask,
+            sparse_data=params.select_patches_for_sparse_data)
+        inter["cover_centers"] = np.array([c for c, _ in selected])
+        stages.mark("cover")
+        if selected:
+            selected = thin_out_cover_device(
+                affs, mask_to_cover, selected, ps,
+                fc_threshold=params.fc_threshold)
+        inter["thin_centers"] = np.array([c for c, _ in selected])
+        stages.mark("thin_cover")
+        # (5) patch pairs (host)
+        pairs, _ = ref.patch_pairs_reference(
+            selected, ps,
+            max_ps_dist=params.max_total_patch_distance_in_ps_multiples,
+            include_singleton=params.includeSinglePatchCCS)
     stages.mark("pairs")
     if pairs is None or len(pairs) == 0:
-        return instances, foreground.astype(np.uint8)
+        return nothing()
+    # patch-graph weights (device)
     sym = symmetrize_half(cons, ccfg)
     del cons
     weights = patch_graph_weights(affs, sym, pairs, ccfg,
@@ -227,6 +313,8 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     del sym
     inter["pairs"], inter["weights"] = pairs, weights
     stages.mark("graph")
+    if params.return_intermediates:
+        return pairs, weights
 
     # (6) components (host mutex watershed, or label propagation on the
     # device) -> painting

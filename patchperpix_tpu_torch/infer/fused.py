@@ -7,8 +7,9 @@ host.
 
 The JAX package edge-pads the last decode chunk with a real index
 (``_dec_scatter``) because XLA keeps an arbitrary winner among duplicate
-scatter targets.  Here every chunk scatters only its own unique
-foreground indices (``index_copy_``), so no padding is needed.
+scatter targets.  Here decoding is ``infer.decode.CodeDecoder``'s: every
+batch scatters only its own unique foreground indices (``index_copy_``),
+and a short last batch is zero-padded, its padding rows dropped.
 
 A 2D model (``PPPConfig.spatial_dims`` 2) predicts and decodes (H, W)
 windows; ``lift_2d`` turns the decoded stack and its volumes into the
@@ -18,19 +19,13 @@ patchshape (1, p, p).
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from ..models.ppp import PPPConfig, PPPModel, apply_activations
-from ..utils.device import exact_f32, resolve_device
-from .predict import enumerate_shifts, pad_to_grid
-
-
-def _precision(cfg: PPPConfig):
-    return exact_f32() if cfg.dtype == "float32" \
-        else contextlib.nullcontext()
+from ..utils.device import resolve_device
+from .decode import CodeDecoder
+from .predict import _precision, enumerate_shifts, pad_to_grid
 
 
 @torch.no_grad()
@@ -69,29 +64,14 @@ def predict_volume_device(model: PPPModel, raw: np.ndarray, cfg: PPPConfig,
     return out1[crop], out2[crop]
 
 
-@torch.no_grad()
 def decode_volume_device(model: PPPModel, code: torch.Tensor,
                          fg_mask: np.ndarray, cfg: PPPConfig,
                          batch_size: int = 4096, device="cuda"):
     """code (code_units, *vol) tensor (code activation applied) + host fg
     mask -> dense affinities (P, *vol) float32 on ``device`` (sigmoid
     applied), zero outside the foreground."""
-    dev = resolve_device(device)
-    code = code.to(dev)
-    P = cfg.patchsize
-    vol_shape = tuple(code.shape[1:])
-    flat_code = code.reshape(code.shape[0], -1)
-    out = torch.zeros((P, int(np.prod(vol_shape))), dtype=torch.float32,
-                      device=dev)
-    flat_idx = np.flatnonzero(np.asarray(fg_mask).reshape(-1))
-    idx_all = torch.as_tensor(flat_idx, dtype=torch.int64, device=dev)
-    with _precision(cfg):
-        for i in range(0, len(flat_idx), int(batch_size)):
-            idx = idx_all[i:i + int(batch_size)]
-            logits = model.decode(flat_code[:, idx].T)
-            patches = torch.sigmoid(logits).reshape(len(idx), P)
-            out.index_copy_(1, idx, patches.T.float())
-    return out.reshape((P,) + vol_shape)
+    return CodeDecoder(model, cfg, batch_size, device).decode_dense(
+        code, fg_mask)
 
 
 def lift_2d(dec: torch.Tensor, *volumes):

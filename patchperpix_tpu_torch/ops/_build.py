@@ -12,7 +12,8 @@ into ``patchperpix_tpu_torch/build/`` (listed in ``.gitignore``).  The
 file name carries a hash of the source, of every header ``csrc/*.cuh``
 (sources include them) and of the flags, so an edited source is rebuilt.
 The library is loaded once per process.  ``CudaKernel`` is one entry
-point of such a library with its launch count.
+point of such a library with its launch count; loads and counts are
+guarded by locks, since blockwise assembly launches from several threads.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+_load_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -86,12 +89,13 @@ def build(names) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    if name not in _loaded:
-        path = lib_path(name)
-        if not os.path.exists(path):
-            build([name])
-        _loaded[name] = ctypes.CDLL(path)
-    return _loaded[name]
+    with _load_lock:
+        if name not in _loaded:
+            path = lib_path(name)
+            if not os.path.exists(path):
+                build([name])
+            _loaded[name] = ctypes.CDLL(path)
+        return _loaded[name]
 
 
 class CudaKernel:
@@ -104,11 +108,13 @@ class CudaKernel:
         self.argtypes = argtypes
         self.replaces = replaces
         self.launches = 0
+        self._count_lock = threading.Lock()
 
     def launch(self, *args):
         """Run the kernel's entry point and count the launch."""
         self.call(self.symbol, self.argtypes, *args)
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
     def call(self, symbol: str, argtypes, *args):
         """Run another entry point of the same library (a step that sizes

@@ -105,19 +105,34 @@ def _windows(vol: torch.Tensor, ps) -> torch.Tensor:
     return w.permute(3, 4, 5, 0, 1, 2).reshape(psz * psy * psx, Z, Y, X)
 
 
+def _center_ok(affs: torch.Tensor, cfg: ConsensusConfig,
+               center_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """bool (*vol): the eligible patch centers, foreground and interior,
+    and where ``center_valid`` is given (blockwise windows: interior in
+    the whole volume) also valid there."""
+    ok = (affs[cfg.mid] > cfg.patch_threshold) & interior_mask(
+        affs.shape[1:], cfg.rad, affs.device)
+    if center_valid is not None:
+        ok = ok & center_valid.to(device=affs.device,
+                                  dtype=torch.bool).reshape(ok.shape)
+    return ok
+
+
 def _masks(affs: torch.Tensor, cfg: ConsensusConfig,
-           overlap: torch.Tensor | None = None):
+           overlap: torch.Tensor | None = None,
+           center_valid: torch.Tensor | None = None):
     """(hi, lo, tgt) eligibility stacks, each (P, *vol) float32.
 
-    hi[p, c]: center c interior and fg, patch value > th, target pixel
-    c + off(p) - rad fg (and not overlap); lo likewise with the bg
+    hi[p, c]: center c eligible (``_center_ok``), patch value > th, target
+    pixel c + off(p) - rad fg (and not overlap); lo likewise with the bg
     threshold; tgt: target-eligible at an eligible center, whatever the
-    patch value (the rank fgCnt)."""
+    patch value (the rank fgCnt).  The kernels derive every gate from
+    these stacks, so ``center_valid`` needs no kernel change."""
     _check_3d(cfg, affs)
     th = cfg.patch_threshold
     rad = cfg.rad
     fg = affs[cfg.mid] > th
-    center_ok = fg & interior_mask(affs.shape[1:], rad, affs.device)
+    center_ok = _center_ok(affs, cfg, center_valid)
     tgt_ok = fg
     if cfg.overlapping_inst and overlap is not None:
         tgt_ok = tgt_ok & ~overlap.to(device=affs.device, dtype=torch.bool)
@@ -268,16 +283,17 @@ def rank_acc_plain(hi: torch.Tensor, lo: torch.Tensor,
 
 
 def rank_epilogue(acc: torch.Tensor, affs: torch.Tensor, hi: torch.Tensor,
-                  tgt: torch.Tensor, cfg: ConsensusConfig) -> torch.Tensor:
-    """fgCnt normalization + center gating + sentinel.
+                  tgt: torch.Tensor, cfg: ConsensusConfig,
+                  center_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """fgCnt normalization + center gating (``_center_ok``, not the
+    overlap mask) + sentinel.
 
     fgCnt (rankPatches.cu:139): ordered pairs (q hi, r target-eligible,
     q != r) minus hi-hi pairs with r <= q."""
     n_tgt = torch.sum(tgt, dim=0)
     n_hi = torch.sum(hi, dim=0)
     fg_cnt = n_hi * (n_tgt - 1.0) - n_hi * (n_hi - 1.0) / 2.0
-    center_ok = (affs[cfg.mid] > cfg.patch_threshold) & interior_mask(
-        affs.shape[1:], cfg.rad, affs.device)
+    center_ok = _center_ok(affs, cfg, center_valid)
     sentinel = -1.0 if cfg.norm_rank else -9999999.0
     score = acc / torch.clamp(fg_cnt, min=1.0) if cfg.norm_rank else acc
     return torch.where(center_ok, score,

@@ -367,12 +367,10 @@ def consensus_operands(affs, cfg: ConsensusConfig, overlap=None,
     """What ``consensus_half`` and ``rank_scores`` read beside the
     affinities: in 2D (``is_2d``) the gated stack and the target plane
     (ag, tgt) of ``gated_stack_2d``, else the (hi, lo, tgt) stacks of
-    ``_masks``."""
+    ``_masks``; both gated by ``center_valid`` where it is given."""
     if is_2d(cfg, affs.shape[1:]):
         return gated_stack_2d(affs, cfg, overlap, center_valid)
-    if center_valid is not None:
-        raise NotImplementedError("center_valid is ported for 2D only")
-    return _masks(affs, cfg, overlap)
+    return _masks(affs, cfg, overlap, center_valid)
 
 
 def consensus_half(affs, operands, cfg: ConsensusConfig) -> torch.Tensor:
@@ -390,11 +388,12 @@ def consensus_half(affs, operands, cfg: ConsensusConfig) -> torch.Tensor:
     return consensus_half_plain(affs, hi, lo, cfg)
 
 
-def rank_scores(affs, cons_half, operands,
-                cfg: ConsensusConfig) -> torch.Tensor:
+def rank_scores(affs, cons_half, operands, cfg: ConsensusConfig,
+                center_valid=None) -> torch.Tensor:
     """Per-voxel patch score (*vol), -1 sentinel off eligible centers: the
     CUDA rank kernel for CUDA tensors, the plain version for CPU tensors,
-    then the epilogue in PyTorch."""
+    then the epilogue in PyTorch.  ``center_valid`` is the gate given to
+    ``consensus_operands`` (in 2D the gated stack already holds it)."""
     cuda = _route(affs, "rank")
     if is_2d(cfg, affs.shape[1:]):
         ag, tgt = operands
@@ -404,4 +403,4 @@ def rank_scores(affs, cons_half, operands,
     hi, lo, tgt = operands
     acc = rank_acc_cuda(hi, lo, cons_half, cfg) if cuda \
         else rank_acc_plain(hi, lo, cons_half, cfg)
-    return rank_epilogue(acc, affs, hi, tgt, cfg)
+    return rank_epilogue(acc, affs, hi, tgt, cfg, center_valid)

@@ -99,8 +99,8 @@ def patch_pairs_reference(
 
 def graph_components(pairs: np.ndarray, weights: np.ndarray):
     """Mutex-watershed components of the patch graph (graph_mws.py:7-85;
-    the path runs with mws, so the plain connected components of
-    graph_to_labeling.py:46-54 are not copied).  Nodes are patch-center
+    the plain connected components of graph_to_labeling.py:46-54 are
+    ``ops.graph_device.graph_components_device``).  Nodes are patch-center
     tuples.  Returns a list of lists of node tuples (deterministic order).
     """
     ndim = pairs.shape[1] // 2

@@ -1,9 +1,11 @@
 """Synthetic label volumes and their ideal affinities (numpy only).
 
 The port's own copy of what it needs from the JAX package's numpy-only
-generators: ``labels_to_affinities`` (``patchperpix_tpu/ops/synthetic.py``)
-and the worm image of the 2D workload (``scripts/bench_2d.py
-worm_labels``), with the same seeds giving the same arrays.
+generators: ``labels_to_affinities`` (``patchperpix_tpu/ops/synthetic.py``),
+the worm image of the 2D workload (``scripts/bench_2d.py worm_labels``)
+and the tube volume of the blockwise scale case
+(``benchmarks/blockwise_scale.py synth_labels``), with the same seeds
+giving the same arrays.
 """
 
 from __future__ import annotations
@@ -65,4 +67,25 @@ def worm_labels(h: int = 520, w: int = 696, n_worms: int = 16,
             painted[0, ys[dx] - 2:ys[dx] + 3, x] += 1
     if with_crossings:
         return labels, painted > 1
+    return labels
+
+
+def synth_labels(n: int, seed: int = 0) -> np.ndarray:
+    """(n, n, n) int32 labels of 12 elongated 3x3 tubes along x, wavy in z
+    and y (FlyLight-like neurites); a tube step that would touch an
+    earlier tube is left out."""
+    rng = np.random.RandomState(seed)
+    labels = np.zeros((n, n, n), np.int32)
+    lab = 0
+    for _ in range(12):
+        lab += 1
+        z0, y0 = rng.randint(10, n - 10, 2)
+        amp = rng.randint(3, 8)
+        xs = np.arange(5, n - 5)
+        zs = (z0 + amp * np.sin(xs / 11.0)).astype(int)
+        ys = (y0 + amp * np.cos(xs / 13.0)).astype(int)
+        for x, z, y in zip(xs, zs, ys):
+            if 2 <= z < n - 2 and 2 <= y < n - 2:
+                if labels[z - 1:z + 2, y - 1:y + 2, x].max() == 0:
+                    labels[z - 1:z + 2, y - 1:y + 2, x] = lab
     return labels

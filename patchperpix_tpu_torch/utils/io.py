@@ -1,62 +1,341 @@
-"""Zarr v2 reader written with numpy and zlib.
+"""Zarr v2 store written with numpy, json and zlib.
 
-Counterpart of ``patchperpix_tpu/utils/io.py::IoZarr`` (which goes through
-tensorstore), trimmed to what the port reads: whole arrays of a zarr v2
-store whose chunks are gzip- or zlib-compressed or stored raw, C order,
-no filters.  Missing chunks read as the array's fill value.
+Counterpart of ``patchperpix_tpu/utils/io.py`` (``IoZarr``, which goes
+through tensorstore, ``open_volume``, ``check_file``) for a machine that
+has neither zarr, tensorstore nor h5py.  Arrays are C-order zarr v2
+arrays without filters.  Chunks are written zlib-compressed (or raw with
+``compressor=None``) and read when they are zlib-, gzip-compressed or raw;
+a chunk that was never written reads as the array's fill value.  The JAX
+package writes blosc chunks by default, which numpy cannot decode: such an
+array raises and names its compressor.
+
+Reads and writes take any bounding box.  A write that covers only part of
+a chunk reads the chunk, updates it and writes it back.  Decoded chunks
+are kept in a least-recently-used cache of ``_CACHE_BYTES`` per store, so
+the blockwise windows that overlap (block halos, stitch windows) decompress
+a chunk once.  The chunks of one read or write are (de)compressed on a
+thread pool (zlib releases the GIL): on one core, writing a 100^3 sample's
+codes took 12.0 s against 2.2-2.5 s on the pool (an H100 machine's
+host, ``PERF.md``).
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 import json
 import os
+import shutil
+import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+_ZLIB_LEVEL = 1
+_CACHE_BYTES = 2 ** 30
+_pool = None
+_pool_lock = threading.Lock()
 
-class ZarrV2Reader:
-    """``read(key)`` -> the whole array ``key`` of the store at ``path``."""
 
-    def __init__(self, path: str):
+def _map(fn, items):
+    """``fn`` over ``items`` on the module's thread pool."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+    list(_pool.map(fn, items))
+
+
+class IoZarr:
+    """``read(bb, key)`` / ``write(arr, bb, key)`` on a zarr v2 store.
+
+    ``bb`` is a tuple of slices (step 1), integers and at most one
+    Ellipsis, as numpy indexing takes it; a missing array raises KeyError
+    in read mode."""
+
+    def __init__(self, path: str, mode: str = "r"):
         self.path = path
+        self.mode = mode
+        self._meta: dict = {}
+        self._cache: collections.OrderedDict = collections.OrderedDict()
+        self._cache_bytes = 0
+        self._lock = threading.RLock()
 
+    # -- metadata -------------------------------------------------------
     def meta(self, key: str) -> dict:
-        with open(os.path.join(self.path, key, ".zarray")) as f:
-            return json.load(f)
+        with self._lock:
+            if key not in self._meta:
+                fn = os.path.join(self.path, key, ".zarray")
+                if not os.path.exists(fn):
+                    raise KeyError(key)
+                with open(fn) as f:
+                    meta = json.load(f)
+                if meta.get("zarr_format") != 2:
+                    raise ValueError(f"{key}: not a zarr v2 array")
+                if meta.get("filters"):
+                    raise ValueError(f"{key}: zarr filters are not supported")
+                if meta.get("order", "C") != "C":
+                    raise ValueError(f"{key}: only C-order chunks are "
+                                     "supported")
+                if meta.get("dimension_separator", ".") != ".":
+                    raise ValueError(f"{key}: only '.'-separated chunk keys "
+                                     "are supported")
+                comp = meta.get("compressor")
+                if comp is not None and comp.get("id") not in ("gzip",
+                                                               "zlib"):
+                    raise ValueError(
+                        f"{key}: compressor {comp.get('id')!r} ({comp}) "
+                        "cannot be decoded here; only zlib, gzip and raw "
+                        "chunks are read")
+                self._meta[key] = meta
+            return self._meta[key]
 
-    def read(self, key: str) -> np.ndarray:
+    def shape(self, key: str) -> tuple:
+        return tuple(int(s) for s in self.meta(key)["shape"])
+
+    def dtype(self, key: str) -> np.dtype:
+        return np.dtype(self.meta(key)["dtype"])
+
+    def create(self, key: str, shape, dtype, chunks=None, fill_value=0,
+               compressor="zlib"):
+        """A new array ``key`` (an existing one is deleted), chunked as
+        ``chunks`` (default: one chunk), zlib-compressed or, with
+        ``compressor=None``, raw."""
+        if self.mode == "r":
+            raise ValueError(f"{self.path}: opened read-only")
+        if compressor == "zlib":
+            comp = {"id": "zlib", "level": _ZLIB_LEVEL}
+        elif compressor is None:
+            comp = None
+        else:
+            raise ValueError(f"compressor {compressor!r}: only 'zlib' or "
+                             "None can be written")
+        shape = [int(s) for s in shape]
+        chunks = [int(c) for c in (chunks if chunks is not None else shape)]
+        d = os.path.join(self.path, key)
+        with self._lock:
+            if os.path.isdir(d):
+                shutil.rmtree(d)
+            os.makedirs(d)
+            meta = {"zarr_format": 2, "shape": shape,
+                    "chunks": [max(1, c) for c in chunks],
+                    "dtype": np.dtype(dtype).str, "compressor": comp,
+                    "fill_value": fill_value, "filters": None, "order": "C"}
+            with open(os.path.join(d, ".zarray"), "w") as f:
+                json.dump(meta, f)
+            self._meta[key] = meta
+            self._drop_cached(key)
+
+    def set_attrs(self, key: str, attrs: dict):
+        p = os.path.join(self.path, key, ".zattrs")
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        with open(p, "w") as f:
+            json.dump(attrs, f)
+
+    def close(self):
+        with self._lock:
+            self._cache.clear()
+            self._cache_bytes = 0
+
+    def list_keys(self, prefix: str = "") -> list[str]:
+        """Keys (arrays) under a group prefix, by .zarray presence."""
+        root = os.path.join(self.path, prefix)
+        out = []
+        for dirpath, _dirnames, filenames in os.walk(root):
+            if ".zarray" in filenames:
+                out.append(os.path.relpath(dirpath, self.path))
+        return sorted(out)
+
+    # -- chunks ---------------------------------------------------------
+    def _chunk_file(self, key, cidx) -> str:
+        return os.path.join(self.path, key, ".".join(str(i) for i in cidx))
+
+    def _drop_cached(self, key, cidx=None):
+        for k in [k for k in self._cache
+                  if k[0] == key and (cidx is None or k[1] == cidx)]:
+            self._cache_bytes -= self._cache.pop(k).nbytes
+
+    def _load_chunk(self, key, cidx) -> np.ndarray:
+        """The decoded chunk ``cidx`` of ``key`` (read-only array)."""
+        ck = (key, tuple(cidx))
+        with self._lock:
+            hit = self._cache.get(ck)
+            if hit is not None:
+                self._cache.move_to_end(ck)
+                return hit
         meta = self.meta(key)
-        if meta.get("zarr_format") != 2:
-            raise ValueError(f"{key}: not a zarr v2 array")
-        if meta.get("filters"):
-            raise ValueError(f"{key}: zarr filters are not supported")
-        if meta.get("order", "C") != "C":
-            raise ValueError(f"{key}: only C-order chunks are supported")
-        comp = meta.get("compressor")
-        if comp is not None and comp.get("id") not in ("gzip", "zlib"):
-            raise ValueError(f"{key}: unsupported compressor {comp}")
-        shape = tuple(meta["shape"])
-        chunks = tuple(meta["chunks"])
         dtype = np.dtype(meta["dtype"])
-        sep = meta.get("dimension_separator", ".")
-        fill = meta.get("fill_value") or 0
-        out = np.full(shape, fill, dtype=dtype)
-        grid = [range(-(-s // c)) for s, c in zip(shape, chunks)]
-        for cidx in itertools.product(*grid):
-            name = sep.join(str(i) for i in cidx)
-            fn = os.path.join(self.path, key, name)
-            if not os.path.exists(fn):
-                continue
+        chunks = tuple(meta["chunks"])
+        fn = self._chunk_file(key, cidx)
+        if os.path.exists(fn):
             with open(fn, "rb") as f:
                 data = f.read()
-            if comp is not None:
+            if meta.get("compressor") is not None:
                 # wbits 47 accepts both the gzip and the zlib container
                 data = zlib.decompress(data, 47)
             block = np.frombuffer(data, dtype=dtype).reshape(chunks)
-            dst = tuple(slice(i * c, min((i + 1) * c, s))
-                        for i, c, s in zip(cidx, chunks, shape))
-            src = tuple(slice(0, d.stop - d.start) for d in dst)
-            out[dst] = block[src]
+        else:
+            block = np.full(chunks, meta.get("fill_value") or 0, dtype=dtype)
+            block.setflags(write=False)
+        if block.nbytes <= _CACHE_BYTES // 4:
+            with self._lock:
+                if ck not in self._cache:
+                    self._cache[ck] = block
+                    self._cache_bytes += block.nbytes
+                while self._cache_bytes > _CACHE_BYTES:
+                    _, old = self._cache.popitem(last=False)
+                    self._cache_bytes -= old.nbytes
+        return block
+
+    def _store_chunk(self, key, cidx, block: np.ndarray):
+        meta = self.meta(key)
+        data = np.ascontiguousarray(block).tobytes()
+        if meta.get("compressor") is not None:
+            data = zlib.compress(data, _ZLIB_LEVEL)
+        fn = self._chunk_file(key, cidx)
+        tmp = f"{fn}.{os.getpid()}.{threading.get_ident()}.tmp"
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, fn)
+        with self._lock:
+            self._drop_cached(key, tuple(cidx))
+
+    def _box(self, bb, shape):
+        """Normalise ``bb`` to per-axis (start, stop) and the axes that an
+        integer index drops."""
+        if bb is None:
+            bb = ()
+        bb = tuple(bb) if isinstance(bb, (tuple, list)) else (bb,)
+        if any(b is Ellipsis for b in bb):
+            i = [j for j, b in enumerate(bb) if b is Ellipsis][0]
+            fill = (slice(None),) * (len(shape) - len(bb) + 1)
+            bb = bb[:i] + fill + bb[i + 1:]
+        bb = bb + (slice(None),) * (len(shape) - len(bb))
+        if len(bb) != len(shape):
+            raise IndexError(f"box {bb} for an array of shape {shape}")
+        box, drop = [], []
+        for ax, (b, s) in enumerate(zip(bb, shape)):
+            if isinstance(b, slice):
+                start, stop, step = b.indices(s)
+                if step != 1:
+                    raise IndexError("strided boxes are not supported")
+                box.append((start, max(start, stop)))
+            else:
+                i = int(b) + (s if int(b) < 0 else 0)
+                if not 0 <= i < s:
+                    raise IndexError(f"index {b} out of range {s}")
+                box.append((i, i + 1))
+                drop.append(ax)
+        return box, tuple(drop)
+
+    @staticmethod
+    def _chunks_of(box, chunks):
+        return itertools.product(*[
+            range(a // c, -(-b // c)) if b > a else range(0)
+            for (a, b), c in zip(box, chunks)])
+
+    # -- reads and writes -----------------------------------------------
+    def read(self, bb=None, *, key: str) -> np.ndarray:
+        meta = self.meta(key)
+        shape = self.shape(key)
+        chunks = tuple(meta["chunks"])
+        box, drop = self._box(bb, shape)
+        out = np.empty(tuple(b - a for a, b in box), dtype=self.dtype(key))
+
+        def fill(cidx):
+            block = self._load_chunk(key, cidx)
+            dst, src = [], []
+            for (a, b), i, c in zip(box, cidx, chunks):
+                lo, hi = max(a, i * c), min(b, (i + 1) * c)
+                dst.append(slice(lo - a, hi - a))
+                src.append(slice(lo - i * c, hi - i * c))
+            out[tuple(dst)] = block[tuple(src)]
+
+        _map(fill, self._chunks_of(box, chunks))
+        return out.reshape(tuple(n for ax, n in enumerate(out.shape)
+                                 if ax not in drop))
+
+    def read_points(self, points, *, key: str) -> np.ndarray:
+        """Values at integer points: ``points`` (N, ndim - 1) indexes the
+        spatial axes, the leading (channel) axis is read whole.  Returns
+        (N, shape[0]).  Each chunk holding a point is decoded once."""
+        meta = self.meta(key)
+        shape = self.shape(key)
+        chunks = np.array(meta["chunks"][1:])
+        pts = np.asarray(points, dtype=np.int64).reshape(-1, len(shape) - 1)
+        out = np.empty((len(pts), shape[0]), dtype=self.dtype(key))
+        if np.any(pts < 0) or np.any(pts >= np.array(shape[1:])):
+            raise IndexError("a point lies outside the array")
+        if meta["chunks"][0] != shape[0]:
+            raise ValueError("read_points needs whole chunks along the "
+                             "channel axis")
+        groups: dict = {}
+        for i, c in enumerate(map(tuple, (pts // chunks).tolist())):
+            groups.setdefault(c, []).append(i)
+
+        def fill(item):
+            c, rows = item
+            block = self._load_chunk(key, (0,) + c)
+            rel = pts[rows] - np.array(c) * chunks
+            out[rows] = block[(slice(None),) + tuple(rel.T)].T
+
+        _map(fill, groups.items())
         return out
+
+    def write(self, out: np.ndarray, bb=None, *, key: str):
+        if self.mode == "r":
+            raise ValueError(f"{self.path}: opened read-only")
+        meta = self.meta(key)
+        shape = self.shape(key)
+        chunks = tuple(meta["chunks"])
+        dtype = self.dtype(key)
+        box, drop = self._box(bb, shape)
+        want = tuple(b - a for a, b in box)
+        out = np.asarray(out)
+        if drop:
+            out = np.expand_dims(out, drop)
+        out = np.broadcast_to(out, want).astype(dtype, copy=False)
+
+        def put(cidx):
+            dst, src, full = [], [], True
+            for (a, b), i, c, s in zip(box, cidx, chunks, shape):
+                lo, hi = max(a, i * c), min(b, (i + 1) * c)
+                dst.append(slice(lo - i * c, hi - i * c))
+                src.append(slice(lo - a, hi - a))
+                full &= lo == i * c and hi == min((i + 1) * c, s)
+            if full:
+                block = np.full(chunks, meta.get("fill_value") or 0, dtype)
+                block[tuple(dst)] = out[tuple(src)]
+                self._store_chunk(key, cidx, block)
+                return
+            with self._lock:   # read-modify-write of a partial chunk
+                block = np.array(self._load_chunk(key, cidx))
+                block[tuple(dst)] = out[tuple(src)]
+                self._store_chunk(key, cidx, block)
+
+        _map(put, self._chunks_of(box, chunks))
+
+
+def open_volume(path: str, mode: str = "r"):
+    """A store for ``path``: zarr v2 directories only (``.zarr``); HDF5
+    needs h5py, which the port does not use."""
+    if str(path).rstrip("/").endswith(".zarr"):
+        return IoZarr(path, mode)
+    raise ValueError(f"unsupported volume format: {path} (the port reads "
+                     "and writes zarr v2 only)")
+
+
+def check_file(path: str, keys=None) -> bool:
+    """Integrity probe: the store exists, opens, and one element of each
+    of the given keys reads; a readable store that lacks a key is simply
+    incomplete."""
+    if not os.path.exists(path):
+        return False
+    try:
+        io = open_volume(path, mode="r")
+        for k in ([keys] if isinstance(keys, str) else (keys or [])):
+            io.read(bb=tuple(slice(0, 1) for _ in io.shape(k)), key=k)
+        return True
+    except (KeyError, ValueError, OSError, zlib.error):
+        return False

@@ -25,9 +25,19 @@ Writes, from the repository's own files (nothing is downloaded):
   (``patchperpix_tpu_torch.weights.seeded_tree`` over the leaf names and
   shapes stored in the JSON) on one seeded 512x512 window: code, numinst
   probabilities and decoded 25x25 patches at 512 seeded pixel positions.
+- ``parity/torch_port_blockwise_ref_f32.npz`` / ``.json``
+  (``--blockwise [S]``): the JAX package's ``blockwise_vote_instances``
+  (CPU, float32, engine jax) on the JAX package's float32 decoded crop
+  affinities (predicted and decoded as for the reference above) under
+  bench.py's [vote_instances] settings at chunksize (32, 32, 32): the
+  instance map, the foreground, numinst, each block's pair count and the
+  CPU seconds.  S cuts the run to the top-left S^3 sub-crop of the
+  decoded volume; the JSON names the size.  Its stitch windows are XLA
+  scans of ~2 min each on the CPU, 13 at 36^3 (1788 s in all) and 26 for
+  the full 50^3; ``--blockwise 36`` keeps two blocks per axis.
 
 Usage: JAX_PLATFORMS=cpu python scripts/export_torch_fixtures.py
-       [--params-only | --2d [H W] | --model2d]
+       [--params-only | --2d [H W] | --model2d | --blockwise [S]]
 """
 
 import json
@@ -45,6 +55,11 @@ REF2D_NPZ = os.path.join(ROOT, "parity", "torch_port_ref2d_f32.npz")
 REF2D_JSON = os.path.join(ROOT, "parity", "torch_port_ref2d_f32.json")
 MODEL2D_NPZ = os.path.join(ROOT, "parity", "torch_port_model2d_ref.npz")
 MODEL2D_JSON = os.path.join(ROOT, "parity", "torch_port_model2d_ref.json")
+BLOCKWISE_NPZ = os.path.join(ROOT, "parity",
+                             "torch_port_blockwise_ref_f32.npz")
+BLOCKWISE_JSON = os.path.join(ROOT, "parity",
+                              "torch_port_blockwise_ref_f32.json")
+BLOCKWISE_CHUNK = (32, 32, 32)
 
 
 def flatten(tree, prefix=""):
@@ -328,6 +343,82 @@ def export_model_2d():
             "leaves": leaves}, f)
 
 
+def export_blockwise(size=None):
+    """bench.py's pipeline up to the decoded affinities, then the JAX
+    package's blockwise assembly of them."""
+    import dataclasses
+
+    import numpy as np
+
+    import bench
+    from patchperpix_tpu.assembly import VoteInstancesParams
+    from patchperpix_tpu.assembly.blockwise import blockwise_vote_instances
+    from patchperpix_tpu.assembly.vote_instances import numinst_from_probs
+    from patchperpix_tpu.infer.fused import (decode_volume_device,
+                                             predict_volume_device)
+    from patchperpix_tpu.models import PPPModel
+
+    model, cfg = bench.crop_model()
+    params = bench.load_trained_params(model, cfg)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = PPPModel(cfg)
+    raw = bench.load_raw_clip()
+    win = (52, 52, 52)
+    code, prob = predict_volume_device(model, params, raw, cfg, win, win)
+    prob = np.asarray(prob, np.float32)
+    vp = VoteInstancesParams(
+        patchshape=bench.PS, engine="jax", patch_threshold=0.6,
+        fc_threshold=0.5, overlapping_inst=True, mws=True,
+        select_patches_for_sparse_data=True, skeletonize_foreground=False,
+        numinst_threshs=(0.9, 0.1))
+    numinst = numinst_from_probs(prob, vp)
+    fg = numinst > 0
+    dec = np.asarray(decode_volume_device(model, params, code, fg, cfg),
+                     np.float32)
+    vol = tuple(int(s) for s in fg.shape)
+    if size is not None:
+        sl = tuple(slice(0, int(size)) for _ in vol)
+        dec, fg, numinst = dec[(slice(None),) + sl], fg[sl], numinst[sl]
+        vol = tuple(int(s) for s in fg.shape)
+    import logging
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s",
+                        force=True)
+    blocks: dict = {}
+    t0 = time.perf_counter()
+    # blocks on 4 threads (the JAX package's num_parallel_blocks; the
+    # result equals the serial one), stitch windows in turn
+    vp.num_parallel_blocks = 4
+    inst, fg_out = blockwise_vote_instances(
+        dec, fg, numinst, vp, chunksize=BLOCKWISE_CHUNK, block_results=blocks)
+    seconds = time.perf_counter() - t0
+    keys = sorted(blocks)
+    n_pairs = [0 if blocks[k] is None else int(len(blocks[k][0]))
+               for k in keys]
+    np.savez_compressed(BLOCKWISE_NPZ, inst=np.asarray(inst),
+                        fg=np.asarray(fg_out).astype(bool), numinst=numinst,
+                        block_keys=np.array(keys, np.int64).reshape(-1, 3),
+                        block_pairs=np.array(n_pairs, np.int64))
+    meta = {
+        "source": "scripts/export_torch_fixtures.py --blockwise: JAX "
+                  "package, CPU, float32, engine jax, blockwise_vote_"
+                  "instances on the decoded FlyLight crop (bench.py:141-211 "
+                  "predict + decode, [vote_instances] pt 0.6, fc 0.5, mws, "
+                  "overlapping_inst, numinst 0.9/0.1)",
+        "size": list(vol), "full": [50, 50, 50],
+        "chunksize": list(BLOCKWISE_CHUNK),
+        "cpu_seconds": round(seconds, 1),
+        "fg_vox": int(fg.sum()), "n_blocks": len(keys),
+        "n_nonempty_blocks": int(sum(blocks[k] is not None for k in keys)),
+        "block_pairs": dict(zip(("_".join(str(v) for v in k) for k in keys),
+                                n_pairs)),
+        "n_instances": int(len(np.unique(inst[inst > 0]))),
+        "own_fg_vox": int((np.asarray(inst) > 0).sum())}
+    with open(BLOCKWISE_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+    print(json.dumps(meta))
+
+
 def main():
     import jax
 
@@ -342,6 +433,11 @@ def main():
         return
     if "--model2d" in sys.argv:
         export_model_2d()
+        return
+    if "--blockwise" in sys.argv:
+        rest = [int(a) for a in sys.argv[sys.argv.index("--blockwise") + 1:]
+                if a.isdigit()]
+        export_blockwise(rest[0] if rest else None)
         return
     export_params()
     if "--params-only" not in sys.argv:

@@ -122,7 +122,7 @@ def main() -> int:
     import chip_smoke as cs
     from patchperpix_tpu_torch.ops import _build
     from patchperpix_tpu_torch.ops.consensus_kernels import KERNELS
-    from patchperpix_tpu_torch.utils.io import ZarrV2Reader
+    from patchperpix_tpu_torch.utils.io import IoZarr
     from patchperpix_tpu_torch.weights import build_model
 
     dev = torch.device("cuda", 0)
@@ -169,7 +169,7 @@ def main() -> int:
                 f"float32, 2D setting {s}", kind, smi)), flush=True)
             del prof
         return 0
-    raw = np.clip(ZarrV2Reader(cs.FIXTURE).read("volumes/raw").astype(
+    raw = np.clip(IoZarr(cs.FIXTURE).read(key="volumes/raw").astype(
         np.float32), 0, 1500.0) / 1500.0
     for dtype in ("float32", "bfloat16"):
         cfg = cs.crop_config(dtype)

@@ -83,7 +83,7 @@ def main() -> int:
     import chip_smoke as cs
     from patchperpix_tpu_torch.ops import consensus as C
     from patchperpix_tpu_torch.ops import consensus_kernels as K
-    from patchperpix_tpu_torch.utils.io import ZarrV2Reader
+    from patchperpix_tpu_torch.utils.io import IoZarr
     from patchperpix_tpu_torch.weights import build_model
 
     dev = torch.device("cuda", 0)
@@ -92,7 +92,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi, flush=True)
-    raw = np.clip(ZarrV2Reader(cs.FIXTURE).read("volumes/raw").astype(
+    raw = np.clip(IoZarr(cs.FIXTURE).read(key="volumes/raw").astype(
         np.float32), 0, 1500.0) / 1500.0
     cfg = cs.crop_config("float32")
     run = cs.run_path(build_model(cfg, device=dev), cfg, raw, dev)

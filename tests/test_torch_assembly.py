@@ -244,6 +244,46 @@ inst, _ = to_instance_seg(
     VoteInstancesParams(**{**chip_smoke.PATH2D["B"],
                            "patchshape": (1, 9, 9)}), device="cpu")
 assert len(np.unique(inst)) == 3
+# the out-of-core slice: predict to a store, decode it, TTA, blockwise
+import tempfile
+from patchperpix_tpu_torch.assembly.blockwise import (
+    blockwise_vote_instances, blockwise_vote_instances_zarr)
+from patchperpix_tpu_torch.infer.decode import CodeDecoder, decode_sample
+from patchperpix_tpu_torch.infer.predict import predict_sample_to_zarr
+from patchperpix_tpu_torch.infer.tta import predict_tta
+from patchperpix_tpu_torch.utils.io import IoZarr, check_file
+from patchperpix_tpu_torch.utils.postprocess import clean_mask, relabel
+cfg3 = PPPConfig(patchshape=(3, 3, 3), num_channels=1, num_fmaps=2,
+                 fmap_inc_factors=(2,), fmap_dec_factors=(1.0,),
+                 downsample_factors=((2, 2, 2),), train_code=True,
+                 code_units=8, ae_code_fmaps=1, ae_num_fmaps=(2, 4),
+                 overlapping_inst=True, padding="same")
+model3 = PPPModel(cfg3).eval()
+raw3 = np.random.RandomState(1).rand(1, 12, 12, 12).astype(np.float32)
+path = tempfile.mkdtemp() + "/s.zarr"
+predict_sample_to_zarr(model3, raw3, cfg3, (8,) * 3, (8,) * 3, path,
+                       device="cpu")
+decode_sample(model3, path, cfg3, max_ram_mb=0.2, device="cpu")
+assert check_file(path, ["volumes/pred_code", "volumes/pred_affs"])
+assert IoZarr(path).read(key="volumes/pred_affs").shape == (27, 12, 12, 12)
+vp3 = VoteInstancesParams(patchshape=(3, 3, 3), overlapping_inst=True,
+                          numinst_key="volumes/pred_numinst",
+                          patch_threshold=0.45, fc_threshold=0.45)
+inst3, fg3 = blockwise_vote_instances_zarr(
+    path, vp3, (8, 8, 8), decoder=CodeDecoder(model3, cfg3, 64, "cpu"),
+    device="cpu")
+assert inst3.shape == (12, 12, 12) and relabel(inst3).max() == \
+    len(np.unique(inst3[inst3 > 0]))
+heads, prob = predict_tta(model3, raw3, cfg3, (12,) * 3, (12,) * 3,
+                          flips=[(), (0,)], device="cpu")
+assert len(heads) == 2 and prob.shape == (3, 12, 12, 12)
+labels3 = synthetic.synth_labels(24)
+affs3 = synthetic.labels_to_affinities(labels3, (3, 3, 3))
+fgs = clean_mask(affs3[13] > 0.5, 2)
+inst4, _ = blockwise_vote_instances(affs3, fgs, fgs.astype(np.uint8),
+                                    VoteInstancesParams(patchshape=(3, 3, 3)),
+                                    (12, 12, 12), device="cpu")
+assert inst4.max() > 0
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "flax", "patchperpix_tpu")]
 assert not bad, bad

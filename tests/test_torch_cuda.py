@@ -134,6 +134,62 @@ def test_kernels_match_plain_on_sparse_foreground(dev, shape, bf16):
     assert torch.equal(acc, K.rank_acc_cuda(hi, lo, half, cfg))
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernels_match_plain_on_a_gated_border_window(dev, bf16):
+    """A blockwise border window: ``center_valid`` gates the 3D operands
+    (K1 / K2 read only the gated stacks); two launches give equal bits."""
+    from patchperpix_tpu_torch.assembly.blockwise import _global_center_valid
+
+    cfg = C.ConsensusConfig(patchshape=(7, 7, 7), patch_threshold=0.6,
+                            cons_bf16=bf16)
+    affs, _ = _sparse_affs((20, 24, 40), (7, 7, 7), 6, dev)
+    cv = _global_center_valid((-3, 5, -3), (20, 24, 40), (60, 60, 60),
+                              (3, 3, 3))
+    assert 0 < cv.sum() < cv.size
+    cv_t = torch.as_tensor(cv, device=dev)
+    hi, lo, tgt = K.consensus_operands(affs, cfg, None, cv_t)
+    assert hi.any() and not hi[:, ~cv_t].any() and not lo[:, ~cv_t].any()
+    half = K.consensus_half(affs, (hi, lo, tgt), cfg)
+    torch.testing.assert_close(
+        half.float(), C.consensus_half_plain(affs, hi, lo, cfg).float(),
+        atol=1e-4, rtol=2.0 ** -7 if bf16 else 1e-4)
+    assert torch.equal(half, K.consensus_half(affs, (hi, lo, tgt), cfg))
+    acc = K.rank_acc_cuda(hi, lo, half, cfg)
+    torch.testing.assert_close(acc, C.rank_acc_plain(hi, lo, half, cfg),
+                               atol=1e-3, rtol=1e-4)
+    assert torch.equal(acc, K.rank_acc_cuda(hi, lo, half, cfg))
+    scores = K.rank_scores(affs, half, (hi, lo, tgt), cfg, cv_t)
+    assert torch.all(scores[~cv_t] == -1.0)
+
+
+def test_blockwise_on_the_card_equals_the_cpu_run(dev):
+    """A small blockwise run (border foreground, 2 x 2 x 2 blocks, stitch
+    windows) on the card and on the CPU: the same map; K1 runs in every
+    block and stitch window that reaches the consensus, K2 in every such
+    block."""
+    from patchperpix_tpu_torch.assembly import VoteInstancesParams
+    from patchperpix_tpu_torch.assembly.blockwise import (
+        BlockStats, blockwise_vote_instances)
+
+    affs, fg = _sparse_affs((24, 26, 28), (3, 3, 3), 7, "cpu")
+    affs = affs.numpy()
+    fg = affs[13] > 0.5
+    p = VoteInstancesParams(patchshape=(3, 3, 3), mws=True)
+    want, _ = blockwise_vote_instances(affs, fg, fg.astype(np.uint8), p,
+                                       chunksize=(14, 14, 14), device="cpu")
+    stats = BlockStats()
+    n1, n2 = K.CONSENSUS.launches, K.RANK.launches
+    got, _ = blockwise_vote_instances(affs, fg, fg.astype(np.uint8), p,
+                                      chunksize=(14, 14, 14), device=dev,
+                                      stats=stats)
+    assert len(np.unique(want)) > 3
+    np.testing.assert_array_equal(got, want)
+    assert stats.blocks_consensus > 0 and stats.stitch_consensus > 0
+    assert K.RANK.launches - n2 == stats.blocks_consensus
+    assert K.CONSENSUS.launches - n1 == \
+        stats.blocks_consensus + stats.stitch_consensus
+
+
 @pytest.mark.parametrize("int_counter", [False, True])
 def test_kernels_on_all_zero_masks(dev, int_counter):
     cfg = C.ConsensusConfig(patchshape=(3, 3, 3),

@@ -1,4 +1,4 @@
-"""Port's numpy/zlib zarr v2 reader vs the JAX package's tensorstore IoZarr."""
+"""Port's numpy/zlib zarr v2 store vs the JAX package's tensorstore IoZarr."""
 
 import json
 import os
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from patchperpix_tpu.utils.io import IoZarr
-from patchperpix_tpu_torch.utils.io import ZarrV2Reader
+from patchperpix_tpu_torch.utils import io as tio
 
 torch.set_num_threads(1)
 
@@ -21,7 +21,7 @@ FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
 @pytest.mark.parametrize("key", ["volumes/raw", "volumes/gt_instances"])
 def test_reader_equals_iozarr_on_fixture(key):
     want = IoZarr(FIXTURE).read(key=key)
-    got = ZarrV2Reader(FIXTURE).read(key)
+    got = tio.IoZarr(FIXTURE).read(key=key)
     assert got.dtype == want.dtype and got.shape == want.shape == (3, 50,
                                                                    50, 50)
     np.testing.assert_array_equal(got, want)
@@ -53,5 +53,5 @@ def test_reader_edge_and_missing_chunks(tmp_path, compressor):
             if compressor is not None:
                 data = zlib.compress(data)
             (d / f"{i}.{j}").write_bytes(data)
-    got = ZarrV2Reader(str(tmp_path / "s.zarr")).read("a")
+    got = tio.IoZarr(str(tmp_path / "s.zarr")).read(key="a")
     np.testing.assert_array_equal(got, want)

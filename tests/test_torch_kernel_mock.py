@@ -399,3 +399,36 @@ def test_host_2d_kernels_on_one_eligible_center(libs, p):
     want_acc = C.rank_acc_2d_plain(ag, tgt, want, cfg)
     assert int((want_acc != 0).sum()) == 1
     torch.testing.assert_close(acc, want_acc, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_host_kernels_on_a_gated_border_window(libs, bf16):
+    """A blockwise border window: ``center_valid`` gates the centers
+    outside the whole volume's interior out of the mask stacks, from
+    which alone the pack pass derives its bits and planes."""
+    from patchperpix_tpu_torch.assembly.blockwise import _global_center_valid
+
+    cfg = C.ConsensusConfig(patchshape=(3, 3, 3), cons_bf16=bf16)
+    shape = (6, 7, 8)
+    rng = np.random.RandomState(9)
+    a = rng.rand(27, *shape).astype(np.float32)
+    affs = torch.from_numpy(
+        np.where(a > 0.4, 0.6 + 0.4 * a, 0.4 * a).astype(np.float32))
+    cv = _global_center_valid((-1, 2, 4), shape, (9, 12, 11), (1, 1, 1))
+    assert 0 < cv.sum() < cv.size
+    hi, lo, _ = C._masks(affs, cfg, None, torch.from_numpy(cv))
+    assert hi.any() and not hi[:, ~cv].any() and not lo[:, ~cv].any()
+    half, codes, targets = _consensus_host(libs["consensus"], affs, hi, lo,
+                                           cfg)
+    assert torch.equal(codes, K.pack_target_codes(hi, lo, cfg))
+    assert torch.equal(targets, K.pack_codes(hi, lo, cfg)[2])
+    want = C.consensus_half_plain(affs, hi, lo, cfg)
+    torch.testing.assert_close(half.float(), want.float(), atol=1e-4,
+                               rtol=2.0 ** -7 if bf16 else 1e-4)
+    acc, codes, elig = _rank_host(libs["rank"], hi, lo, half, cfg)
+    want_codes, want_elig, _ = K.pack_codes(hi, lo, cfg)
+    assert torch.equal(codes, want_codes) and torch.equal(elig, want_elig)
+    assert not elig[torch.from_numpy(~cv)].any()
+    want_acc = C.rank_acc_plain(hi, lo, half, cfg)
+    assert not want_acc[torch.from_numpy(~cv)].any()
+    torch.testing.assert_close(acc, want_acc, atol=1e-3, rtol=1e-4)
