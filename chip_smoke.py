@@ -13,7 +13,8 @@ under 400 voxels go.  Phases, each printed as one JSON line:
 
 1. device: the card, and nvidia-smi's name and power limit (also printed
    alone on its own line);
-2. build: nvcc of every source under csrc/ (five kernels), in parallel;
+2. build: nvcc of every source under csrc/ (five kernels), in parallel,
+   and g++ of the host thinning (native/thinning.cpp) beside them;
 3. f32 main path (TF32 off): a warm-up run, then the counted run with
    per-stage times; each CUDA kernel is held against its plain PyTorch
    version on this run's decoded affinities (consensus atol = rtol =
@@ -25,9 +26,11 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    instance count, >= 99 % of foreground voxels agreeing after best-IoU
    matching; per-stage agreement is printed to find where two runs part;
 5. bf16 main path (the configuration's own dtype; warm-up, then a timed
-   run): instance count, own-fg voxels and AP@0.5 (IoU, Hungarian) beside
-   the TPU's figures in BENCH_r05.json (information only: bf16 rounds
-   differently there);
+   run): instance count, own-fg voxels, AP@0.5 (IoU, Hungarian) and
+   avg_f1_cov (bench.py's recipe: rm 400, clDice, greedy, keep_gt_shape)
+   beside the TPU's figures in BENCH_r05.json and the JAX package's bf16
+   CPU run in parity/torch_port_ref_bf16.json (information only: bf16
+   convolutions add in another order on each);
 6. probe: the row-window probe's twelve cases (``ops/probe.py``), kernel
    against plain version, max error < 1e-4;
 7. path2d: the 2D assembly at full width, the worm image (16 worms, seed
@@ -76,7 +79,26 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    tolerances, equal bits on two launches.  K1 / K2 launches on the path
    must equal the blocks (K2) and the blocks plus stitch windows (K1) that
    reached the consensus stage;
-11. the kernels line, then the contract's last line.
+11. cli: the reference CLI's path through the port's CLI
+   (``patchperpix_tpu_torch.cli.main`` in-process, on the card), the way
+   users run it: ``-c configs/flylight_crop_dec.toml -c <override> -d
+   mknet predict decode label evaluate`` in a temporary experiment root
+   under experiments_out/ (the CLI's default root, gitignored), the
+   override setting the model to float32 and the data
+   folders to one holding only the crop, the checkpoint written from
+   parity/bench_ckpt_params.npz by ``weights.write_checkpoint``: pt 0.5,
+   mws, skeletonize_foreground, remove_small_comps 60, evaluation under
+   clDice, greedy, keep_gt_shape, rm 60.  Gates against the JAX package's
+   CPU run of the same chain in parity/torch_port_cli_ref_f32.npz:
+   phase 4's limits on the map, the skeleton of the mask to cover equal
+   bit for bit (the port's thinning of the stored foreground always; the
+   run's own when its foreground equals the stored one), |avg_f1_cov -
+   the JAX run's| <= 0.01; K1 and K2 launched within the CLI run.  Then
+   ``-d infer_fused evaluate`` with the config as it stands (bf16), for
+   information beside the TPU's and the JAX bf16 CPU figures (those are
+   bench.py's pipeline).  Stage seconds per task, the skeleton seconds in
+   label and evaluate, and the phase's wall;
+12. the kernels line, then the contract's last line.
 
 Any failure raises and exits non-zero before the last line; with no CUDA
 device, or without the repository beside it, it exits 2.
@@ -88,6 +110,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "data", "JRC_SS05008-20160318_24_B2_crop.zarr")
@@ -101,6 +124,11 @@ MODEL2D_JSON = os.path.join(REPO, "parity", "torch_port_model2d_ref.json")
 BW_REF_NPZ = os.path.join(REPO, "parity", "torch_port_blockwise_ref_f32.npz")
 BW_REF_JSON = os.path.join(REPO, "parity",
                            "torch_port_blockwise_ref_f32.json")
+CLI_CONFIG = os.path.join(REPO, "configs", "flylight_crop_dec.toml")
+CLI_REF_NPZ = os.path.join(REPO, "parity", "torch_port_cli_ref_f32.npz")
+CLI_REF_JSON = os.path.join(REPO, "parity", "torch_port_cli_ref_f32.json")
+BF16_REF_JSON = os.path.join(REPO, "parity", "torch_port_ref_bf16.json")
+CLI_STEP = 1
 WIN = (52, 52, 52)
 # the blockwise phase: the crop reflected by 25 per side stands in for a
 # FlyLight sample; predicted in batches of 2, assembled in 64^3 blocks;
@@ -1167,6 +1195,189 @@ def run_blockwise(model, cfg, raw, run, dev, kernels):
     return launches
 
 
+def run_cli(dev, kernels):
+    """Phase cli: the reference CLI's predict -> decode -> label ->
+    evaluate through the port's CLI on the crop, gated against the JAX
+    package's run of the same chain; then infer_fused in bf16."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from patchperpix_tpu_torch import cli, weights
+    from patchperpix_tpu_torch.assembly import vote_instances as TV
+    from patchperpix_tpu_torch.evaluate import instance_metrics as TM
+    from patchperpix_tpu_torch.utils.io import IoZarr
+    from patchperpix_tpu_torch.utils.skeleton import skeletonize
+
+    t_phase = time.perf_counter()
+    out_root = os.path.join(REPO, "experiments_out")
+    os.makedirs(out_root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="ppp_cli_", dir=out_root)
+    sample = os.path.splitext(os.path.basename(FIXTURE))[0]
+    # per-task wall seconds and the skeletons' calls, by the module
+    # calling skeletonize
+    task_s, skel = {}, {"label": [], "evaluate": []}
+    real_tasks = {n: getattr(cli, n) for n in (
+        "mknet", "predict", "decode", "label", "evaluate", "infer_fused")}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                task_s[name] = task_s.get(name, 0.0) \
+                    + time.perf_counter() - t0
+        return run
+
+    def skel_shim(where):
+        def run(volume, *a, **kw):
+            t0 = time.perf_counter()
+            out = skeletonize(volume, *a, **kw)
+            skel[where].append((time.perf_counter() - t0, out))
+            return out
+        return run
+
+    try:
+        data = os.path.join(work, "data")
+        os.makedirs(data)
+        os.symlink(FIXTURE, os.path.join(data, os.path.basename(FIXTURE)))
+        exps = os.path.join(work, "exps")
+        override = os.path.join(work, "override.toml")
+
+        def write_override(dtype):
+            with open(override, "w") as f:
+                if dtype:
+                    f.write(f'[model]\ndtype = "{dtype}"\n')
+                f.write("[data]\n" + "".join(
+                    f'{k}_data = "{data}"\n' for k in ("train", "val",
+                                                       "test")))
+        for expid in ("f32", "bf16"):
+            weights.write_checkpoint(weights.load_npz(),
+                                     os.path.join(exps, expid, "train"),
+                                     CLI_STEP)
+        for name, fn in real_tasks.items():
+            setattr(cli, name, timed(name, fn))
+        TV.skeletonize = skel_shim("label")
+        TM.skeletonize = skel_shim("evaluate")
+
+        # the f32 run, its kernel launches counted from zero
+        write_override("float32")
+        argv = ["-c", CLI_CONFIG, "-c", override, "--root", exps,
+                "--checkpoint", str(CLI_STEP)]
+        for k in kernels:
+            k.launches = 0
+        paths = cli.main(argv + ["-id", "f32", "-d", "mknet", "predict",
+                                 "decode", "label", "evaluate"])
+        launches = {k.name: k.launches for k in kernels}
+        res = IoZarr(os.path.join(paths["test_instanced"], str(CLI_STEP),
+                                  sample + ".zarr"))
+        inst = res.read(key="vote_instances")
+        fg = res.read(key="vote_foreground") > 0
+        metrics = json.load(open(os.path.join(
+            paths["test_evaluated"], str(CLI_STEP), sample + ".json")))
+        ref = np.load(CLI_REF_NPZ)
+        meta = json.load(open(CLI_REF_JSON))
+        shape = tuple(int(s) for s in ref["shape"])
+
+        def unpack(key):
+            n = int(np.prod(shape))
+            return np.unpackbits(ref[key])[:n].reshape(shape).astype(bool)
+        ref_fg, ref_skel = unpack("fg"), unpack("skel")
+        fg_agree = float(np.mean(fg == ref_fg))
+        agree, same = match_agreement(inst, ref["inst"])
+        run_skel = skel["label"][0][1] > 0 if len(skel["label"]) == 1 \
+            else None
+        skel_of_ref_fg = skeletonize(ref_fg) > 0
+        score = metrics["general"]["avg_f1_cov_score"]
+        f32 = {
+            "phase": "cli", "run": "f32 predict decode label evaluate",
+            "launches": launches, "fg_agreement": fg_agree,
+            "foreground_equal": bool(np.array_equal(fg, ref_fg)),
+            "n_instances": n_instances(inst),
+            "ref_n_instances": meta["n_instances"],
+            "matched_agreement": agree, "identical_up_to_relabel": same,
+            "own_fg_vox": int((inst > 0).sum()),
+            "ref_own_fg_vox": meta["own_fg_vox"],
+            "skeletonize_calls_in_label": len(skel["label"]),
+            "skel_vox": None if run_skel is None else int(run_skel.sum()),
+            "ref_skel_vox": meta["skel_vox"],
+            "skel_of_ref_fg_equal": bool(np.array_equal(skel_of_ref_fg,
+                                                        ref_skel)),
+            "skel_equal": (None if run_skel is None
+                           else bool(np.array_equal(run_skel, ref_skel))),
+            "avg_f1_cov_score": score,
+            "ref_avg_f1_cov_score": meta["avg_f1_cov_score"],
+            "AP_0.5_cldice_greedy": metrics["confusion_matrix"]["th_0_5"][
+                "AP"],
+            "ref_AP_0.5_cldice_greedy": meta["AP_0.5_cldice_greedy"],
+            "metrics_equal_ref": metrics == meta["metrics"]}
+        emit(f32)
+        if not all(n >= 1 for n in launches.values()):
+            raise AssertionError(f"a kernel was not launched in the CLI "
+                                 f"run: {launches}")
+        if fg_agree < 0.999:
+            raise AssertionError(f"cli foreground agreement {fg_agree}")
+        if f32["n_instances"] != meta["n_instances"]:
+            raise AssertionError("cli instance count differs from the JAX "
+                                 "run")
+        if agree < 0.99:
+            raise AssertionError(f"cli instance agreement {agree} < 0.99")
+        if run_skel is None:
+            raise AssertionError(f"label skeletonized {len(skel['label'])} "
+                                 "times, not once")
+        if not f32["skel_of_ref_fg_equal"] or (
+                f32["foreground_equal"] and not f32["skel_equal"]):
+            raise AssertionError("skeleton of the mask to cover differs "
+                                 "from the JAX run's")
+        if abs(score - meta["avg_f1_cov_score"]) > 0.01:
+            raise AssertionError(f"cli avg_f1_cov {score} vs the JAX run's "
+                                 f"{meta['avg_f1_cov_score']}")
+        f32_tasks, f32_skel = dict(task_s), {
+            k: [sum(t for t, _ in v), len(v)] for k, v in skel.items()}
+
+        # bf16, the config as it stands, through infer_fused
+        task_s.clear()
+        for v in skel.values():
+            v.clear()
+        write_override(None)
+        for k in kernels:
+            k.launches = 0
+        paths = cli.main(argv + ["-id", "bf16", "-d", "infer_fused",
+                                 "evaluate"])
+        metrics16 = json.load(open(os.path.join(
+            paths["test_evaluated"], str(CLI_STEP), sample + ".json")))
+        inst16 = IoZarr(os.path.join(
+            paths["test_instanced"], str(CLI_STEP), sample + ".zarr")).read(
+                key="vote_instances")
+        tpu = tpu_figures()
+        emit({"phase": "cli", "run": "bf16 infer_fused evaluate",
+              "launches": {k.name: k.launches for k in kernels},
+              "n_instances": n_instances(inst16),
+              "own_fg_vox": int((inst16 > 0).sum()),
+              "avg_f1_cov_score": metrics16["general"]["avg_f1_cov_score"],
+              "AP_0.5_cldice_greedy": metrics16["confusion_matrix"][
+                  "th_0_5"]["AP"],
+              "note": "configs/flylight_crop_dec.toml's pipeline (pt 0.5, "
+                      "skeletonize_foreground, rm 60); the TPU and JAX bf16 "
+                      "figures are bench.py's (pt 0.6, rm 400)",
+              "tpu_bf16": {k: tpu[k] for k in ("avg_f1_cov", "AP_0.5",
+                                               "n_instances")},
+              "jax_bf16_cpu": json.load(open(BF16_REF_JSON))})
+        emit({"phase": "cli_times", "f32_task_s": f32_tasks,
+              "f32_skeleton_s_calls": f32_skel,
+              "bf16_task_s": dict(task_s), "bf16_skeleton_s_calls": {
+                  k: [sum(t for t, _ in v), len(v)] for k, v in skel.items()},
+              "phase_wall_s": time.perf_counter() - t_phase})
+    finally:
+        for name, fn in real_tasks.items():
+            setattr(cli, name, fn)
+        TV.skeletonize = skeletonize
+        TM.skeletonize = skeletonize
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def compare_reference(run):
     """Gates against the stored JAX float32 run, plus per-stage agreement."""
     import numpy as np
@@ -1232,15 +1443,16 @@ def main() -> int:
         return 2
     if not (os.path.isdir(os.path.join(REPO, "patchperpix_tpu_torch"))
             and all(os.path.exists(f) for f in (REF_NPZ, REF2D_NPZ,
-                                                MODEL2D_NPZ, BW_REF_NPZ))):
+                                                MODEL2D_NPZ, BW_REF_NPZ,
+                                                CLI_REF_NPZ))):
         print("chip_smoke: the repository is not beside this script",
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     import numpy as np
 
-    from patchperpix_tpu_torch.evaluate.instance_metrics import \
-        average_precision
+    from patchperpix_tpu_torch.evaluate import evaluate_labels
+    from patchperpix_tpu_torch import native
     from patchperpix_tpu_torch.ops import _build
     from patchperpix_tpu_torch.ops import consensus_kernels as K
     from patchperpix_tpu_torch.ops.consensus_kernels import KERNELS
@@ -1257,9 +1469,15 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # the host thinning library (g++) builds beside the five nvcc processes
     t0 = time.perf_counter()
-    info = _build.build([k.name for k in KERNELS])
+    with ThreadPoolExecutor(1) as ex:
+        gxx = ex.submit(lambda: (native.build("thinning"),
+                                 time.perf_counter() - t0))
+        info = _build.build([k.name for k in KERNELS])
+        gxx_s = gxx.result()[1]
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
+          "gxx_thinning_s": gxx_s,
           "nvcc_s": {n: v["seconds"] for n, v in info.items()},
           "ptxas": {n: [ln for ln in v["log"].splitlines()
                         if "registers" in ln or "spill" in ln]
@@ -1294,7 +1512,22 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
     ref = compare_reference(run)
-    ap32 = average_precision(run["inst"], gt, 0.5, keep_gt_shape=True)
+
+    def scores(inst):
+        """AP@0.5 (IoU, Hungarian) and avg_f1_cov / AP@0.5 (clDice,
+        greedy) as bench.py scores its map (rm 400 done by run_path)."""
+        iou = evaluate_labels(inst, gt, localization_criterion="iou",
+                              assignment_strategy="hungarian",
+                              keep_gt_shape=True)
+        cl = evaluate_labels(inst, gt, localization_criterion="cldice",
+                             assignment_strategy="greedy",
+                             keep_gt_shape=True)
+        return {"AP_0.5_iou_hungarian": iou["confusion_matrix"]["th_0_5"][
+                    "AP"],
+                "avg_f1_cov_score": cl["general"]["avg_f1_cov_score"],
+                "AP_0.5_cldice_greedy": cl["confusion_matrix"]["th_0_5"][
+                    "AP"]}
+    scores32 = scores(run["inst"])
     run_blockwise(model, cfg, raw, run, dev, (K.CONSENSUS, K.RANK))
     del run
     torch.cuda.empty_cache()
@@ -1303,15 +1536,17 @@ def main() -> int:
     model16 = build_model(cfg16, device=dev)
     run_path(model16, cfg16, raw, dev)       # warm-up (bf16 conv setup)
     run16 = run_path(model16, cfg16, raw, dev)
-    ap16 = average_precision(run16["inst"], gt, 0.5, keep_gt_shape=True)
     emit({"phase": "bf16_path", "n_instances": n_instances(run16["inst"]),
           "own_fg_vox": int((run16["inst"] > 0).sum()),
-          "AP_0.5_iou_hungarian": ap16["AP"], "steady_s": run16["times"],
+          **scores(run16["inst"]), "steady_s": run16["times"],
           "f32": {"n_instances": ref["n_instances"],
-                  "own_fg_vox": ref["own_fg_vox"],
-                  "AP_0.5_iou_hungarian": ap32["AP"]},
-          "tpu_bf16": tpu_figures()})
+                  "own_fg_vox": ref["own_fg_vox"], **scores32},
+          "tpu_bf16": tpu_figures(),
+          "jax_bf16_cpu": json.load(open(BF16_REF_JSON))})
     del run16, model16, model
+    torch.cuda.empty_cache()
+
+    run_cli(dev, (K.CONSENSUS, K.RANK))
     torch.cuda.empty_cache()
 
     kernels.append(run_probe(dev))

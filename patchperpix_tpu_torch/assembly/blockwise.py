@@ -23,6 +23,9 @@ components are painted from the nodes' patch columns only.
   host stages of one block overlap the device stages of another; every
   block launches on the default stream); ``chessboard`` orders blocks so
   that same-phase blocks, never grid neighbours, run first.
+- ``skeletonize_foreground`` thins the whole sample's mask to cover once,
+  before the blocks; block and stitch windows never skeletonize their own
+  window (their params force it off).
 - ``block_devices`` > 1 belongs to the multi-device port and raises.
 """
 
@@ -44,6 +47,7 @@ from ..ops.graph_device import graph_components_device
 from ..utils import io as vio
 from ..utils.device import resolve_device
 from ..utils.postprocess import clean_mask
+from ..utils.skeleton import skeletonize
 from .vote_instances import (VoteInstancesParams, _derive_fg_numinst,
                              to_instance_seg)
 
@@ -254,13 +258,16 @@ class ZarrAffReader:
 
 def _params_fingerprint(params: VoteInstancesParams, chunksize) -> str:
     """Short hash of every parameter that changes per-block results, so a
-    resume store is never reused across incompatible configurations."""
+    resume store is never reused across incompatible configurations (the
+    mask's ``skeletonize_foreground`` and ``ignore_small_comps`` too, which
+    the JAX package's fingerprint leaves out)."""
     keys = ("patchshape", "patch_threshold", "fc_threshold", "bg_mode",
             "weight_mode", "consensus_norm_aff", "patch_graph_norm_aff",
             "rank_norm_patch_score", "rank_int_counter", "consensus_bf16",
             "overlapping_inst", "select_patches_for_sparse_data",
             "removeIntersection", "includeSinglePatchCCS",
-            "max_total_patch_distance_in_ps_multiples")
+            "max_total_patch_distance_in_ps_multiples",
+            "skeletonize_foreground", "ignore_small_comps")
     sig = repr([(k, getattr(params, k)) for k in keys]
                + [tuple(int(c) for c in np.asarray(chunksize)), "window_v2"])
     return hashlib.sha1(sig.encode()).hexdigest()[:10]
@@ -376,8 +383,11 @@ def compute_blocks(reader, fg: np.ndarray, mask_to_cover: np.ndarray,
     bb_stop = np.minimum(nz.max(axis=0) + rad + 1, vol_shape)
     offsets = get_offsets(bb_stop - bb_start, chunksize)
     block_results = {} if block_results is None else block_results
+    # the whole sample's mask was skeletonized once (_masks_to_cover); no
+    # block thins its own window
     block_params = dataclasses.replace(params, blockwise=True,
-                                       return_intermediates=True)
+                                       return_intermediates=True,
+                                       skeletonize_foreground=False)
 
     def run_block(off):
         key = tuple(int(o) for o in off)
@@ -460,12 +470,15 @@ def compute_blocks(reader, fg: np.ndarray, mask_to_cover: np.ndarray,
 
 
 def _masks_to_cover(fg, numinst, params):
-    if params.skeletonize_foreground:
-        raise NotImplementedError("skeletonize_foreground is not ported")
+    """(foreground, mask to cover) of the whole sample: small components
+    dropped, the mask skeletonized once with ``skeletonize_foreground``
+    and then cleared of the overlap voxels."""
     fg = fg.astype(bool)
     if params.ignore_small_comps > 0:
         fg = clean_mask(fg, params.ignore_small_comps)
     mask_to_cover = fg.copy()
+    if params.skeletonize_foreground:
+        mask_to_cover = skeletonize(mask_to_cover) > 0
     mask_to_cover[numinst > 1] = False
     return fg, mask_to_cover
 
@@ -649,8 +662,8 @@ def stitch_blocks(reader, fg, numinst, block_results,
                                       ps // 2)
             wparams = dataclasses.replace(
                 params, blockwise=True, return_intermediates=True,
-                skipRanking=True, selected_patch_pairs=local_pairs,
-                center_valid=cv)
+                skipRanking=True, skeletonize_foreground=False,
+                selected_patch_pairs=local_pairs, center_valid=cv)
             inter: dict = {}
             timings = {} if stats is not None else None
             lap("windows_host")

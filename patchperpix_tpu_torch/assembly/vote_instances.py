@@ -17,6 +17,22 @@ returns (pairs, weights), or (None, None), instead of an instance map;
 consensus and the graph weights of the given pairs, and no rank and no
 cover.
 
+With ``skeletonize_foreground`` the mask to cover is thinned to its
+skeleton (``utils/skeleton.py``, host C++) before the overlap voxels are
+cleared, and only when not blockwise: blockwise assembly skeletonizes the
+whole sample's mask once (``assembly/blockwise.py``), never a block or a
+stitch window.
+
+The reference CLI's ``label`` task runs ``do_all``: ``load_affinities``
+from a prediction store, ``to_instance_seg`` (or blockwise assembly), and
+``finalize_and_write``, which writes ``<sample>.zarr`` (a zarr v2 store
+of the port's ``utils/io.py``; the JAX package writes ``.hdf``, and the
+GPU machine has no h5py) under the JAX package's keys.
+``VoteInstancesParams.from_config`` reads a [vote_instances] section; a
+key of the JAX package that the port does not implement yet raises when
+it is set to anything but its default, naming the ROADMAP.md item that
+ports it.
+
 3D volumes and 2D ones run the same stages; a 2D volume is the flat-z
 volume (1, H, W) with patchshape (1, p, p), as in the JAX package, and
 takes the 2D kernels (``ops/consensus_kernels.py``).  ``consensus_bf16``
@@ -27,11 +43,14 @@ over.
 
 from __future__ import annotations
 
+import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
+from scipy import ndimage
+from scipy.special import expit
 
 from ..ops import np_reference as ref
 from ..ops.consensus import (ConsensusConfig, patch_graph_weights,
@@ -40,7 +59,51 @@ from ..ops.consensus_kernels import (consensus_half, consensus_operands,
                                      rank_scores)
 from ..ops.cover import greedy_cover_device, thin_out_cover_device
 from ..ops.graph_device import graph_components_device
+from ..utils import io as vio
 from ..utils.device import resolve_device
+from ..utils.postprocess import remove_small_components
+from ..utils.skeleton import skeletonize
+
+# [vote_instances] keys of the JAX package's VoteInstancesParams that the
+# port does not implement yet: {key: (the JAX default, the ROADMAP.md item
+# that ports it)}.  from_config raises on any other value.
+_REST = ("ROADMAP.md §1 item 2 (the rest of the CLI and the assembly's "
+         "options)")
+_NOT_PORTED = {
+    "isbi_hack": (False, _REST + ": assembly/isbi_hacks.py"),
+    "isbi_sparsify_stride": (20, _REST + ": assembly/isbi_hacks.py"),
+    "one_instance_per_channel": (False, _REST),
+    "no_overlap_per_channel": (False, _REST),
+    "skipThinCover": (False, _REST),
+    "skipConsensus": (False, _REST),
+    "skipSelection": (False, _REST),
+    "select_patches_overlap_neighborhood": (False, _REST),
+    "mark_close_neighboorhood": (False, _REST),
+    "pad_with_ps": (False, _REST),
+    "vi_bg_use_inv_th": (False, _REST),
+    "score_threshold": (None, _REST),
+    "only_bb": (True, _REST),
+    "crop_to_foreground": (True, _REST),
+    "sample": (1.0, _REST),
+    "seed": (0, _REST),
+    "shuffle_patches": (False, _REST),
+    "store_scores": (False, _REST),
+    "store_intermediates": (False, _REST),
+    "use_score_oracle": (False, _REST),
+    "score_oracle_key": ("volumes/patch_iou", _REST),
+    "oracle_scores": (None, _REST),
+    "selected_patches": (None, _REST),
+    "aff_graph": (None, _REST),
+    "aff_file": (None, _REST),
+    "profile_dir": (None, _REST),
+    "sharded_devices": (0, "ROADMAP.md §1 item 3 (multi-device)"),
+    "save_mip": (False, "ROADMAP.md §1 item 5 (visualization)"),
+    "save_tif": (False, "ROADMAP.md §1 item 5 (visualization)"),
+    "vote_debug": (False, "ROADMAP.md §1 item 5 (visualization)"),
+}
+# the JAX package's engines that run the device path; the port has one
+# (the CUDA kernels on the card, their plain versions on the CPU)
+_DEVICE_ENGINES = ("jax", "pallas", "xla")
 
 
 @dataclass
@@ -67,6 +130,12 @@ class VoteInstancesParams:
     patch_graph_norm_aff: bool = True
     max_total_patch_distance_in_ps_multiples: float = 2.0
     numinst_threshs: tuple = (0.9, 0.1)
+    # do_all / finalize_and_write (the CLI's label task)
+    remove_small_comps: int = 0
+    dilate_instances: bool = False
+    res_key: str = "vote_instances"
+    result_folder: str = "."
+    num_parallel_samples: int = 1
     # blockwise assembly (assembly/blockwise.py) and its prediction store
     blockwise: bool = False
     ignore_small_comps: int = 0
@@ -79,11 +148,39 @@ class VoteInstancesParams:
     numinst_key: str | None = None
     fg_key: str | None = None
     fg_thresh_vi: float = -1.0
+    code_decoder: object | None = None  # infer.decode.CodeDecoder: blockwise
+                                        # windows decode codes on demand
     # the blockwise contract of to_instance_seg
     return_intermediates: bool = False
     skipRanking: bool = False
     selected_patch_pairs: np.ndarray | None = None
     center_valid: np.ndarray | None = None
+
+    @classmethod
+    def from_config(cls, cfg: dict, **overrides) -> "VoteInstancesParams":
+        """Typed view of a [vote_instances] section, as the JAX package's
+        ``from_config``: keys that name no parameter of either package are
+        dropped, ``patchshape`` becomes a tuple.  Raises
+        NotImplementedError for a JAX parameter the port lacks when it is
+        set to anything but the JAX default, and for an engine other than
+        the device engines."""
+        kwargs = {**cfg, **overrides}
+        engine = kwargs.pop("engine", "jax")
+        if engine not in _DEVICE_ENGINES:
+            raise NotImplementedError(
+                f"engine={engine!r}: the port has one engine, the CUDA "
+                f"kernels on the card (plain PyTorch on the CPU); use one "
+                f"of {_DEVICE_ENGINES}")
+        for key, (default, item) in _NOT_PORTED.items():
+            if key in kwargs and kwargs.pop(key) != default:
+                raise NotImplementedError(
+                    f"[vote_instances] {key} is not ported yet ({item}); "
+                    f"leave it at {default!r}")
+        known = {f.name for f in fields(cls)}
+        kwargs = {k: v for k, v in kwargs.items() if k in known}
+        if "patchshape" in kwargs:
+            kwargs["patchshape"] = tuple(int(p) for p in kwargs["patchshape"])
+        return cls(**kwargs)
 
     @property
     def bg_mode(self) -> str:
@@ -205,8 +302,6 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     the selected patches, the pairs and the graph weights, and
     ``consensus`` True once the consensus kernel has run."""
     dev = resolve_device(device)
-    if params.skeletonize_foreground:
-        raise NotImplementedError("skeletonize_foreground is not ported")
     ps = np.asarray(params.patchshape, dtype=np.int64)
     if len(ps) != 3:
         raise ValueError("patchshape must have three extents; 2D is "
@@ -222,6 +317,11 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     inner = ref.interior(vol_shape, rad)
     overlap_mask = (np.asarray(numinst) > 1).astype(np.uint8)
     mask_to_cover = np.asarray(mask_to_cover).astype(bool).copy()
+    if not params.blockwise and params.skeletonize_foreground:
+        t_skel = time.perf_counter()
+        mask_to_cover = skeletonize(mask_to_cover) > 0
+        if timings is not None:
+            timings["skeletonize"] = time.perf_counter() - t_skel
     mask_to_cover[overlap_mask > 0] = False
     instances = np.zeros(vol_shape, dtype=np.uint16)
 
@@ -328,3 +428,100 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     inter["n_components"] = len(comps)
     stages.mark("mws_paint")
     return instances.astype(np.uint16), foreground.astype(np.uint8)
+
+
+def load_affinities(aff_file: str, params: VoteInstancesParams):
+    """(affs (P, *vol) float32, numinst, foreground) from a prediction
+    store: channels-last stacks rotated, logits turned into probabilities
+    (either bound of [0, 1] violated beyond f16 round-off), 2D stacks
+    lifted to (P, 1, H, W), and the masks from ``_derive_fg_numinst``."""
+    ps = np.asarray(params.patchshape)
+    io = vio.open_volume(aff_file, mode="r")
+    affs = io.read(key=params.aff_key).astype(np.float32)
+    P = int(np.prod(ps))
+    if affs.ndim >= 2 and affs.shape[-1] == P and affs.shape[0] != P:
+        affs = np.ascontiguousarray(np.moveaxis(affs, -1, 0))
+    affs = np.squeeze(affs)
+    if affs.ndim == 3:
+        affs = affs[:, None]
+    if affs.min() < -1e-3 or affs.max() > 1 + 1e-3:
+        affs = expit(affs)
+    numinst, foreground = _derive_fg_numinst(
+        io, params, center_channel_reader=lambda: affs[P // 2])
+    return affs, numinst, foreground
+
+
+def do_all(aff_file: str, params: VoteInstancesParams,
+           result_folder: str | None = None, device="cuda") -> str:
+    """One prediction store into an instance store (the CLI's ``label``
+    for one sample): blockwise assembly streaming from the store when
+    ``params.blockwise``, else the whole volume through
+    ``to_instance_seg``; then ``finalize_and_write``.  Returns the
+    result's path."""
+    from .blockwise import blockwise_vote_instances_zarr
+
+    result_folder = result_folder or params.result_folder
+    os.makedirs(result_folder, exist_ok=True)
+    if params.blockwise:
+        instances, fg_out = blockwise_vote_instances_zarr(
+            aff_file, params, chunksize=params.chunksize,
+            result_folder=result_folder, decoder=params.code_decoder,
+            device=device)
+    else:
+        affs, numinst, foreground = load_affinities(aff_file, params)
+        instances, fg_out = to_instance_seg(
+            affs, foreground, foreground.copy(), numinst, params,
+            device=device)
+    base = os.path.splitext(os.path.basename(aff_file.rstrip("/")))[0]
+    return finalize_and_write(instances, fg_out, params, base,
+                              result_folder)
+
+
+def _write_label_volume(io, key: str, arr: np.ndarray):
+    arr = np.ascontiguousarray(arr)
+    io.create(key, arr.shape, arr.dtype,
+              chunks=[min(int(s), 128) for s in arr.shape])
+    io.write(arr, key=key)
+    io.set_attrs(key, {"offset": [0] * arr.ndim,
+                       "resolution": [1] * arr.ndim})
+
+
+def finalize_and_write(instances, fg_out, params: VoteInstancesParams,
+                       base: str, result_folder: str) -> str:
+    """Small-component removal, the crop to the foreground and the result
+    store
+    ``<result_folder>/<base>.zarr`` (vote_instances.py:521-554 and the
+    stitch's post outputs, stitch_patch_graph.py:823-895): ``res_key``,
+    ``vote_foreground``, ``vote_instances_masked`` and, with
+    ``dilate_instances``, ``<res_key>_dil_1`` / ``<res_key>_masked_dil_1``.
+    An existing store keeps its other keys.  Shared by ``do_all`` and the
+    CLI's ``infer_fused``."""
+    instances = np.asarray(instances)
+    fg_out = np.asarray(fg_out)
+    if params.remove_small_comps > 0:
+        instances = remove_small_components(instances,
+                                            params.remove_small_comps)
+    instances = instances.copy()
+    instances[fg_out == 0] = 0
+    out_path = os.path.join(result_folder, base + ".zarr")
+    out = vio.IoZarr(out_path, mode="a")
+    _write_label_volume(out, params.res_key, instances)
+    _write_label_volume(out, "vote_foreground", fg_out.astype(np.uint8))
+    masked = instances.copy()
+    masked[fg_out == 0] = 0
+    _write_label_volume(out, "vote_instances_masked", masked)
+    if params.dilate_instances:
+        # per-label 1-iteration binary dilation; later (higher) labels win
+        # contested voxels, as in the reference's ascending-label loop
+        instdil = instances.copy()
+        for lbl in np.unique(instances):
+            if lbl == 0:
+                continue
+            grown = ndimage.binary_dilation(instdil == lbl, iterations=1)
+            instdil[grown] = lbl
+        _write_label_volume(out, params.res_key + "_dil_1", instdil)
+        mdil = instdil.copy()
+        mdil[fg_out == 0] = 0
+        _write_label_volume(out, params.res_key + "_masked_dil_1", mdil)
+    out.close()
+    return out_path

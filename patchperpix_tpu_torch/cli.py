@@ -1,0 +1,665 @@
+"""Experiment orchestrator CLI.
+
+Counterpart of ``patchperpix_tpu/cli.py`` (reference experiments/run_ppp.py)
+for the inference and evaluation tasks: ``mknet``, ``predict``, ``decode``,
+``label``, ``infer_fused``, ``evaluate``, ``evaluate_prediction`` and
+``postprocess``, with the JAX CLI's experiment folders, layered TOML
+config with ``--set`` overrides, the merged config written back into the
+run directory, per-stage wall-time logging and skip-if-exists resume.
+
+What differs from the JAX CLI:
+
+- ``--device`` (default ``cuda``) picks the device; without a card the
+  CLI raises unless ``--device cpu`` is given.
+- Checkpoints are the port's torch files ``train/train_net_checkpoint_<step>``
+  (``weights.write_checkpoint``), not orbax directories.
+- Results are ``<sample>.zarr`` stores in the instanced folder (the JAX
+  package writes ``.hdf``), under the same keys; ``evaluate`` and
+  ``postprocess`` read them.
+- Samples are not sharded over hosts (multi-device is ROADMAP.md §1
+  item 3), and no git diff of the source is stored with the config.
+- ``train``, ``validate_checkpoints`` / ``validate``, ``cross_validate``,
+  ``visualize``, ``cleanup`` and ``all`` (which trains) raise
+  NotImplementedError naming the ROADMAP.md item that ports them.
+
+Usage:
+  python -m patchperpix_tpu_torch.cli -c configs/flylight_crop_dec.toml \\
+      --root exps -id run1 -d predict decode label evaluate --checkpoint 1
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import functools
+import glob
+import json
+import logging
+import os
+import re
+import shutil
+import time
+from concurrent.futures import ThreadPoolExecutor
+from datetime import datetime
+
+import numpy as np
+
+from . import config as cfglib
+from .assembly.vote_instances import (VoteInstancesParams, do_all,
+                                      finalize_and_write,
+                                      numinst_from_probs, to_instance_seg)
+from .models import PPPConfig, PPPModel
+from .utils import io as vio
+from .utils.device import resolve_device
+from .weights import build_model, checkpoint_path, load_checkpoint
+
+logger = logging.getLogger(__name__)
+
+TASKS = ["all", "mknet", "train", "validate_checkpoints", "validate",
+         "predict", "decode", "label", "infer_fused", "postprocess",
+         "evaluate", "evaluate_prediction", "cross_validate", "visualize",
+         "cleanup"]
+# tasks of later slices: {task: the ROADMAP.md item that ports it}
+NOT_PORTED = {
+    "all": "ROADMAP.md §1 item 1 (training): 'all' trains first",
+    "train": "ROADMAP.md §1 item 1 (training)",
+    "validate_checkpoints": "ROADMAP.md §1 item 2 (the rest of the CLI)",
+    "validate": "ROADMAP.md §1 item 2 (the rest of the CLI)",
+    "cross_validate": "ROADMAP.md §1 item 2 (the rest of the CLI)",
+    "cleanup": "ROADMAP.md §1 item 2 (the rest of the CLI)",
+    "visualize": "ROADMAP.md §1 item 5 (visualization)",
+}
+
+
+def time_func(fn):
+    """Per-stage wall-time logging (run_ppp.py:94-102)."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        t0 = time.time()
+        out = fn(*args, **kwargs)
+        logger.info("TIME %s: %.1f s", fn.__name__, time.time() - t0)
+        return out
+
+    return wrapper
+
+
+def get_arguments(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("-c", "--config", action="append", default=None,
+                   help="TOML config file(s), later override earlier; "
+                        "optional with --run_from_exp")
+    p.add_argument("-d", "--do", nargs="+", default=[], choices=TASKS)
+    p.add_argument("--root", default="experiments_out")
+    p.add_argument("-id", "--expid", default=None,
+                   help="existing experiment id to continue")
+    p.add_argument("--checkpoint", type=int, default=None)
+    p.add_argument("--test-checkpoint", type=int, default=None)
+    p.add_argument("--sample", default=None, help="restrict to one sample")
+    p.add_argument("--mode", default="test", choices=["train", "val", "test"])
+    p.add_argument("--train-data", default=None)
+    p.add_argument("--val-data", default=None)
+    p.add_argument("--test-data", default=None)
+    p.add_argument("--debug_args", action="store_true",
+                   help="clamp iterations/workers for smoke runs")
+    p.add_argument("--run_from_exp", action="store_true",
+                   help="reuse the stored merged config of the experiment "
+                        "given by --expid")
+    p.add_argument("--validate_on_train", action="store_true",
+                   help="validate_checkpoints scores on the train split")
+    p.add_argument("--param_set", type=int, default=None)
+    p.add_argument("--set", action="append", default=[], metavar="K=V",
+                   dest="overrides",
+                   help="generic config override, dotted path: "
+                        "--set vote_instances.patch_threshold=0.9")
+    p.add_argument("--predict_single", action="store_true",
+                   help="predict only the first sample (smoke runs)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the tasks (cuda, cuda:N or cpu); "
+                        "default cuda, which raises without a card")
+    args = p.parse_args(argv)
+    if not args.config and not (args.run_from_exp and args.expid):
+        p.error("--config is required unless --run_from_exp with --expid")
+    return args
+
+
+def backup_and_copy_file(src, dst_dir):
+    os.makedirs(dst_dir, exist_ok=True)
+    dst = os.path.join(dst_dir, os.path.basename(src))
+    if os.path.exists(dst):
+        ts = datetime.now().strftime("%y%m%d_%H%M%S")
+        shutil.copy2(dst, dst + "_backup" + ts)
+    shutil.copy2(src, dst)
+
+
+def create_folders(root: str, expid: str | None) -> dict:
+    """Timestamped run dir + per-stage subdirs (run_ppp.py:270-330)."""
+    if expid is None:
+        expid = datetime.now().strftime("%y%m%d_%H%M%S")
+    base = os.path.join(root, expid)
+    paths = {"base": base, "expid": expid,
+             "train": os.path.join(base, "train"),
+             "backups": os.path.join(base, "backups")}
+    for mode in ("train", "val", "test"):
+        for stage in ("processed", "instanced", "evaluated"):
+            paths[f"{mode}_{stage}"] = os.path.join(base, mode, stage)
+    for key, p in paths.items():
+        if key != "expid":
+            os.makedirs(p, exist_ok=True)
+    return paths
+
+
+def setup_logging(base: str, level: str = "INFO"):
+    logging.basicConfig(
+        level=getattr(logging, level.upper(), logging.INFO),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+        handlers=[logging.StreamHandler(),
+                  logging.FileHandler(os.path.join(base, "run.log"))],
+        force=True)
+
+
+def list_samples(data_dir: str, input_format: str = "zarr") -> list[str]:
+    files = sorted(glob.glob(os.path.join(data_dir, f"*.{input_format}")))
+    return [os.path.splitext(os.path.basename(f))[0] for f in files]
+
+
+def get_checkpoint_list(train_folder: str) -> list[int]:
+    out = []
+    for p in glob.glob(os.path.join(train_folder, "train_net_checkpoint_*")):
+        m = re.search(r"checkpoint_(\d+)$", p)
+        if m:
+            out.append(int(m.group(1)))
+    return sorted(out)
+
+
+def _resolve_checkpoint(args, config, paths) -> int:
+    # --test-checkpoint pins the checkpoint for test-split stages;
+    # --checkpoint applies everywhere
+    if getattr(args, "mode", None) == "test" \
+            and getattr(args, "test_checkpoint", None):
+        return args.test_checkpoint
+    if args.checkpoint:
+        return args.checkpoint
+    cps = get_checkpoint_list(paths["train"])
+    if not cps:
+        raise RuntimeError("no checkpoints found; run train first")
+    return cps[-1]
+
+
+def _model_config(config) -> PPPConfig:
+    return PPPConfig.from_config({**config.get("model", {}),
+                                  "num_channels":
+                                  config.get("data", {}).get(
+                                      "num_channels", 1)})
+
+
+def _build_model(config, paths, step, device, use_swa=False):
+    """(model with the checkpoint's weights on ``device``, its config)."""
+    mcfg = _model_config(config)
+    state = load_checkpoint(checkpoint_path(paths["train"], step))
+    tree = state["params"]
+    if use_swa:
+        # stochastic weight averaging weights (ref predict_no_gp.py:67-72);
+        # the raw params when the checkpoint predates SWA
+        if "swa_params" in state:
+            tree = state["swa_params"]
+        else:
+            logger.warning("prediction.use_swa set but checkpoint %s has "
+                           "no swa_params; using raw params", step)
+    return build_model(mcfg, tree, device=device), mcfg
+
+
+def _test_shapes(config):
+    m = config.get("model", {})
+    pad = m.get("val_padding", "valid")
+    if pad == "valid":
+        return tuple(m.get("test_input_shape_valid", (156, 156, 156))), pad
+    return tuple(m.get("test_input_shape_same", (104, 104, 104))), pad
+
+
+def _train_shapes(config):
+    m = config.get("model", {})
+    pad = m.get("train_padding", "valid")
+    if pad == "valid":
+        return tuple(m.get("train_input_shape_valid", (140, 140, 140))), pad
+    return tuple(m.get("train_input_shape_same", (104, 104, 104))), pad
+
+
+@time_func
+def mknet(args, config, paths):
+    """Net input / output shapes, persisted as ``<net>_config.json``: the
+    input for same padding, else a zero probe of the port's model on the
+    meta device (shapes only, no compute)."""
+    import torch
+
+    mcfg = _model_config(config)
+    for name, (in_sp, pad) in (("train_net", _train_shapes(config)),
+                               ("test_net", _test_shapes(config))):
+        if pad == "valid":
+            with torch.device("meta"):
+                probe = PPPModel(mcfg)
+                h1, _ = probe(torch.zeros((1, mcfg.num_channels) + in_sp))
+            out_sp = tuple(int(s) for s in h1.shape[2:])
+        else:
+            out_sp = in_sp
+        with open(os.path.join(paths["base"], name + "_config.json"),
+                  "w") as f:
+            json.dump({"input_shape": list(in_sp),
+                       "output_shape": list(out_sp)}, f)
+        logger.info("%s: input %s output %s", name, in_sp, out_sp)
+    return paths["base"]
+
+
+def _net_config(args, config, paths, name="test_net"):
+    path = os.path.join(paths["base"], name + "_config.json")
+    if not os.path.exists(path):
+        mknet(args, config, paths)
+    with open(path) as f:
+        return json.load(f)
+
+
+def _data_dir_for_mode(args, config, mode):
+    data = config.get("data", {})
+    return {"train": args.train_data or data.get("train_data"),
+            "val": args.val_data or data.get("val_data"),
+            "test": args.test_data or data.get("test_data")}[mode]
+
+
+def _load(config, data_dir, s, clipmax=True):
+    from .train.data import load_sample
+
+    data = config.get("data", {})
+    return load_sample(
+        os.path.join(data_dir, s + "." + data.get("input_format", "zarr")),
+        data.get("raw_key", "volumes/raw"),
+        data.get("gt_key", "volumes/gt_instances"),
+        clipmax=(config.get("preprocessing", {}).get("clipmax")
+                 if clipmax else None))
+
+
+def _samples(args, config, data_dir):
+    samples = list_samples(data_dir, config.get("data", {}).get(
+        "input_format", "zarr"))
+    if args.sample:
+        samples = [s for s in samples if s == args.sample]
+    if getattr(args, "predict_single", False):
+        samples = samples[:1]
+    return samples
+
+
+def _vote_params(config, out_dir, param_overrides=None, label=True):
+    vi_cfg = dict(config.get("vote_instances", {}))
+    vi_cfg["patchshape"] = config["model"]["patchshape"]
+    vi_cfg["overlapping_inst"] = config["model"].get("overlapping_inst",
+                                                     False)
+    if label and vi_cfg.get("overlapping_inst"):
+        vi_cfg.setdefault("numinst_key", "volumes/pred_numinst")
+    if param_overrides:
+        vi_cfg.update(param_overrides)
+    return VoteInstancesParams.from_config(vi_cfg, result_folder=out_dir)
+
+
+@time_func
+def predict(args, config, paths, mode=None, checkpoint=None):
+    """Per-sample sliding-window prediction to a float16 zarr store with
+    skip-if-exists (run_ppp.py:625-679)."""
+    from .infer.predict import predict_sample_to_zarr
+
+    mode = mode or args.mode
+    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    data_dir = _data_dir_for_mode(args, config, mode)
+    out_dir = os.path.join(paths[f"{mode}_processed"], str(checkpoint))
+    os.makedirs(out_dir, exist_ok=True)
+    nc = _net_config(args, config, paths)
+    model, mcfg = _build_model(config, paths, checkpoint, args.device,
+                               use_swa=config.get("prediction", {}).get(
+                                   "use_swa", False))
+    key = "volumes/pred_code" if mcfg.train_code else "volumes/pred_affs"
+    done = []
+    for s in _samples(args, config, data_dir):
+        out_path = os.path.join(out_dir, s + ".zarr")
+        if vio.check_file(out_path, keys=[key], remove_on_error=True):
+            logger.info("skipping %s (exists)", s)
+            continue
+        predict_sample_to_zarr(
+            model, _load(config, data_dir, s).raw, mcfg,
+            nc["input_shape"], nc["output_shape"], out_path,
+            batch_size=config.get("prediction", {}).get("batch_size", 1),
+            device=args.device)
+        done.append(s)
+    return done
+
+
+@time_func
+def decode(args, config, paths, mode=None, checkpoint=None):
+    """Codes -> dense float16 affinities in each prediction store
+    (run_ppp.py:682-746)."""
+    from .infer.decode import decode_sample
+
+    mode = mode or args.mode
+    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    out_dir = os.path.join(paths[f"{mode}_processed"], str(checkpoint))
+    if not _model_config(config).train_code:
+        logger.info("direct-affinity model; decode is a no-op")
+        return []
+    model, mcfg = _build_model(config, paths, checkpoint, args.device)
+    done = []
+    for path in sorted(glob.glob(os.path.join(out_dir, "*.zarr"))):
+        if vio.check_file(path, keys=["volumes/pred_affs"]):
+            logger.info("skipping %s (decoded)", path)
+            continue
+        decode_sample(model, path, mcfg,
+                      fg_thresh=config.get("prediction", {}).get(
+                          "fg_thresh", 0.5),
+                      batch_size=config.get("model", {}).get(
+                          "decode_batch_size", 1024),
+                      device=args.device)
+        done.append(path)
+    return done
+
+
+@time_func
+def label(args, config, paths, mode=None, checkpoint=None,
+          param_overrides=None):
+    """vote_instances per prediction store (run_ppp.py:1054-1190)."""
+    mode = mode or args.mode
+    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    in_dir = os.path.join(paths[f"{mode}_processed"], str(checkpoint))
+    out_dir = os.path.join(paths[f"{mode}_instanced"], str(checkpoint))
+    os.makedirs(out_dir, exist_ok=True)
+    params = _vote_params(config, out_dir, param_overrides)
+    if params.blockwise and config["model"].get("train_code", False):
+        # ppp+dec blockwise: code windows decode on demand inside the
+        # assembly when a store has no dense pred_affs
+        from .infer.decode import CodeDecoder
+
+        model, mcfg = _build_model(config, paths, checkpoint, args.device)
+        params.code_decoder = CodeDecoder(
+            model, mcfg, batch_size=config.get("model", {}).get(
+                "decode_batch_size", 1024), device=args.device)
+    todo = []
+    for path in sorted(glob.glob(os.path.join(in_dir, "*.zarr"))):
+        s = os.path.splitext(os.path.basename(path))[0]
+        if args.sample and s != args.sample:
+            continue
+        out_path = os.path.join(out_dir, s + ".zarr")
+        if os.path.abspath(out_path) == os.path.abspath(path):
+            continue
+        if vio.check_file(out_path, keys=[params.res_key],
+                          remove_on_error=True):
+            logger.info("skipping %s (labelled)", s)
+            continue
+        todo.append((s, path))
+
+    def one(item):
+        return do_all(item[1], params, result_folder=out_dir,
+                      device=args.device)
+
+    # sample parallelism: host stages of one sample overlap the device
+    # stages of another
+    n_par = int(params.num_parallel_samples)
+    if n_par > 1 and len(todo) > 1:
+        with ThreadPoolExecutor(max_workers=n_par) as ex:
+            list(ex.map(one, todo))
+    else:
+        for item in todo:
+            one(item)
+    return [s for s, _ in todo]
+
+
+@time_func
+def infer_fused(args, config, paths, mode=None, checkpoint=None,
+                param_overrides=None):
+    """predict -> decode -> assemble on the device per sample, with no
+    store between the stages; writes the result store ``label`` writes."""
+    from .infer.fused import (decode_volume_device, lift_2d,
+                              predict_volume_device)
+
+    mode = mode or args.mode
+    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    data_dir = _data_dir_for_mode(args, config, mode)
+    out_dir = os.path.join(paths[f"{mode}_instanced"], str(checkpoint))
+    os.makedirs(out_dir, exist_ok=True)
+    nc = _net_config(args, config, paths)
+    model, mcfg = _build_model(config, paths, checkpoint, args.device,
+                               use_swa=config.get("prediction", {}).get(
+                                   "use_swa", False))
+    vparams = _vote_params(config, out_dir, param_overrides, label=False)
+    fg_thresh = config.get("prediction", {}).get("fg_thresh", 0.5)
+    done = []
+    for s in _samples(args, config, data_dir):
+        if vio.check_file(os.path.join(out_dir, s + ".zarr"),
+                          keys=[vparams.res_key], remove_on_error=True):
+            logger.info("skipping %s (labelled)", s)
+            continue
+        h1, h2 = predict_volume_device(
+            model, _load(config, data_dir, s).raw, mcfg,
+            nc["input_shape"], nc["output_shape"], device=args.device)
+        prob = h2.cpu().numpy()
+        if mcfg.overlapping_inst:
+            numinst = numinst_from_probs(prob, vparams)
+            fg = numinst > 0
+        else:
+            fg = prob[0] > fg_thresh  # the comparison load_affinities makes
+            numinst = fg.astype(np.uint8)
+        affs = (decode_volume_device(model, h1, fg, mcfg, device=args.device)
+                if mcfg.train_code else h1)
+        del h1, h2
+        affs, fg, numinst = lift_2d(affs, fg, numinst)
+        inst, fg_out = to_instance_seg(affs, fg, fg.copy(), numinst,
+                                       vparams, device=args.device)
+        del affs
+        finalize_and_write(inst, fg_out, vparams, s, out_dir)
+        done.append(s)
+    return done
+
+
+@time_func
+def evaluate(args, config, paths, mode=None, checkpoint=None,
+             res_key=None) -> dict:
+    """Instance metrics per result store + CSV summaries
+    (run_ppp.py:1446-1536)."""
+    from .evaluate import evaluate_file, summarize_metric_dict
+
+    mode = mode or args.mode
+    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    inst_dir = os.path.join(paths[f"{mode}_instanced"], str(checkpoint))
+    eval_dir = os.path.join(paths[f"{mode}_evaluated"], str(checkpoint))
+    os.makedirs(eval_dir, exist_ok=True)
+    data = config.get("data", {})
+    data_dir = _data_dir_for_mode(args, config, mode)
+    ev = config.get("evaluation", {})
+    kwargs = dict(
+        res_key=res_key or ev.get("res_key", "vote_instances"),
+        gt_key=data.get("gt_key", "volumes/gt_instances"),
+        localization_criterion=ev.get("localization_criterion", "iou"),
+        assignment_strategy=ev.get("assignment_strategy", "hungarian"),
+        remove_small_components=ev.get("remove_small_components", 0),
+        keep_gt_shape=ev.get("keep_gt_shape", False),
+        add_general_metrics=ev.get("add_general_metrics", ()),
+        add_multi_thresh_metrics=ev.get("add_multi_thresh_metrics", ()))
+    # partly-labeled split (run_ppp.py:1206-1212): with add_partly_val and
+    # a partly-annotated GT variant (complete -> partly path swap), score
+    # against it with partly=True
+    add_partly_val = bool(data.get("add_partly_val", False))
+    jobs = []
+    for path in sorted(glob.glob(os.path.join(inst_dir, "*.zarr"))):
+        s = os.path.splitext(os.path.basename(path))[0]
+        if args.sample and s != args.sample:
+            continue
+        gt_file = os.path.join(data_dir,
+                               s + "." + data.get("input_format", "zarr"))
+        partly = ("partly" in os.path.basename(os.path.normpath(data_dir))
+                  or "partly" in os.path.basename(gt_file))
+        if add_partly_val and not partly:
+            partly_gt = gt_file.replace("complete", "partly")
+            if partly_gt != gt_file and os.path.exists(partly_gt):
+                gt_file, partly = partly_gt, True
+        jobs.append((s, path, gt_file, partly))
+
+    if int(ev.get("num_workers", 1)) > 1:
+        raise NotImplementedError(
+            "[evaluation] num_workers > 1 is not ported yet (ROADMAP.md §1 "
+            "item 2): samples are evaluated in turn")
+    complete = {s: not partly for s, _p, _g, partly in jobs}
+    metric_dicts = {s: evaluate_file(p, g, partly=partly, **kwargs)
+                    for s, p, g, partly in jobs}
+    for s, res in metric_dicts.items():
+        with open(os.path.join(eval_dir, s + ".json"), "w") as f:
+            json.dump(res, f, indent=2, default=float)
+
+    # complete samples -> summary.csv, partly samples ->
+    # summary_partly.csv, all -> summary_combined.csv (run_ppp.py:1488-1529)
+    if metric_dicts and ev.get("summary"):
+        full = {s: m for s, m in metric_dicts.items() if complete[s]}
+        part = {s: m for s, m in metric_dicts.items() if not complete[s]}
+        name = "summary.csv" if full or not part else "summary_partly.csv"
+        summarize_metric_dict(full or part, ev["summary"],
+                              os.path.join(eval_dir, name))
+        if full and part:
+            summarize_metric_dict(
+                part, ev.get("summary_partly", ev["summary"]),
+                os.path.join(eval_dir, "summary_partly.csv"))
+            summarize_metric_dict(metric_dicts, ev["summary"],
+                                  os.path.join(eval_dir,
+                                               "summary_combined.csv"))
+    return metric_dicts
+
+
+@time_func
+def evaluate_prediction(args, config, paths, mode=None, checkpoint=None):
+    """Prediction-only metrics: numinst / fg / patch-IoU, with the oracle
+    IoU volume written back into the prediction store
+    (run_ppp.py:1300-1443)."""
+    from .evaluate import evaluate_fg, evaluate_numinst, evaluate_patch
+
+    mode = mode or args.mode
+    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    proc = os.path.join(paths[f"{mode}_processed"], str(checkpoint))
+    data_dir = _data_dir_for_mode(args, config, mode)
+    evp = config.get("evaluation", {}).get("prediction", {})
+    pred_cfg = config.get("prediction", {})
+    model_cfg = config.get("model", {})
+    ps = tuple(model_cfg.get("patchshape", (7, 7, 7)))
+    out = {}
+    for path in sorted(glob.glob(os.path.join(proc, "*.zarr"))):
+        s = os.path.splitext(os.path.basename(path))[0]
+        if args.sample and s != args.sample:
+            continue
+        io = vio.open_volume(path, mode="r")
+        sd = _load(config, data_dir, s, clipmax=False)
+        res: dict = {}
+        if evp.get("eval_patch_prediction"):
+            affs = io.read(key=pred_cfg.get(
+                "aff_key", "volumes/pred_affs")).astype(np.float32)
+            patch_res = evaluate_patch(affs, sd.labels, ps,
+                                       device=args.device)
+            if evp.get("store_iou", True):
+                # the oracle IoU volume, which use_score_oracle reads
+                oth = evp.get("oracle_threshold", 0.5)
+                iou = patch_res["th_" + str(round(oth, 2)).replace(
+                    ".", "_")]["iou_volume"]
+                wio = vio.IoZarr(path, mode="r+")
+                wio.create("volumes/patch_iou", iou.shape, np.float32)
+                wio.write(iou.astype(np.float32), key="volumes/patch_iou")
+                wio.close()
+            res["patch"] = {
+                k: {kk: vv for kk, vv in v.items() if kk != "iou_volume"}
+                for k, v in patch_res.items()}
+        numinst_key = pred_cfg.get("numinst_key", "volumes/pred_numinst")
+        if evp.get("eval_numinst_prediction") and \
+                model_cfg.get("overlapping_inst"):
+            ni = io.read(key=numinst_key).astype(np.float32)
+            res["numinst"] = evaluate_numinst(
+                ni, sd.labels, evp.get("max_numinst", 2))
+        if evp.get("eval_fg_prediction"):
+            try:
+                fg_prob = io.read(key=pred_cfg.get(
+                    "fg_key", "volumes/pred_fgbg")).astype(np.float32)[0]
+            except KeyError:
+                fg_prob = 1.0 - io.read(key=numinst_key).astype(
+                    np.float32)[0]
+            res["fg"] = evaluate_fg(fg_prob, sd.fg_mask)
+        io.close()
+        out[s] = res
+        with open(os.path.join(proc, s + "_pred_metrics.json"), "w") as f:
+            json.dump(res, f, indent=2, default=float)
+    return out
+
+
+@time_func
+def postprocess(args, config, paths):
+    """Instance cleanup + optional per-instance skeleton NRRD export
+    (run_ppp.py:2230-2259, util/postprocess.py:76-119)."""
+    from .utils.postprocess import postprocess_instances
+
+    checkpoint = _resolve_checkpoint(args, config, paths)
+    inst_dir = os.path.join(paths[f"{args.mode}_instanced"], str(checkpoint))
+    pp = config.get("postprocessing", {})
+    rm = pp.get("remove_small_comps",
+                config.get("vote_instances", {}).get(
+                    "remove_small_comps", 0))
+    for path in sorted(glob.glob(os.path.join(inst_dir, "*.zarr"))):
+        postprocess_instances(
+            path, res_key=config.get("evaluation", {}).get(
+                "res_key", "vote_instances"),
+            remove_small_comps=rm,
+            export_skeleton_nrrds=pp.get("export_skeleton_nrrds", False))
+    return inst_dir
+
+
+def _not_ported(task):
+    def run(args, config, paths):
+        raise NotImplementedError(
+            f"task {task!r} is not ported yet: {NOT_PORTED[task]}")
+    return run
+
+
+def main(argv=None):
+    args = get_arguments(argv)
+    resolve_device(args.device)
+    tasks = args.do or ["all"]
+    for task in tasks:
+        if task in NOT_PORTED:
+            _not_ported(task)(args, None, None)
+    cfg_files = list(args.config or [])
+    if args.run_from_exp and args.expid:
+        stored = os.path.join(args.root, args.expid, "config.toml")
+        if not os.path.exists(stored):
+            raise FileNotFoundError(f"--run_from_exp: {stored} not found")
+        cfg_files = [stored] + cfg_files
+        args.config = cfg_files
+    config = cfglib.load_config(*cfg_files)
+    for ov in args.overrides:
+        key, _, val = ov.partition("=")
+        try:
+            parsed = ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            parsed = val
+        cfglib.set_by_path(config, key.strip(), parsed)
+    if args.debug_args:
+        cfglib.set_by_path(config, "training.max_iterations", 10)
+        cfglib.set_by_path(config, "training.cache_size", 2)
+
+    paths = create_folders(args.root, args.expid)
+    setup_logging(paths["base"],
+                  config.get("general", {}).get("logging", "INFO"))
+    # provenance: the merged config and the original files
+    cfglib.dump_config(config, os.path.join(paths["base"], "config.toml"))
+    for c in args.config:
+        backup_and_copy_file(c, paths["backups"])
+
+    dispatch = {
+        "mknet": mknet, "predict": predict, "decode": decode,
+        "label": label, "infer_fused": infer_fused, "evaluate": evaluate,
+        "evaluate_prediction": evaluate_prediction,
+        "postprocess": postprocess,
+    }
+    for task in tasks:
+        logger.info("=== task %s ===", task)
+        dispatch[task](args, config, paths)
+    return paths
+
+
+if __name__ == "__main__":
+    main()

@@ -56,6 +56,45 @@ class PPPConfig:
     num_code_samples: int = 1024
     dtype: str = "float32"
 
+    @classmethod
+    def from_config(cls, cfg: dict) -> "PPPConfig":
+        """The [model] section (with [model.autoencoder] and the data's
+        ``num_channels``), read as the JAX package's ``from_config``."""
+        ae = cfg.get("autoencoder", {})
+
+        def tup(x):
+            return tuple(tuple(v) if isinstance(v, (list, tuple)) else v
+                         for v in x)
+        return cls(
+            patchshape=tuple(cfg.get("patchshape", (7, 7, 7))),
+            num_channels=cfg.get("num_channels", 1),
+            network_style=cfg.get("network_style", "unet").lower(),
+            num_fmaps=cfg.get("num_fmaps", 20),
+            fmap_inc_factors=tuple(cfg.get("fmap_inc_factors", (3, 3, 3))),
+            fmap_dec_factors=tuple(cfg.get("fmap_dec_factors", (1.2,) * 3)),
+            downsample_factors=tup(cfg.get("downsample_factors",
+                                           ((2, 2, 2),) * 3)),
+            kernel_size=cfg.get("kernel_size", 3),
+            num_repetitions=cfg.get("num_repetitions", 2),
+            padding=cfg.get("train_padding", cfg.get("padding", "valid")),
+            upsampling=cfg.get("upsampling", "trans_conv"),
+            activation=cfg.get("activation", "relu"),
+            train_code=cfg.get("train_code", False),
+            code_units=cfg.get("code_units", 176),
+            overlapping_inst=cfg.get("overlapping_inst", False),
+            max_num_inst=cfg.get("max_num_inst", 2),
+            patch_activation=cfg.get("patch_activation", "sigmoid"),
+            code_activation=ae.get("code_activation", "sigmoid"),
+            ae_code_fmaps=ae.get("code_fmaps", 22),
+            ae_num_fmaps=tuple(ae.get("num_fmaps", (64, 128))),
+            ae_downsample_factors=tup(ae.get("downsample_factors",
+                                             ((2, 2, 2), (2, 2, 2)))),
+            ae_kernel_size=ae.get("kernel_size", 3),
+            ae_num_repetitions=ae.get("num_repetitions", 2),
+            ae_upsampling=ae.get("upsampling", "resize_conv"),
+            num_code_samples=ae.get("num_code_samples", 1024),
+            dtype=cfg.get("dtype", "float32"))
+
     @property
     def patchshape_squeezed(self) -> tuple:
         return tuple(p for p in self.patchshape if p > 1)

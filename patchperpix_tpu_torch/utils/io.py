@@ -1,7 +1,8 @@
 """Zarr v2 store written with numpy, json and zlib.
 
 Counterpart of ``patchperpix_tpu/utils/io.py`` (``IoZarr``, which goes
-through tensorstore, ``open_volume``, ``check_file``) for a machine that
+through tensorstore, ``open_volume``, ``check_file``, the raw NRRD writer
+and reader) for a machine that
 has neither zarr, tensorstore nor h5py.  Arrays are C-order zarr v2
 arrays without filters.  Chunks are written zlib-compressed (or raw with
 ``compressor=None``) and read when they are zlib-, gzip-compressed or raw;
@@ -326,16 +327,66 @@ def open_volume(path: str, mode: str = "r"):
                      "and writes zarr v2 only)")
 
 
-def check_file(path: str, keys=None) -> bool:
+def check_file(path: str, keys=None, remove_on_error: bool = False) -> bool:
     """Integrity probe: the store exists, opens, and one element of each
     of the given keys reads; a readable store that lacks a key is simply
-    incomplete."""
+    incomplete.  With ``remove_on_error`` a store that fails to read is
+    deleted, so the stage that writes it runs again."""
     if not os.path.exists(path):
         return False
     try:
         io = open_volume(path, mode="r")
         for k in ([keys] if isinstance(keys, str) else (keys or [])):
-            io.read(bb=tuple(slice(0, 1) for _ in io.shape(k)), key=k)
+            try:
+                shape = io.shape(k)
+            except KeyError:
+                return False
+            io.read(bb=tuple(slice(0, 1) for _ in shape), key=k)
         return True
-    except (KeyError, ValueError, OSError, zlib.error):
+    except (ValueError, OSError, zlib.error):
+        if remove_on_error:
+            shutil.rmtree(path, ignore_errors=True)
         return False
+
+
+def write_nrrd(path: str, arr: np.ndarray):
+    """Minimal NRRD writer (raw encoding) for skeleton exports
+    (util/postprocess.py:110-119 uses the external nrrd package; the
+    format is a text header + raw little-endian data)."""
+    arr = np.ascontiguousarray(arr)
+    type_map = {np.dtype(np.uint8): "uint8", np.dtype(np.uint16): "uint16",
+                np.dtype(np.int32): "int32", np.dtype(np.uint32): "uint32",
+                np.dtype(np.int64): "int64", np.dtype(np.uint64): "uint64",
+                np.dtype(np.float32): "float",
+                np.dtype(np.float64): "double"}
+    t = type_map.get(arr.dtype)
+    if t is None:
+        if np.issubdtype(arr.dtype, np.integer):
+            # never round integer labels through float
+            arr = arr.astype(np.int64)
+            t = "int64"
+        else:
+            arr = arr.astype(np.float32)
+            t = "float"
+    # nrrd sizes are fastest-first (Fortran); a C-contiguous array's axes
+    # are slowest-first, so list them reversed
+    sizes = " ".join(str(s) for s in reversed(arr.shape))
+    header = (f"NRRD0004\ntype: {t}\ndimension: {arr.ndim}\n"
+              f"sizes: {sizes}\nencoding: raw\nendian: little\n\n")
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        f.write(arr.tobytes())
+
+
+def read_nrrd(path: str) -> np.ndarray:
+    """Reader for the minimal raw-encoded NRRD files write_nrrd emits."""
+    with open(path, "rb") as f:
+        data = f.read()
+    head, _, body = data.partition(b"\n\n")
+    fields = dict(line.split(": ", 1) for line in
+                  head.decode().splitlines()[1:] if ": " in line)
+    dt = {"uint8": np.uint8, "uint16": np.uint16, "int32": np.int32,
+          "uint32": np.uint32, "int64": np.int64, "uint64": np.uint64,
+          "float": np.float32, "double": np.float64}[fields["type"]]
+    sizes = [int(s) for s in fields["sizes"].split()]
+    return np.frombuffer(body, dtype=dt).reshape(tuple(reversed(sizes)))

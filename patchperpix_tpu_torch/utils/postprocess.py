@@ -1,10 +1,16 @@
 """Label postprocessing; counterpart of ``patchperpix_tpu/utils/postprocess.py``
-trimmed to the slice."""
+trimmed to what the port's paths run (``postprocess_fg``, ``color_labels``
+and ``crop_to_shape`` are not ported)."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 from scipy import ndimage
+
+from . import io as vio
+from .skeleton import skeletonize
 
 
 def remove_small_components(labels: np.ndarray, min_size: int) -> np.ndarray:
@@ -44,3 +50,34 @@ def clean_mask(mask: np.ndarray, min_size: int) -> np.ndarray:
     keep = np.zeros(n + 1, dtype=bool)
     keep[1:] = counts[1:] >= min_size
     return keep[lab]
+
+
+def postprocess_instances(result_path: str, res_key: str = "vote_instances",
+                          remove_small_comps: int = 600,
+                          export_skeleton_nrrds: bool = False) -> str:
+    """Clean an instance result store in place and optionally export
+    per-instance skeleton NRRDs (util/postprocess.py:76-119 semantics):
+    small components removed, relabeled, written back into the zarr store
+    as ``<res_key>_rm_<N>``; each surviving instance's skeleton saved as
+    ``<sample>_<id>.nrrd`` beside the store (z / x transposed like the
+    reference)."""
+    store = vio.IoZarr(result_path, mode="r+")
+    inst = store.read(key=res_key)
+    cleaned = relabel(remove_small_components(inst, remove_small_comps))
+    cleaned = cleaned.astype(np.uint16 if cleaned.max() < 65535
+                             else np.uint32)
+    new_key = f"{res_key}_rm_{remove_small_comps}"
+    store.create(new_key, cleaned.shape, cleaned.dtype)
+    store.write(cleaned, key=new_key)
+    store.close()
+
+    if export_skeleton_nrrds:
+        out_dir = os.path.dirname(result_path.rstrip("/"))
+        name = os.path.splitext(os.path.basename(result_path.rstrip("/")))[0]
+        flat = cleaned if cleaned.ndim == 3 else np.max(cleaned, axis=0)
+        for label in np.unique(flat[flat > 0]):
+            sk = (skeletonize(flat == label) > 0).astype(np.uint8)
+            vio.write_nrrd(
+                os.path.join(out_dir, f"{name}_{int(label)}.nrrd"),
+                np.transpose(sk, (2, 1, 0)))
+    return result_path

@@ -18,6 +18,14 @@ three changes of layout:
 ``parity/bench_ckpt_params.npz`` holds the trained crop checkpoint's tree
 flattened with '/'-joined keys (``scripts/export_torch_fixtures.py``
 writes it from the orbax checkpoint ``parity/bench_ckpt``).
+
+Checkpoints: the JAX package's CLI reads orbax checkpoints
+``<train dir>/train_net_checkpoint_<step>``, which the GPU machine cannot
+read.  The port's checkpoint is a torch file of that name holding
+``params`` and, where present, ``swa_params`` as flat trees of float32
+tensors ('/'-joined keys, as above), and ``step``:
+``write_checkpoint(load_npz(...), train_dir, step)`` turns the exported
+tree into one, and ``load_checkpoint`` reads it back.
 """
 
 from __future__ import annotations
@@ -109,3 +117,35 @@ def build_model(cfg: PPPConfig, tree: dict | None = None,
     sd = to_state_dict(load_npz() if tree is None else tree)
     model.load_state_dict(sd, strict=True)
     return model.to(device=dev, dtype=model.compute_dtype).eval()
+
+
+def checkpoint_path(train_dir: str, step: int) -> str:
+    return os.path.join(train_dir, f"train_net_checkpoint_{int(step)}")
+
+
+def write_checkpoint(tree: dict, train_dir: str, step: int,
+                     swa_tree: dict | None = None) -> str:
+    """Write a checkpoint of ``tree`` (nested or '/'-flattened, numpy or
+    tensors) and, if given, its SWA average; returns its path."""
+    def flat(t):
+        return {k: torch.as_tensor(np.asarray(v, np.float32))
+                for k, v in flatten_tree(t).items()}
+    state = {"step": int(step), "params": flat(tree)}
+    if swa_tree is not None:
+        state["swa_params"] = flat(swa_tree)
+    os.makedirs(train_dir, exist_ok=True)
+    path = checkpoint_path(train_dir, step)
+    torch.save(state, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return path
+
+
+def load_checkpoint(path: str) -> dict:
+    """{"step", "params" and, where written, "swa_params"}, the trees as
+    flat {'params/...': float32 numpy array}."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    out = {"step": int(state["step"])}
+    for key in ("params", "swa_params"):
+        if key in state:
+            out[key] = {k: v.numpy() for k, v in state[key].items()}
+    return out

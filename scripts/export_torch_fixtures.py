@@ -35,9 +35,26 @@ Writes, from the repository's own files (nothing is downloaded):
   decoded volume; the JSON names the size.  Its stitch windows are XLA
   scans of ~2 min each on the CPU, 13 at 36^3 (1788 s in all) and 26 for
   the full 50^3; ``--blockwise 36`` keeps two blocks per axis.
+- ``parity/torch_port_cli_ref_f32.npz`` / ``.json`` (``--cli``): the
+  reference CLI's ``predict`` -> ``decode`` -> ``label`` -> ``evaluate``
+  on the crop, through the JAX package's functions on the CPU in float32:
+  ``predict_sample_to_zarr`` -> ``decode_sample`` -> ``do_all``
+  (``VoteInstancesParams.from_config`` of ``configs/flylight_crop_dec.toml``'s
+  [vote_instances], engine jax: pt 0.5, mws, skeletonize_foreground,
+  remove_small_comps 60) -> ``evaluate_file`` (its [evaluation]: clDice,
+  greedy, keep_gt_shape, rm 60).  Stores the instance map, the
+  foreground, the skeleton of the foreground that ``to_instance_seg``
+  covered (``skeletonize``'s output, captured during ``do_all``), the
+  metric dict and the CPU seconds per stage.
+- ``parity/torch_port_ref_bf16.npz`` / ``.json`` (``--bf16``): bench.py's
+  pipeline (``bench.py:141-211``) with the model in bfloat16 on the CPU
+  (engine jax, pt 0.6, fc 0.5, mws, rm 400): the instance map, the
+  instance count, own-foreground voxels, AP@0.5 (IoU, Hungarian and
+  clDice, greedy) and avg_f1_cov (clDice, greedy, keep_gt_shape).
 
 Usage: JAX_PLATFORMS=cpu python scripts/export_torch_fixtures.py
-       [--params-only | --2d [H W] | --model2d | --blockwise [S]]
+       [--params-only | --2d [H W] | --model2d | --blockwise [S] | --cli
+        | --bf16]
 """
 
 import json
@@ -60,6 +77,11 @@ BLOCKWISE_NPZ = os.path.join(ROOT, "parity",
 BLOCKWISE_JSON = os.path.join(ROOT, "parity",
                               "torch_port_blockwise_ref_f32.json")
 BLOCKWISE_CHUNK = (32, 32, 32)
+CLI_NPZ = os.path.join(ROOT, "parity", "torch_port_cli_ref_f32.npz")
+CLI_JSON = os.path.join(ROOT, "parity", "torch_port_cli_ref_f32.json")
+CLI_CONFIG = os.path.join(ROOT, "configs", "flylight_crop_dec.toml")
+BF16_NPZ = os.path.join(ROOT, "parity", "torch_port_ref_bf16.npz")
+BF16_JSON = os.path.join(ROOT, "parity", "torch_port_ref_bf16.json")
 
 
 def flatten(tree, prefix=""):
@@ -419,6 +441,173 @@ def export_blockwise(size=None):
     print(json.dumps(meta))
 
 
+def export_cli():
+    """The reference CLI's inference and evaluation tasks on the crop,
+    function by function, as ``patchperpix_tpu/cli.py`` chains them."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import bench
+    from patchperpix_tpu import config as cfglib
+    from patchperpix_tpu.assembly import vote_instances as jvi
+    from patchperpix_tpu.assembly.vote_instances import (VoteInstancesParams,
+                                                         do_all)
+    from patchperpix_tpu.evaluate import evaluate_file
+    from patchperpix_tpu.infer import decode_sample, predict_sample_to_zarr
+    from patchperpix_tpu.models import PPPModel
+    from patchperpix_tpu.train.data import load_sample
+    from patchperpix_tpu.utils import io as vio
+
+    config = cfglib.load_config(CLI_CONFIG)
+    data, ev = config["data"], config["evaluation"]
+    model, cfg = bench.crop_model()
+    params = bench.load_trained_params(model, cfg)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = PPPModel(cfg)
+    sample = os.path.splitext(os.path.basename(bench.FIXTURE))[0]
+    sd = load_sample(bench.FIXTURE, data["raw_key"], data["gt_key"],
+                     clipmax=config["preprocessing"]["clipmax"])
+    win = tuple(config["model"]["test_input_shape_same"])
+    work = tempfile.mkdtemp(prefix="ppp_cli_ref_")
+    seconds = {}
+    try:
+        pred = os.path.join(work, "processed", sample + ".zarr")
+        os.makedirs(os.path.dirname(pred))
+        t0 = time.perf_counter()
+        predict_sample_to_zarr(model, params, sd.raw, cfg, win, win, pred,
+                               batch_size=config["prediction"]["batch_size"])
+        seconds["predict"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decode_sample(model, params, pred, cfg,
+                      fg_thresh=config["prediction"]["fg_thresh"])
+        seconds["decode"] = time.perf_counter() - t0
+
+        # label, as cli.label composes the [vote_instances] section
+        vi_cfg = dict(config["vote_instances"])
+        vi_cfg["patchshape"] = config["model"]["patchshape"]
+        vi_cfg["overlapping_inst"] = config["model"]["overlapping_inst"]
+        vi_cfg.setdefault("numinst_key", "volumes/pred_numinst")
+        inst_dir = os.path.join(work, "instanced")
+        vp = VoteInstancesParams.from_config(vi_cfg, result_folder=inst_dir)
+        skels = []
+        orig = jvi.skeletonize
+
+        def capture(volume, *a, **kw):
+            out = orig(volume, *a, **kw)
+            skels.append(np.asarray(out) > 0)
+            return out
+
+        jvi.skeletonize = capture
+        try:
+            t0 = time.perf_counter()
+            res_file = do_all(pred, vp, result_folder=inst_dir)
+            seconds["label"] = time.perf_counter() - t0
+        finally:
+            jvi.skeletonize = orig
+        assert len(skels) == 1, f"{len(skels)} skeletonize calls in label"
+
+        t0 = time.perf_counter()
+        metrics = evaluate_file(
+            res_file, bench.FIXTURE, res_key=ev["res_key"],
+            gt_key=data["gt_key"],
+            localization_criterion=ev["localization_criterion"],
+            assignment_strategy=ev["assignment_strategy"],
+            remove_small_components=ev["remove_small_components"],
+            keep_gt_shape=ev["keep_gt_shape"],
+            add_general_metrics=ev["add_general_metrics"],
+            add_multi_thresh_metrics=ev.get("add_multi_thresh_metrics", ()))
+        seconds["evaluate"] = time.perf_counter() - t0
+        rio = vio.open_volume(res_file, mode="r")
+        inst = np.asarray(rio.read(key=vp.res_key))
+        fg = np.asarray(rio.read(key="vote_foreground")) > 0
+        rio.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    np.savez_compressed(
+        CLI_NPZ, inst=inst.astype(np.uint16), fg=np.packbits(fg),
+        skel=np.packbits(skels[0]), shape=np.array(fg.shape, np.int64))
+    meta = {
+        "source": "scripts/export_torch_fixtures.py --cli: JAX package, "
+                  "CPU, float32, predict_sample_to_zarr -> decode_sample -> "
+                  "do_all (from_config of configs/flylight_crop_dec.toml "
+                  "[vote_instances], engine jax) -> evaluate_file (its "
+                  "[evaluation]) on the FlyLight crop",
+        "cpu_seconds": {k: round(v, 1) for k, v in seconds.items()},
+        "fg_vox": int(fg.sum()), "skel_vox": int(skels[0].sum()),
+        "n_instances": int(len(np.unique(inst[inst > 0]))),
+        "own_fg_vox": int((inst > 0).sum()),
+        "avg_f1_cov_score": metrics["general"]["avg_f1_cov_score"],
+        "AP_0.5_cldice_greedy": metrics["confusion_matrix"]["th_0_5"]["AP"],
+        "metrics": metrics}
+    with open(CLI_JSON, "w") as f:
+        json.dump(meta, f, indent=1, default=float)
+    print(json.dumps({k: v for k, v in meta.items() if k != "metrics"}))
+
+
+def export_bf16():
+    """bench.py's self-consistent pipeline with the bfloat16 model, one
+    pass on the CPU."""
+    import numpy as np
+
+    import bench
+    from patchperpix_tpu.assembly import VoteInstancesParams, to_instance_seg
+    from patchperpix_tpu.assembly.vote_instances import numinst_from_probs
+    from patchperpix_tpu.evaluate import evaluate_labels
+    from patchperpix_tpu.infer.fused import (decode_volume_device,
+                                             predict_volume_device)
+    from patchperpix_tpu.utils import io as vio
+    from patchperpix_tpu.utils.postprocess import remove_small_components
+
+    model, cfg = bench.crop_model()
+    assert cfg.dtype == "bfloat16"
+    params = bench.load_trained_params(model, cfg)
+    raw = bench.load_raw_clip()
+    gt = vio.IoZarr(bench.FIXTURE).read(
+        key="volumes/gt_instances").astype(np.int32)
+    t0 = time.perf_counter()
+    win = (52, 52, 52)
+    code, prob = predict_volume_device(model, params, raw, cfg, win, win)
+    vp = VoteInstancesParams(
+        patchshape=bench.PS, engine="jax", patch_threshold=0.6,
+        fc_threshold=0.5, overlapping_inst=True, mws=True,
+        select_patches_for_sparse_data=True, skeletonize_foreground=False,
+        numinst_threshs=(0.9, 0.1))
+    numinst = numinst_from_probs(np.asarray(prob, np.float32), vp)
+    fg = numinst > 0
+    dec = decode_volume_device(model, params, code, fg, cfg)
+    inst, _ = to_instance_seg(dec, fg, fg.copy(), numinst, vp)
+    seconds = time.perf_counter() - t0
+    inst = np.asarray(inst).copy()
+    inst[~fg] = 0
+    inst = remove_small_components(inst, 400)
+    res = evaluate_labels(inst, gt, localization_criterion="iou",
+                          assignment_strategy="hungarian",
+                          keep_gt_shape=True)
+    res_cl = evaluate_labels(inst, gt, localization_criterion="cldice",
+                             assignment_strategy="greedy",
+                             keep_gt_shape=True)
+    np.savez_compressed(BF16_NPZ, inst=inst.astype(np.uint16),
+                        fg=np.packbits(fg),
+                        shape=np.array(fg.shape, np.int64))
+    meta = {
+        "source": "scripts/export_torch_fixtures.py --bf16: JAX package, "
+                  "CPU, bfloat16 model, engine jax, bench.py:141-211 "
+                  "pipeline (pt 0.6, fc 0.5, mws, rm 400)",
+        "cpu_seconds": round(seconds, 1),
+        "fg_vox": int(fg.sum()),
+        "n_instances": int(len(np.unique(inst[inst > 0]))),
+        "own_fg_vox": int((inst > 0).sum()),
+        "AP_0.5_iou_hungarian": res["confusion_matrix"]["th_0_5"]["AP"],
+        "avg_f1_cov_score": res_cl["general"]["avg_f1_cov_score"],
+        "AP_0.5_cldice_greedy": res_cl["confusion_matrix"]["th_0_5"]["AP"]}
+    with open(BF16_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+    print(json.dumps(meta))
+
+
 def main():
     import jax
 
@@ -433,6 +622,12 @@ def main():
         return
     if "--model2d" in sys.argv:
         export_model_2d()
+        return
+    if "--cli" in sys.argv:
+        export_cli()
+        return
+    if "--bf16" in sys.argv:
+        export_bf16()
         return
     if "--blockwise" in sys.argv:
         rest = [int(a) for a in sys.argv[sys.argv.index("--blockwise") + 1:]

@@ -178,6 +178,32 @@ def test_whole_slice_matches_jax(jax_slice):
     assert len(inter["pairs"]) == len(inter["weights"]) > 0
 
 
+def test_skeletonize_foreground_matches_jax(jax_slice, monkeypatch):
+    """to_instance_seg with skeletonize_foreground: the port (plain
+    kernels on the CPU) against the JAX package on the same decoded
+    affinities, one skeleton of the mask; not when blockwise."""
+    from patchperpix_tpu_torch.assembly import vote_instances as TV
+
+    j = jax_slice
+    vi = dict(BENCH_VI, skeletonize_foreground=True)
+    want, _ = jax_assemble(j["dec"], j["fg"], j["fg"].copy(), j["numinst"],
+                           JParams(engine="jax", **vi))
+    calls = []
+    real = TV.skeletonize
+    monkeypatch.setattr(TV, "skeletonize",
+                        lambda v: calls.append(v.shape) or real(v))
+    timings = {}
+    got, _ = to_instance_seg(j["dec"], j["fg"], j["fg"].copy(), j["numinst"],
+                             VoteInstancesParams(**vi), device="cpu",
+                             timings=timings)
+    assert calls == [j["fg"].shape] and timings["skeletonize"] >= 0
+    assert len(np.unique(want)) >= 3
+    assert same_up_to_relabelling(got, want)
+    to_instance_seg(j["dec"], j["fg"], j["fg"].copy(), j["numinst"],
+                    VoteInstancesParams(**vi, blockwise=True), device="cpu")
+    assert len(calls) == 1
+
+
 def test_to_instance_seg_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
@@ -200,6 +226,7 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
+import os
 import numpy as np, torch
 torch.set_num_threads(1)
 import patchperpix_tpu_torch
@@ -284,6 +311,33 @@ inst4, _ = blockwise_vote_instances(affs3, fgs, fgs.astype(np.uint8),
                                     VoteInstancesParams(patchshape=(3, 3, 3)),
                                     (12, 12, 12), device="cpu")
 assert inst4.max() > 0
+# the CLI slice: skeletons, evaluation, config, samples, checkpoints, CLI
+from patchperpix_tpu_torch import cli, config
+from patchperpix_tpu_torch.evaluate import evaluate_labels, evaluate_patch
+from patchperpix_tpu_torch.ops.affinities import gt_affinities_dense
+from patchperpix_tpu_torch.train.data import load_sample
+from patchperpix_tpu_torch.utils.skeleton import skeletonize
+from patchperpix_tpu_torch.weights import load_checkpoint, write_checkpoint
+assert 0 < skeletonize(fgs).sum() < fgs.sum()
+res = evaluate_labels(inst4, labels3, localization_criterion="cldice",
+                      assignment_strategy="greedy")
+assert 0 < res["general"]["avg_f1_cov_score"] <= 1
+assert "th_0_5" in evaluate_patch(affs3, labels3[None], (3, 3, 3),
+                                  device="cpu")
+assert gt_affinities_dense(labels3[None, None], (3, 3, 3),
+                           device="cpu").shape == (1, 27, 22, 22, 22)
+fl = config.load_config("configs/flylight_crop_dec.toml")
+vpf = VoteInstancesParams.from_config(fl["vote_instances"])
+assert vpf.skeletonize_foreground and vpf.remove_small_comps == 60
+sd = load_sample("data/JRC_SS05008-20160318_24_B2_crop.zarr",
+                 "volumes/raw", "volumes/gt_instances", clipmax=1500)
+assert sd.raw.shape == (3, 50, 50, 50) and sd.raw.max() <= 1
+tmp = tempfile.mkdtemp()
+ck = write_checkpoint({"params": {"a": {"kernel": np.ones(2)}}}, tmp, 7)
+assert load_checkpoint(ck)["params"]["params/a/kernel"].shape == (2,)
+paths = cli.main(["-c", "configs/flylight_crop_dec.toml", "--root", tmp,
+                  "-d", "mknet", "--device", "cpu"])
+assert os.path.exists(os.path.join(paths["base"], "test_net_config.json"))
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "flax", "patchperpix_tpu")]
 assert not bad, bad

@@ -116,6 +116,46 @@ def test_blockwise_border_foreground_matches_jax():
     np.testing.assert_array_equal(relabel(got), jax_relabel(want))
 
 
+def _count_skeletonize(monkeypatch):
+    """Shapes of the volumes the port skeletonizes, wherever it calls."""
+    from patchperpix_tpu_torch.assembly import vote_instances as TV
+
+    shapes = []
+    real = blockwise.skeletonize
+
+    def counted(volume, *a, **kw):
+        shapes.append(np.shape(volume))
+        return real(volume, *a, **kw)
+
+    monkeypatch.setattr(blockwise, "skeletonize", counted)
+    monkeypatch.setattr(TV, "skeletonize", counted)
+    return shapes
+
+
+@pytest.mark.parametrize("store", [False, True])
+def test_blockwise_skeletonize_foreground_once_per_sample(
+        store, monkeypatch, tmp_path):
+    """skeletonize_foreground thins the whole sample's mask once, never a
+    block or a stitch window; the map equals the JAX package's."""
+    affs, fg = _case_3d()
+    kw = dict(KW, skeletonize_foreground=True)
+    shapes = _count_skeletonize(monkeypatch)
+    if store:
+        path = str(tmp_path / "sample.zarr")
+        _write_jax_store(path, affs)
+        want, _ = JB.blockwise_vote_instances_zarr(
+            path, JParams(engine="jax", **kw), chunksize=(14, 14, 14))
+        got, _ = blockwise.blockwise_vote_instances_zarr(
+            path, VoteInstancesParams(**kw), chunksize=(14, 14, 14),
+            device="cpu")
+    else:
+        got, want = _both(affs, fg, (14, 14, 14),
+                          skeletonize_foreground=True)
+    assert shapes == [fg.shape]
+    assert len(np.unique(want[want > 0])) >= 3
+    np.testing.assert_array_equal(relabel(got), jax_relabel(np.asarray(want)))
+
+
 def test_blockwise_tensor_input_and_parallel_blocks_equal_serial():
     affs, fg = _case_3d()
     p = VoteInstancesParams(**KW)

@@ -9,8 +9,12 @@ on the GPU machine, which has none:
 Tolerances: consensus 1e-4 absolute and relative, rank 1e-3 absolute /
 1e-4 relative (the JAX package's own kernel tolerances, 3D and 2D); a bf16
 half within one rounding step of the stored type (2^-7 relative); the
-row-window probe 1e-4 absolute.
+row-window probe 1e-4 absolute.  The CLI on the FlyLight crop holds its
+map against chip_smoke.py's f32 main path under chip_smoke.py's phase 4
+limits (the CLI stages the heads and affinities through float16 stores).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -343,3 +347,77 @@ def test_probe_kernel_matches_plain(dev, mode, n_slab, W):
     assert PR.PROBE.launches == n0 + 1
     assert tuple(got.shape) == (8 - n_slab + 1, PR.V, W)
     assert float((got - PR.probe_window_plain(x, n_slab)).abs().max()) < 1e-4
+
+
+# -- the CLI on the card -----------------------------------------------------
+
+@pytest.fixture(scope="module")
+def crop_cli(dev, tmp_path_factory):
+    """The port's CLI on the FlyLight crop on the card, f32, at
+    chip_smoke.run_path's assembly settings (pt 0.6, no skeleton, rm 400):
+    ``predict decode label evaluate`` and, in a second experiment,
+    ``infer_fused``; returns the experiments' paths."""
+    import chip_smoke
+    from patchperpix_tpu_torch import cli, weights
+
+    root = tmp_path_factory.mktemp("cli")
+    data = root / "data"
+    data.mkdir()
+    os.symlink(chip_smoke.FIXTURE,
+               data / os.path.basename(chip_smoke.FIXTURE))
+    over = root / "over.toml"
+    over.write_text(f'[model]\ndtype = "float32"\n[data]\n'
+                    f'test_data = "{data}"\n')
+    argv = ["-c", chip_smoke.CLI_CONFIG, "-c", str(over), "--root",
+            str(root), "--checkpoint", "1",
+            "--set", "vote_instances.patch_threshold=0.6",
+            "--set", "vote_instances.skeletonize_foreground=False",
+            "--set", "vote_instances.remove_small_comps=400"]
+    for expid in ("label", "fused"):
+        weights.write_checkpoint(weights.load_npz(),
+                                 str(root / expid / "train"), 1)
+    n1, n2 = K.CONSENSUS.launches, K.RANK.launches
+    label = cli.main(argv + ["-id", "label", "-d", "predict", "decode",
+                             "label", "evaluate"])
+    launches = (K.CONSENSUS.launches - n1, K.RANK.launches - n2)
+    fused = cli.main(argv + ["-id", "fused", "-d", "infer_fused"])
+    return label, fused, launches
+
+
+def _result(paths):
+    import chip_smoke
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    sample = os.path.splitext(os.path.basename(chip_smoke.FIXTURE))[0]
+    return IoZarr(os.path.join(paths["test_instanced"], "1",
+                               sample + ".zarr"))
+
+
+def test_cli_on_the_card_agrees_with_run_path(dev, crop_cli):
+    """The CLI's staged path (f16 stores between the tasks) against
+    chip_smoke.run_path's device-resident f32 run, under chip_smoke's
+    phase 4 limits; K1 and K2 run inside the CLI."""
+    import chip_smoke
+    from patchperpix_tpu_torch.utils.io import IoZarr
+    from patchperpix_tpu_torch.weights import build_model
+
+    label, _, launches = crop_cli
+    assert launches[0] >= 1 and launches[1] >= 1
+    res = _result(label)
+    inst = res.read(key="vote_instances")
+    cfg = chip_smoke.crop_config("float32")
+    raw = np.clip(IoZarr(chip_smoke.FIXTURE).read(key="volumes/raw")
+                  .astype(np.float32), 0, 1500.0) / 1500.0
+    run = chip_smoke.run_path(build_model(cfg, device=dev), cfg, raw, dev)
+    fg = res.read(key="vote_foreground") > 0
+    assert np.mean(fg == run["fg"]) >= 0.999
+    assert chip_smoke.n_instances(inst) == chip_smoke.n_instances(
+        run["inst"])
+    assert chip_smoke.match_agreement(inst, run["inst"])[0] >= 0.99
+
+
+def test_infer_fused_writes_the_label_keys(dev, crop_cli):
+    label, fused, _ = crop_cli
+    keys = [_result(p).list_keys() for p in (label, fused)]
+    assert keys[0] == keys[1] and "vote_instances" in keys[0]
+    assert _result(fused).read(key="vote_instances").max() > 0
