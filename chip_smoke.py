@@ -98,7 +98,35 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    information beside the TPU's and the JAX bf16 CPU figures (those are
    bench.py's pipeline).  Stage seconds per task, the skeleton seconds in
    label and evaluate, and the phase's wall;
-12. the kernels line, then the contract's last line.
+12. train: (a) one float32 train step (TF32 off) at full width on a fixed
+   batch (three 40^3 crops of the fixture at stored centres, no
+   augmentation), the code branch (configs/flylight_crop_dec.toml's model,
+   the trained parameters, the JAX step's own code corners) and the dense
+   branch (configs/flylight_crop.toml's model, 343-channel head, seeded
+   weights), against the JAX package's CPU step in
+   parity/torch_port_train_ref_f32.npz: loss parts within 1e-5 relative,
+   each gradient leaf's norm and 256 seeded entries within 1e-4 relative
+   L2, or within twice the JAX f32 step's own error against the JAX
+   package's float64 step where that is larger (stored beside it), capped
+   at 1e-4 / 5e-3; (b) four batches of the device
+   sampler (the config's crops and augmentations) against the host
+   sampler's numpy on the same decisions (raw 1e-6, labels equal), then
+   train_until with the device sampler, f32, 200 steps, constant lr 1e-3,
+   from init_tree, on the crop model cut in width to TRAIN_RUN_WIDTHS: the
+   mean loss of the last 50 steps within the band of two JAX runs of the
+   same (seeds 0 and 1), widened below by the larger of 15 % and their
+   spread, above by the larger of 5 % and their spread; the median step ms
+   in f32 and bf16 with crops/s and peak memory; (c) ``-d all`` through
+   the port's CLI on the crop as users run it (bf16, Adam, warmup-cosine,
+   device sampler), the override cutting max_iterations to 400,
+   checkpoints to 200 and the warmup to 100 steps, from the trained
+   parameters seeded as train_net_checkpoint_0 (no optimizer state): log
+   rows at steps 1, 100, ... 400 with finite losses, checkpoints [0, 200,
+   400] all scored in results.json with a best, the final evaluate's
+   avg_f1_cov, K1 and K2 launched 4 times each (3 checkpoints + the final
+   label), and ``train`` resumed to 600 with the Adam state read back
+   (update count 400, then 600); seconds per task and per checkpoint;
+13. the kernels line, then the contract's last line.
 
 Any failure raises and exits non-zero before the last line; with no CUDA
 device, or without the repository beside it, it exits 2.
@@ -174,10 +202,110 @@ BBBC010_MODEL = dict(
     num_code_samples=1024, dtype="float32")
 MODEL2D_WINDOW = (512, 512)
 MODEL2D_SEED = 0
+# the train phase: the JAX package's f32 CPU train step and 200-step runs
+# (scripts/export_torch_fixtures.py --train); the dense branch is
+# configs/flylight_crop.toml's model with weights.seeded_tree weights
+TRAIN_REF_NPZ = os.path.join(REPO, "parity", "torch_port_train_ref_f32.npz")
+TRAIN_REF_JSON = os.path.join(REPO, "parity",
+                              "torch_port_train_ref_f32.json")
+TRAIN_DENSE_CONFIG = os.path.join(REPO, "configs", "flylight_crop.toml")
+TRAIN_SEED = 0          # batch centres, dense weights, gradient samples
+TRAIN_CORNER_KEY = 7    # the JAX step's PRNGKey (its code corners)
+TRAIN_GRAD_SAMPLES = 256
+# gate (a) widens a limit to twice the JAX f32 step's own error against
+# the JAX float64 step (on this batch up to 2.5e-3 on the trained code
+# model's leaves, 2e-5 on the dense loss_patch), never past these caps
+TRAIN_GRAD_CAP = 5e-3
+TRAIN_LOSS_CAP = 1e-4
+TRAIN_RUN_STEPS = 200   # gate (b): constant lr 1e-3, f32, device sampler
+TRAIN_RUN_TAIL = 50     # mean loss over the last 50 steps
+# gate (b)'s model: the crop model cut in width only (XLA on the CPU takes
+# ~150 s per full-width step, so the JAX reference runs could not be made
+# at full width); crops, batch, code, samples and sampler stay the config's
+TRAIN_RUN_WIDTHS = {"num_fmaps": 4, "ae_num_fmaps": (8, 16)}
+# the band's upper edge: the JAX runs' higher tail plus the larger of 5 %
+# and their spread (a sampler flipping or transposing raw and not labels
+# reads 1.050 / 0.983 in the CPU rehearsal, the port 0.809, JAX 0.860 /
+# 0.874; 15 % above would let the transpose through); the lower edge
+# keeps 15 %
+TRAIN_RUN_ABOVE, TRAIN_RUN_BELOW = 0.05, 0.15
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def train_model_config(mod, path, **widths):
+    """The [model] of the crop config at ``path`` as ``mod.PPPConfig`` (the
+    JAX package's or the port's), in float32, with ``widths`` replaced."""
+    import dataclasses
+    import tomllib
+
+    with open(path, "rb") as f:
+        cfg = tomllib.load(f)
+    return dataclasses.replace(mod.PPPConfig.from_config(
+        {**cfg["model"], "num_channels": cfg["data"]["num_channels"],
+         "dtype": "float32"}), **widths)
+
+
+def train_batch(data_mod, centres=None):
+    """The fixed batch of the train phase through ``data_mod`` (either
+    package's train/data.py, numpy in both): the crop loaded as the CLI
+    loads it (clipmax 1500), then per centre the 40^3 raw crop and the
+    46^3 label crop (7^3 patch context) as CropSampler crops them, no
+    augmentation.  Without ``centres``, three foreground voxels drawn with
+    TRAIN_SEED.  Returns (raw (3, 3, 40^3) f32, labels (3, 3, 46^3) int32,
+    centres, the sample)."""
+    import numpy as np
+
+    s = data_mod.load_sample(FIXTURE, "volumes/raw", "volumes/gt_instances",
+                             clipmax=1500)
+    if centres is None:
+        pts = np.argwhere(s.fg_mask)
+        centres = pts[np.random.RandomState(TRAIN_SEED).choice(
+            len(pts), 3, replace=False)]
+    crop = data_mod.CropSampler([s], data_mod.SamplerConfig(
+        input_shape=(40,) * 3, output_shape=(40,) * 3, patchshape=(7,) * 3))
+    raw = np.stack([crop._crop_at(s.raw, c, np.array((40,) * 3))
+                    for c in centres])
+    labels = np.stack([crop._crop_at(s.labels, c, np.array((46,) * 3))
+                       for c in centres])
+    return raw.astype(np.float32), labels.astype(np.int32), \
+        np.asarray(centres, np.int64), s
+
+
+def train_sampler_config(data_mod):
+    """configs/flylight_crop_dec.toml's sampler: 40^3 crops (same
+    padding), 7^3 patches, batch 3, pools 0.8 / 0.15 / 0.05, the default
+    augmentations (mirror, transpose, intensity)."""
+    return data_mod.SamplerConfig(
+        input_shape=(40,) * 3, output_shape=(40,) * 3, patchshape=(7,) * 3,
+        batch_size=3, probability_fg=0.8, probability_overlap=0.15,
+        probability_random=0.05)
+
+
+def leaf_rel_err(name, g, norm, samples):
+    """How far the flat gradient leaf ``g`` is from a stored one, given by
+    its L2 norm and its seeded entries: the larger of the relative norm
+    difference and the relative L2 error on those entries."""
+    import numpy as np
+
+    g = np.asarray(g, np.float64).reshape(-1)
+    w = np.asarray(samples, np.float64)
+    return max(abs(np.linalg.norm(g) - norm) / max(norm, 1e-30),
+               np.linalg.norm(g[grad_sample_index(name, g.size)] - w)
+               / max(np.linalg.norm(w), 1e-30))
+
+
+def grad_sample_index(name, size):
+    """The seeded flat entries of one gradient leaf kept in the fixture."""
+    import zlib
+
+    import numpy as np
+
+    rng = np.random.default_rng([TRAIN_SEED, zlib.crc32(name.encode())])
+    return np.sort(rng.choice(size, min(size, TRAIN_GRAD_SAMPLES),
+                              replace=False))
 
 
 def path2d_inputs(setting, crop=None):
@@ -1378,6 +1506,412 @@ def run_cli(dev, kernels):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def train_step_times(cfg, ds, dev, steps=40, warm=20):
+    """Median step ms after ``warm`` steps (a synchronise after each), with
+    crops/s and the peak memory, of the trained crop model fine-tuning on
+    device batches (Adam, lr 1e-3)."""
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch import weights
+    from patchperpix_tpu_torch.models import PPPModel
+    from patchperpix_tpu_torch.train.trainer import (TrainConfig,
+                                                     make_optimizer,
+                                                     make_train_step)
+
+    model = PPPModel(cfg)
+    model.load_state_dict(weights.to_state_dict(weights.load_npz()))
+    model.to(dev).train()
+    tcfg = TrainConfig(lr=1e-3)
+    opt, sched = make_optimizer(tcfg, model.parameters())
+    step, _ = make_train_step(model, cfg, tcfg, opt, sched)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        raw, labels, _ = ds.sample_batch(gen)
+        step(raw, labels, gen)
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    ms = float(np.median(times[warm:])) * 1e3
+    return {"step_ms": ms, "crops_per_s": ds.cfg.batch_size / ms * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def check_train_step(dev, ref, meta, raw, labels):
+    """Gate (a): one f32 step (TF32 off) of both branches at full width
+    against the JAX package's: loss parts within 1e-5 relative, each
+    gradient leaf's norm and seeded entries within 1e-4 relative L2, or
+    within twice the JAX f32 step's own error against the JAX package's
+    float64 step of the same batch where that is larger, up to
+    TRAIN_LOSS_CAP / TRAIN_GRAD_CAP (stored in the fixture: on the trained
+    model's cancelling leaves XLA's f32 sums are off by up to 2.5e-3, on
+    the dense loss_patch, a mean of 66M terms, by 2e-5)."""
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch import models, weights
+    from patchperpix_tpu_torch.models.init import flax_leaves
+    from patchperpix_tpu_torch.train.trainer import (TrainConfig,
+                                                     compute_losses)
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    raw_t = torch.from_numpy(raw).to(dev)
+    labels_t = torch.from_numpy(labels).to(dev)
+    res = {}
+    for branch, path in (("code", CLI_CONFIG), ("dense", TRAIN_DENSE_CONFIG)):
+        cfg = train_model_config(models, path)
+        tree = (weights.load_npz() if branch == "code" else
+                weights.seeded_tree(flax_leaves(cfg), TRAIN_SEED))
+        model = models.PPPModel(cfg)
+        model.load_state_dict(weights.to_state_dict(tree), strict=True)
+        model.to(dev).train()
+        corners = (torch.from_numpy(ref["corners"].astype(np.int64))
+                   if branch == "code" else None)
+        with exact_f32():
+            loss, mets = compute_losses(model, cfg, TrainConfig(), raw_t,
+                                        labels_t, corners=corners)
+            loss.backward()
+        grads = weights.from_state_dict(
+            {n: p.grad for n, p in model.named_parameters()})
+        want = meta["branches"][branch]
+        loss_err = {k: abs(float(mets[k]) - want["metrics"][k])
+                    / abs(want["metrics"][k])
+                    for k in ("loss", "loss_patch", "loss_fg")}
+        # each quantity's limit: 1e-5 / 1e-4, or twice the JAX f32 step's
+        # own error against the JAX float64 step where that is larger, up
+        # to the caps
+        f64 = want["float64_err"]
+        loss_lim = {k: min(TRAIN_LOSS_CAP, max(1e-5, 2 * f64["loss"][k]))
+                    for k in loss_err}
+        grad_err, grad_lim, exact_err = {}, {}, {}
+        for name, g in grads.items():
+            g = g.detach().double().cpu().numpy()
+            grad_err[name] = leaf_rel_err(
+                name, g, want["grad_norms"][name], ref[f"{branch}/{name}"])
+            grad_lim[name] = min(TRAIN_GRAD_CAP,
+                                 max(1e-4, 2 * f64["grads"][name]))
+            exact_err[name] = leaf_rel_err(
+                name, g, want["float64_grad_norms"][name],
+                ref[f"f64/{branch}/{name}"])
+        worst = max(grad_err, key=lambda k: grad_err[k] / grad_lim[k])
+        res[branch] = {"loss": float(mets["loss"]),
+                       "ref_loss": want["metrics"]["loss"],
+                       "loss_rel_err": loss_err, "loss_limit": loss_lim,
+                       "grad_worst_leaf": worst,
+                       "grad_worst_rel_err": grad_err[worst],
+                       "grad_worst_limit": grad_lim[worst],
+                       "grad_max_rel_err": max(grad_err.values()),
+                       "n_leaves": len(grad_err),
+                       # the leaves whose limit is widened (fixed by the
+                       # fixture), and those past 1e-4 against JAX's f32
+                       "n_widened": sum(v > 1e-4 for v in grad_lim.values()),
+                       "over_1e-4": {k.removeprefix("params/"): v
+                                     for k, v in grad_err.items()
+                                     if v > 1e-4},
+                       # for information: both f32 steps against the
+                       # exact (float64) one, worst leaf
+                       "port_vs_f64_max": max(exact_err.values()),
+                       "jax_f32_vs_f64_max": max(f64["grads"].values())}
+        del model, grads, loss
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    emit({"phase": "train_step_vs_jax_f32", **res})
+    for branch, r in res.items():
+        if any(r["loss_rel_err"][k] > r["loss_limit"][k]
+               for k in r["loss_rel_err"]):
+            raise AssertionError(f"{branch} loss parts vs JAX: "
+                                 f"{r['loss_rel_err']}")
+        if r["grad_worst_rel_err"] > r["grad_worst_limit"]:
+            raise AssertionError(f"{branch} gradient {r['grad_worst_leaf']}"
+                                 f" vs JAX: {r['grad_worst_rel_err']}")
+
+
+def check_sampler_alignment(ds, samples, data_mod, draws=4):
+    """Gate (b), first part: batches that the device sampler ``ds`` (over
+    ``samples``) draws and applies on its device against the host
+    sampler's own crop, flip, transpose, permute, hue and intensity
+    (``data_mod.CropSampler``, numpy) on the same decisions: raw within
+    1e-6, labels equal.  A sampler whose raw and labels part ways fails
+    here at once.  Returns how often each augmentation was applied."""
+    import numpy as np
+    import torch
+
+    host = data_mod.CropSampler(samples, ds.cfg)
+    big = ds.big
+    g = torch.Generator(device=ds.device)
+    worst = 0.0
+    seen = {"flip": 0, "transpose": 0, "permute": 0, "hue": 0}
+    for k in range(draws):
+        g.manual_seed(TRAIN_SEED + k)
+        d = ds.draw(g)
+        raw, labels, _ = ds.apply(d)
+        raw, labels = raw.cpu().numpy(), labels.cpu().numpy()
+        d = {key: v.cpu() for key, v in d.items()}
+        for b in range(raw.shape[0]):
+            s = samples[int(d["si"][b])]
+            c = d["center"][b].numpy()
+            r = host._crop_at(s.raw, c, big)
+            lab = host._crop_at(np.pad(s.labels, [(0, labels.shape[1]
+                                                   - s.labels.shape[0])]
+                                       + [(0, 0)] * ds.ndim), c, big)
+            for dim in range(ds.ndim):
+                if d["flip"][b, dim]:
+                    r, lab = np.flip(r, 1 + dim), np.flip(lab, 1 + dim)
+                    seen["flip"] += 1
+            if d["transpose"][b] and ds.pairs:
+                i, j = ds.pairs[int(d["pair"][b])]
+                order = list(range(1 + ds.ndim))
+                order[i - 1], order[j - 1] = order[j - 1], order[i - 1]
+                r, lab = np.transpose(r, order), np.transpose(lab, order)
+                seen["transpose"] += 1
+            if d["permute"][b] and r.shape[0] >= 2:
+                r = r[d["perm"][b].numpy()]
+                seen["permute"] += 1
+            if d["hue"][b] and r.shape[0] >= 3:
+                amt = float(d["hue_amount"][b])
+                r = r.copy()
+                r[:3] = np.clip((1 - amt) * r[:3]
+                                + amt * np.roll(r[:3], 1, axis=0), 0, 1)
+                seen["hue"] += 1
+            r = np.clip(r * float(d["scale"][b]) + float(d["shift"][b]),
+                        0, 1)
+            r = host._crop_at(np.ascontiguousarray(r), big // 2,
+                              np.array(ds.cfg.input_shape))
+            lab = host._crop_at(np.ascontiguousarray(lab), big // 2,
+                                np.array(host.label_shape))
+            worst = max(worst, float(np.abs(raw[b] - r).max()))
+            if not np.array_equal(labels[b], lab):
+                raise AssertionError(f"device sampler labels of item {b}, "
+                                     f"draw {k}, differ from the host's")
+    emit({"phase": "train_sampler_vs_host", "items": draws * raw.shape[0],
+          "raw_max_abs_err": worst, **seen})
+    if worst > 1e-6 or not (seen["flip"] and seen["transpose"]):
+        raise AssertionError(f"device sampler vs host: {worst}, {seen}")
+    return seen
+
+
+def check_train_run(dev, ds, runs, work):
+    """Gate (b), second part: train_until (device sampler, f32, TF32 off,
+    constant lr 1e-3, from init_tree under seed 0; the crop model at
+    TRAIN_RUN_WIDTHS) for the JAX runs' step count; the mean loss over
+    the last 50 steps lies in the band the two JAX runs span, widened
+    below by the larger of 15 % and their spread, above by the larger of
+    5 % and their spread."""
+    import numpy as np
+
+    from patchperpix_tpu_torch import models
+    from patchperpix_tpu_torch.train.trainer import TrainConfig, train_until
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    cfg = train_model_config(models, CLI_CONFIG, **TRAIN_RUN_WIDTHS)
+    out = os.path.join(work, "b")
+    t0 = time.perf_counter()
+    with exact_f32():
+        train_until(models.PPPModel(cfg), cfg, TrainConfig(
+            max_iterations=runs["steps"], checkpoints=runs["steps"],
+            snapshots=0, lr=runs["lr"], output_folder=out, log_every=1,
+            tensorboard=False), ds, rng_seed=0, device=dev)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        # by step: with log_every 1 the device loop logs step 1 twice
+        by_step = {r["step"]: r["loss"] for r in map(json.loads, f)}
+    losses = [by_step[k] for k in sorted(by_step)]
+    tail = float(np.mean(losses[-runs["tail"]:]))
+    jax_tails = [r["tail_mean_loss"] for r in runs["runs"]]
+    lo, hi = min(jax_tails), max(jax_tails)
+    band = [lo - max(TRAIN_RUN_BELOW * (lo + hi) / 2, hi - lo),
+            hi + max(TRAIN_RUN_ABOVE * (lo + hi) / 2, hi - lo)]
+    emit({"phase": "train_run_vs_jax", "steps": len(losses),
+          "tail_mean_loss": tail, "jax_tail_mean_losses": jax_tails,
+          "band": band, "first_loss": losses[0], "wall_s": wall,
+          "jax_cpu_wall_s": [r["wall_s"] for r in runs["runs"]]})
+    if len(losses) != runs["steps"] or not band[0] <= tail <= band[1]:
+        raise AssertionError(f"{runs['steps']}-step loss level {tail} "
+                             f"outside {band}")
+
+
+# gate (c): configs/flylight_crop_dec.toml's run cut to fit the smoke; the
+# warmup scales with it, since optax's schedule (and the port's) refuses
+# max_iterations <= warmup_steps
+ALL_STEPS, ALL_CHECKPOINTS, ALL_WARMUP, RESUME_STEPS = 400, 200, 100, 600
+LOG_EVERY = 100   # TrainConfig's default: no config key sets it
+
+
+def run_train_all(dev_args, kernels, work):
+    """Gate (c): ``-d all`` through the port's CLI in-process, from the
+    trained crop parameters seeded as train_net_checkpoint_0 (no optimizer
+    state), then ``train`` resumed to RESUME_STEPS.  Returns the phase's
+    record."""
+    import numpy as np
+
+    from patchperpix_tpu_torch import cli, weights
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    data = os.path.join(work, "data")
+    os.makedirs(data)
+    os.symlink(FIXTURE, os.path.join(data, os.path.basename(FIXTURE)))
+    override = os.path.join(work, "override.toml")
+    with open(override, "w") as f:
+        f.write(f"[training]\nmax_iterations = {ALL_STEPS}\n"
+                f"checkpoints = {ALL_CHECKPOINTS}\n"
+                f"[optimizer.optimizer]\nwarmup_steps = {ALL_WARMUP}\n"
+                "[data]\n" + "".join(f'{k}_data = "{data}"\n'
+                                     for k in ("train", "val", "test")))
+    exps = os.path.join(work, "exps")
+    weights.write_checkpoint(weights.load_npz(),
+                             os.path.join(exps, "all", "train"), 0)
+    calls = []
+    real_tasks = {n: getattr(cli, n) for n in (
+        "mknet", "train", "validate_checkpoints", "predict", "decode",
+        "label", "evaluate")}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                calls.append((name, kw.get("mode"), kw.get("checkpoint"),
+                              time.perf_counter() - t0))
+        return run
+
+    argv = ["-c", CLI_CONFIG, "-c", override, "--root", exps,
+            "-id", "all"] + dev_args
+    try:
+        for name, fn in real_tasks.items():
+            setattr(cli, name, timed(name, fn))
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        paths = cli.main(argv + ["-d", "all"])
+        wall_all = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        cli.main(argv + ["--set", f"training.max_iterations={RESUME_STEPS}",
+                         "-d", "train"])
+        wall_resume = time.perf_counter() - t0
+    finally:
+        for name, fn in real_tasks.items():
+            setattr(cli, name, fn)
+
+    with open(os.path.join(paths["train"], "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f if '"loss"' in line]
+    first_run = [r for r in rows if r["step"] <= ALL_STEPS]
+    with open(os.path.join(paths["base"], "results.json")) as f:
+        results = json.load(f)
+    last = ALL_STEPS
+    sample = os.path.splitext(os.path.basename(FIXTURE))[0]
+    with open(os.path.join(paths["test_evaluated"], str(last),
+                           sample + ".json")) as f:
+        final = json.load(f)
+    inst = IoZarr(os.path.join(paths["test_instanced"], str(last),
+                               sample + ".zarr")).read(key="vote_instances")
+    top, per_cp = {}, {}
+    for name, mode, cp, sec in calls:
+        if mode == "val":
+            per_cp.setdefault(str(cp), {})[name] = sec
+        elif name != "train" or "train" not in top:
+            top[name] = top.get(name, 0.0) + sec
+    counts = {cp: weights.load_checkpoint(weights.checkpoint_path(
+        paths["train"], cp)).get("opt_state", {}).get("count")
+        for cp in cli.get_checkpoint_list(paths["train"])}
+    with open(os.path.join(paths["base"], "run.log")) as f:
+        log = f.read()
+    resumed = log[log.rfind("=== task train ==="):]
+    res = {"phase": "train_all", "launches": launches,
+           "log_steps": [r["step"] for r in first_run],
+           "losses": [r["loss"] for r in first_run],
+           "checkpoints": [cp for cp in counts if cp <= ALL_STEPS],
+           "scores": {str(r["checkpoint"]): r["score"]
+                      for r in results["results"]},
+           "best": results["best"],
+           "final_avg_f1_cov_score": final["general"].get(
+               "avg_f1_cov_score"),
+           "final_n_instances": n_instances(inst),
+           "task_s": top, "validate_s_per_checkpoint": per_cp,
+           "all_wall_s": wall_all, "resume_wall_s": wall_resume,
+           "opt_counts": counts}
+    emit(res)
+    want_steps = [1] + list(range(LOG_EVERY, ALL_STEPS + 1, LOG_EVERY))
+    want_cps = list(range(0, ALL_STEPS + 1, ALL_CHECKPOINTS))
+    if res["log_steps"] != want_steps or \
+            not all(np.isfinite(res["losses"])):
+        raise AssertionError(f"train log rows {res['log_steps']} / "
+                             f"{res['losses']}")
+    if res["checkpoints"] != want_cps:
+        raise AssertionError(f"checkpoints {res['checkpoints']}")
+    if len(results["results"]) != len(want_cps) or \
+            results["best"] is None or \
+            not all(np.isfinite(r["score"]) for r in results["results"]):
+        raise AssertionError(f"results.json {results}")
+    if res["final_avg_f1_cov_score"] is None:
+        raise AssertionError("no general.avg_f1_cov_score in evaluate")
+    if any(n != len(want_cps) + 1 for n in launches.values()):
+        raise AssertionError(f"K1 / K2 launches in all: {launches}, not "
+                             "one per checkpoint + the final label")
+    if counts.get(ALL_STEPS) != ALL_STEPS or \
+            counts.get(RESUME_STEPS) != RESUME_STEPS or \
+            "resuming from" not in resumed or \
+            "reinitializing optimizer moments" in resumed:
+        raise AssertionError(f"resume to {RESUME_STEPS}: counts {counts}")
+    return res
+
+
+def run_train(dev, kernels):
+    """Phase train: (a) one train step at full width in f32 against the
+    JAX package's, both branches; (b) the loss level of a 200-step run
+    against two JAX runs; the step times in f32 and bf16; (c) the
+    reference CLI's ``-d all`` on the crop, then a resumed ``train``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch import models
+    from patchperpix_tpu_torch.train import data as td
+    from patchperpix_tpu_torch.train.device_data import DeviceSampler
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    t_phase = time.perf_counter()
+    ref = np.load(TRAIN_REF_NPZ)
+    meta = json.load(open(TRAIN_REF_JSON))
+    raw, labels, _, sample = train_batch(td, ref["centres"])
+    if int(labels.astype(np.int64).sum()) != meta["batch"]["labels_sum"] \
+            or float(raw.astype(np.float64).sum()) != \
+            meta["batch"]["raw_sum"]:
+        raise AssertionError("the train batch differs from the JAX run's")
+    check_train_step(dev, ref, meta, raw, labels)
+    torch.cuda.empty_cache()
+
+    ds = DeviceSampler([sample], train_sampler_config(td),
+                       max_gt_channels=labels.shape[1], device=dev)
+    out_root = os.path.join(REPO, "experiments_out")
+    os.makedirs(out_root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="ppp_train_", dir=out_root)
+    try:
+        check_sampler_alignment(ds, [sample], td)
+        check_train_run(dev, ds, meta["runs"], work)
+        cfg32 = train_model_config(models, CLI_CONFIG)
+        with exact_f32():
+            times = {"float32": train_step_times(cfg32, ds, dev)}
+        times["bfloat16"] = train_step_times(
+            dataclasses.replace(cfg32, dtype="bfloat16"), ds, dev)
+        emit({"phase": "train_step_times", **times,
+              "note": "trained crop model, batch 3 of 40^3, device "
+                      "sampler, Adam; median step after 20 of 40"})
+        torch.cuda.empty_cache()
+        run_train_all([], kernels, work)
+        emit({"phase": "train_wall",
+              "phase_wall_s": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def compare_reference(run):
     """Gates against the stored JAX float32 run, plus per-stage agreement."""
     import numpy as np
@@ -1444,7 +1978,8 @@ def main() -> int:
     if not (os.path.isdir(os.path.join(REPO, "patchperpix_tpu_torch"))
             and all(os.path.exists(f) for f in (REF_NPZ, REF2D_NPZ,
                                                 MODEL2D_NPZ, BW_REF_NPZ,
-                                                CLI_REF_NPZ))):
+                                                CLI_REF_NPZ,
+                                                TRAIN_REF_NPZ))):
         print("chip_smoke: the repository is not beside this script",
               file=sys.stderr)
         return 2
@@ -1547,6 +2082,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     run_cli(dev, (K.CONSENSUS, K.RANK))
+    torch.cuda.empty_cache()
+    run_train(dev, (K.CONSENSUS, K.RANK))
     torch.cuda.empty_cache()
 
     kernels.append(run_probe(dev))

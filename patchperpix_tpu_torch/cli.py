@@ -1,28 +1,35 @@
 """Experiment orchestrator CLI.
 
-Counterpart of ``patchperpix_tpu/cli.py`` (reference experiments/run_ppp.py)
-for the inference and evaluation tasks: ``mknet``, ``predict``, ``decode``,
-``label``, ``infer_fused``, ``evaluate``, ``evaluate_prediction`` and
-``postprocess``, with the JAX CLI's experiment folders, layered TOML
-config with ``--set`` overrides, the merged config written back into the
-run directory, per-stage wall-time logging and skip-if-exists resume.
+Counterpart of ``patchperpix_tpu/cli.py`` (reference experiments/run_ppp.py):
+``mknet``, ``train``, ``validate_checkpoints`` / ``validate``, ``predict``,
+``decode``, ``label``, ``infer_fused``, ``evaluate``,
+``evaluate_prediction``, ``postprocess`` and ``all`` (``mknet train
+validate_checkpoints predict decode label evaluate``), with the JAX CLI's
+experiment folders, layered TOML config with ``--set`` overrides, the
+merged config written back into the run directory, per-stage wall-time
+logging and skip-if-exists resume.
 
 What differs from the JAX CLI:
 
 - ``--device`` (default ``cuda``) picks the device; without a card the
-  CLI raises unless ``--device cpu`` is given.
+  CLI raises unless ``--device cpu`` is given.  Training runs there too;
+  ``training.device_sampler`` only decides whether the batches are drawn
+  on that device or by the host sampler.
 - Checkpoints are the port's torch files ``train/train_net_checkpoint_<step>``
-  (``weights.write_checkpoint``), not orbax directories.
+  (``weights.write_checkpoint``), not orbax directories; training
+  snapshots are zarr stores, not ``.hdf``.
 - Results are ``<sample>.zarr`` stores in the instanced folder (the JAX
   package writes ``.hdf``), under the same keys; ``evaluate`` and
   ``postprocess`` read them.
-- Samples are not sharded over hosts (multi-device is ROADMAP.md §1
-  item 3), and no git diff of the source is stored with the config.
-- ``train``, ``validate_checkpoints`` / ``validate``, ``cross_validate``,
-  ``visualize``, ``cleanup`` and ``all`` (which trains) raise
+- Samples are not sharded over hosts, ``training.num_devices > 1`` raises
+  (multi-device is ROADMAP.md §1 item 3), and no git diff of the source
+  is stored with the config.
+- ``cross_validate``, ``visualize`` and ``cleanup`` raise
   NotImplementedError naming the ROADMAP.md item that ports them.
 
 Usage:
+  python -m patchperpix_tpu_torch.cli -c configs/flylight_crop_dec.toml \\
+      --root exps -id run1 -d all
   python -m patchperpix_tpu_torch.cli -c configs/flylight_crop_dec.toml \\
       --root exps -id run1 -d predict decode label evaluate --checkpoint 1
 """
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 import functools
 import glob
 import json
@@ -61,10 +69,6 @@ TASKS = ["all", "mknet", "train", "validate_checkpoints", "validate",
          "cleanup"]
 # tasks of later slices: {task: the ROADMAP.md item that ports it}
 NOT_PORTED = {
-    "all": "ROADMAP.md §1 item 1 (training): 'all' trains first",
-    "train": "ROADMAP.md §1 item 1 (training)",
-    "validate_checkpoints": "ROADMAP.md §1 item 2 (the rest of the CLI)",
-    "validate": "ROADMAP.md §1 item 2 (the rest of the CLI)",
     "cross_validate": "ROADMAP.md §1 item 2 (the rest of the CLI)",
     "cleanup": "ROADMAP.md §1 item 2 (the rest of the CLI)",
     "visualize": "ROADMAP.md §1 item 5 (visualization)",
@@ -174,11 +178,12 @@ def get_checkpoint_list(train_folder: str) -> list[int]:
 
 def _resolve_checkpoint(args, config, paths) -> int:
     # --test-checkpoint pins the checkpoint for test-split stages;
-    # --checkpoint applies everywhere
+    # --checkpoint applies everywhere (step 0, a seeded starting point, is
+    # a checkpoint like any other)
     if getattr(args, "mode", None) == "test" \
-            and getattr(args, "test_checkpoint", None):
+            and getattr(args, "test_checkpoint", None) is not None:
         return args.test_checkpoint
-    if args.checkpoint:
+    if args.checkpoint is not None:
         return args.checkpoint
     cps = get_checkpoint_list(paths["train"])
     if not cps:
@@ -300,13 +305,167 @@ def _vote_params(config, out_dir, param_overrides=None, label=True):
 
 
 @time_func
+def train(args, config, paths):
+    """Train from the config's [training] / [optimizer] sections
+    (run_ppp.py train, the JAX CLI's whole config mapping) on
+    ``args.device``, resuming from the latest checkpoint."""
+    from .train.data import (AugmentConfig, CropSampler, Prefetcher,
+                             SamplerConfig, load_sample)
+    from .train.device_data import DeviceSampler, device_sampler_supported
+    from .train.trainer import TrainConfig, train_until
+
+    data = config.get("data", {})
+    tr = config.get("training", {})
+    if int(tr.get("num_devices", 1)) > 1:
+        raise NotImplementedError(
+            "training.num_devices > 1 (data-parallel training) is not "
+            "ported yet: ROADMAP.md §1 item 3 (multi-device)")
+    train_dir = args.train_data or data.get("train_data")
+    fmt = data.get("input_format", "zarr")
+    clipmax = config.get("preprocessing", {}).get("clipmax")
+    ov_folder = tr.get("sampling", {}).get("overlap_csv_folder")
+
+    def _load_dir(d, partly=None):
+        out = []
+        for s in list_samples(d, fmt):
+            csv = (os.path.join(ov_folder, s + ".csv")
+                   if ov_folder else None)
+            out.append(load_sample(
+                os.path.join(d, s + "." + fmt),
+                data.get("raw_key", "volumes/raw"),
+                data.get("gt_key", "volumes/gt_instances"),
+                clipmax=clipmax, partly=partly, overlap_csv=csv))
+        return out
+
+    samples = _load_dir(train_dir, partly=False)
+    add_partly = bool(tr.get("add_partly", False))
+    if add_partly:
+        # partly-labeled mixing + complete oversampling (train.py:612-633)
+        samples = samples * int(tr.get("oversample_complete", 1))
+        partly_dir = data.get("train_data_partly") or \
+            train_dir.replace("complete", "partly")
+        if os.path.isdir(partly_dir) and partly_dir != train_dir:
+            samples += _load_dir(partly_dir, partly=True)
+        else:
+            logger.warning("add_partly set but no partly data dir at %s",
+                           partly_dir)
+
+    mcfg = _model_config(config)
+    nc = _net_config(args, config, paths, "train_net")
+    aug = tr.get("augmentation", {})
+    # SimpleAugment toggles (ref augmentation.simple, train.py:270-274)
+    simple = aug.get("simple", {})
+    elastic = aug.get("elastic", {})
+    acfg = AugmentConfig(
+        mirror=bool(simple.get("mirror", True)),
+        transpose=bool(simple.get("transpose", True)),
+        elastic="elastic" in aug,
+        control_point_spacing=tuple(elastic.get("control_point_spacing",
+                                                (20, 20, 20))),
+        jitter_sigma=tuple(elastic.get("jitter_sigma", (1, 1, 1))),
+        rotation_min=elastic.get("rotation_min", -45),
+        rotation_max=elastic.get("rotation_max", 45),
+        intensity_scale=tuple(aug.get("intensity", {}).get(
+            "scale", (0.9, 1.1))),
+        intensity_shift=tuple(aug.get("intensity", {}).get(
+            "shift", (-0.1, 0.1))),
+        probability_permute=tr.get("probability_permute", 0.0),
+        probability_hue=tr.get("probability_hue", 0.0),
+        hue_max_change=tr.get("hue_max_change", 0.5),
+        probability_overlay=aug.get("overlay", {}).get(
+            "probability_overlay", 0.0))
+    sampling = tr.get("sampling", {})
+    scfg = SamplerConfig(
+        input_shape=tuple(nc["input_shape"]),
+        output_shape=tuple(nc["output_shape"]),
+        patchshape=tuple(p for p in config["model"]["patchshape"] if p > 1),
+        batch_size=tr.get("batch_size", 2),
+        probability_fg=sampling.get("probability_fg", 0.7),
+        probability_overlap=sampling.get("probability_overlap", 0.25),
+        probability_random=sampling.get("probability_random", 0.05),
+        min_masked=sampling.get("min_masked", 0.0),
+        point_balance_radius=sampling.get("point_balance_radius", 0.0),
+        augment=acfg)
+    # fixed gt channel count: the samples' own maximum; the overlay
+    # augmentation concatenates a second crop's labels, so it needs double
+    # headroom or the overlaid instances would be truncated
+    base_gt = max(s.labels.shape[0] for s in samples)
+    if acfg.probability_overlay > 0:
+        base_gt *= 2
+    max_gt = int(tr.get("max_gt_channels", base_gt))
+    pf = None
+    if tr.get("device_sampler", False):
+        # where the batches are drawn; training runs on args.device
+        reason = device_sampler_supported(scfg)
+        if reason is None:
+            pf = DeviceSampler(samples, scfg, max_gt_channels=max_gt,
+                               device=args.device)
+            logger.info("training with the device-resident sampler")
+        else:
+            logger.warning("device_sampler requested but config needs %s; "
+                           "falling back to the host prefetcher", reason)
+    if pf is None:
+        pf = Prefetcher(CropSampler(samples, scfg),
+                        cache_size=tr.get("cache_size", 8),
+                        max_gt_channels=max_gt, with_partly=add_partly)
+
+    opt = config.get("optimizer", {}).get("optimizer", {})
+    tcfg = TrainConfig(
+        max_iterations=10 if args.debug_args else tr.get("max_iterations",
+                                                         400002),
+        checkpoints=tr.get("checkpoints", 5000),
+        snapshots=tr.get("snapshots", 10000),
+        val_log_step=tr.get("val_log_step", 0),
+        lr=opt.get("lr", 1e-4),
+        lr_schedule=opt.get("lr_schedule", ""),
+        warmup_steps=opt.get("warmup_steps", 0),
+        optimizer=opt.get("optimizer", "Adam"),
+        output_folder=paths["train"],
+        use_swa=bool(tr.get("use_swa", False)),
+        swa_start=int(tr.get("swa_start", 0)),
+        swa_freq=int(tr.get("swa_freq", 1)),
+        use_gt_extra=tr.get("use_gt_extra", False),
+        add_partly=add_partly,
+        mask_bg_weight=tr.get("mask_bg_weight", 0.01))
+
+    # interleaved validation (ref TrainValProvider train.py:338-374):
+    # no-augment batches from val_data every val_log_step iterations
+    val_batch_fn = val_pf = None
+    if tcfg.val_log_step > 0:
+        val_dir = args.val_data or data.get("val_data")
+        if val_dir and os.path.isdir(val_dir):
+            vcfg = dataclasses.replace(
+                scfg, augment=AugmentConfig(
+                    elastic=False, mirror=False, transpose=False,
+                    intensity_scale=(1.0, 1.0),
+                    intensity_shift=(0.0, 0.0)))
+            val_pf = Prefetcher(CropSampler(_load_dir(val_dir), vcfg),
+                                cache_size=2, max_gt_channels=max_gt,
+                                with_partly=add_partly)
+            val_batch_fn = val_pf.next
+        else:
+            logger.warning("val_log_step=%d but no val_data dir (%s); "
+                           "interleaved validation disabled",
+                           tcfg.val_log_step, val_dir)
+    try:
+        state = train_until(PPPModel(mcfg), mcfg, tcfg, pf,
+                            val_batch_fn=val_batch_fn, device=args.device)
+    finally:
+        pf.stop()
+        if val_pf is not None:
+            val_pf.stop()
+    return state["step"]
+
+
+@time_func
 def predict(args, config, paths, mode=None, checkpoint=None):
     """Per-sample sliding-window prediction to a float16 zarr store with
     skip-if-exists (run_ppp.py:625-679)."""
     from .infer.predict import predict_sample_to_zarr
 
     mode = mode or args.mode
-    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    if checkpoint is None:
+        checkpoint = _resolve_checkpoint(args, config, paths)
     data_dir = _data_dir_for_mode(args, config, mode)
     out_dir = os.path.join(paths[f"{mode}_processed"], str(checkpoint))
     os.makedirs(out_dir, exist_ok=True)
@@ -337,7 +496,8 @@ def decode(args, config, paths, mode=None, checkpoint=None):
     from .infer.decode import decode_sample
 
     mode = mode or args.mode
-    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    if checkpoint is None:
+        checkpoint = _resolve_checkpoint(args, config, paths)
     out_dir = os.path.join(paths[f"{mode}_processed"], str(checkpoint))
     if not _model_config(config).train_code:
         logger.info("direct-affinity model; decode is a no-op")
@@ -363,7 +523,8 @@ def label(args, config, paths, mode=None, checkpoint=None,
           param_overrides=None):
     """vote_instances per prediction store (run_ppp.py:1054-1190)."""
     mode = mode or args.mode
-    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    if checkpoint is None:
+        checkpoint = _resolve_checkpoint(args, config, paths)
     in_dir = os.path.join(paths[f"{mode}_processed"], str(checkpoint))
     out_dir = os.path.join(paths[f"{mode}_instanced"], str(checkpoint))
     os.makedirs(out_dir, exist_ok=True)
@@ -416,7 +577,8 @@ def infer_fused(args, config, paths, mode=None, checkpoint=None,
                               predict_volume_device)
 
     mode = mode or args.mode
-    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    if checkpoint is None:
+        checkpoint = _resolve_checkpoint(args, config, paths)
     data_dir = _data_dir_for_mode(args, config, mode)
     out_dir = os.path.join(paths[f"{mode}_instanced"], str(checkpoint))
     os.makedirs(out_dir, exist_ok=True)
@@ -462,7 +624,8 @@ def evaluate(args, config, paths, mode=None, checkpoint=None,
     from .evaluate import evaluate_file, summarize_metric_dict
 
     mode = mode or args.mode
-    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    if checkpoint is None:
+        checkpoint = _resolve_checkpoint(args, config, paths)
     inst_dir = os.path.join(paths[f"{mode}_instanced"], str(checkpoint))
     eval_dir = os.path.join(paths[f"{mode}_evaluated"], str(checkpoint))
     os.makedirs(eval_dir, exist_ok=True)
@@ -534,7 +697,8 @@ def evaluate_prediction(args, config, paths, mode=None, checkpoint=None):
     from .evaluate import evaluate_fg, evaluate_numinst, evaluate_patch
 
     mode = mode or args.mode
-    checkpoint = checkpoint or _resolve_checkpoint(args, config, paths)
+    if checkpoint is None:
+        checkpoint = _resolve_checkpoint(args, config, paths)
     proc = os.path.join(paths[f"{mode}_processed"], str(checkpoint))
     data_dir = _data_dir_for_mode(args, config, mode)
     evp = config.get("evaluation", {}).get("prediction", {})
@@ -608,6 +772,58 @@ def postprocess(args, config, paths):
     return inst_dir
 
 
+def _metric_of(metric_dicts: dict, metric_key: str) -> float:
+    vals = [cfglib.get_by_path(md, metric_key) for md in
+            metric_dicts.values()]
+    vals = [v for v in vals if v is not None]
+    return float(np.mean(vals)) if vals else float("-inf")
+
+
+@time_func
+def validate_checkpoints(args, config, paths, mode=None,
+                         results_name="results.json"):
+    """Grid search: checkpoints x parameter sets; selects the best by the
+    configured metric and writes results.json (run_ppp.py:919-1051)."""
+    val = config.get("validation", {})
+    metric_key = config.get("evaluation", {}).get(
+        "metric", "confusion_matrix.avFscore")
+    checkpoints = val.get("checkpoints") or get_checkpoint_list(
+        paths["train"])
+    param_sets = cfglib.named_params(val) or [{}]
+    if args.param_set is not None:
+        param_sets = [param_sets[args.param_set]]
+    # selection split: val, or train with --validate_on_train
+    vmode = "train" if getattr(args, "validate_on_train", False) \
+        else mode or "val"
+    base_res_key = config.get("evaluation", {}).get("res_key",
+                                                    "vote_instances")
+    results = []
+    for cp in checkpoints:
+        predict(args, config, paths, mode=vmode, checkpoint=cp)
+        decode(args, config, paths, mode=vmode, checkpoint=cp)
+        for pi, pset in enumerate(param_sets):
+            # per-parameter result keys (run_ppp.py:969-988): each set's
+            # labels live under their own res_key in the same store
+            res_key = (base_res_key if len(param_sets) == 1
+                       else f"{base_res_key}_ps{pi}")
+            label(args, config, paths, mode=vmode, checkpoint=cp,
+                  param_overrides={**pset, "res_key": res_key})
+            mdicts = evaluate(args, config, paths, mode=vmode,
+                              checkpoint=cp, res_key=res_key)
+            score = _metric_of(mdicts, metric_key)
+            results.append({"checkpoint": cp, "params": pset,
+                            "res_key": res_key,
+                            "metric": metric_key, "score": score})
+            logger.info("checkpoint %s params %s -> %s = %.5f",
+                        cp, pset, metric_key, score)
+
+    best = max(results, key=lambda r: r["score"]) if results else None
+    out = {"results": results, "best": best}
+    with open(os.path.join(paths["base"], results_name), "w") as f:
+        json.dump(out, f, indent=2, default=float)
+    return out
+
+
 def _not_ported(task):
     def run(args, config, paths):
         raise NotImplementedError(
@@ -619,6 +835,9 @@ def main(argv=None):
     args = get_arguments(argv)
     resolve_device(args.device)
     tasks = args.do or ["all"]
+    if "all" in tasks:
+        tasks = ["mknet", "train", "validate_checkpoints", "predict",
+                 "decode", "label", "evaluate"]
     for task in tasks:
         if task in NOT_PORTED:
             _not_ported(task)(args, None, None)
@@ -650,7 +869,9 @@ def main(argv=None):
         backup_and_copy_file(c, paths["backups"])
 
     dispatch = {
-        "mknet": mknet, "predict": predict, "decode": decode,
+        "mknet": mknet, "train": train, "predict": predict, "decode": decode,
+        "validate_checkpoints": validate_checkpoints,
+        "validate": validate_checkpoints,
         "label": label, "infer_fused": infer_fused, "evaluate": evaluate,
         "evaluate_prediction": evaluate_prediction,
         "postprocess": postprocess,

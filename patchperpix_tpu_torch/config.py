@@ -1,7 +1,7 @@
 """Layered TOML configuration system.
 
-Counterpart of ``patchperpix_tpu/config.py`` without its stage flattening
-and validation grid (``validate_checkpoints`` is not ported yet).  Mirrors
+Counterpart of ``patchperpix_tpu/config.py`` without its stage
+flattening, with the validation grid (``named_params``).  Mirrors
 the reference's config behavior (run_ppp.py:48-58, 333-373, 1999-2074):
 multiple TOML files recursively merged, dotted-path CLI overrides, and
 provenance write-back of the merged config into the run directory.
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import copy
 import datetime
+import itertools
 import os
 import tomllib
 from typing import Any, Mapping
@@ -93,3 +94,21 @@ def get_by_path(config: Mapping, dotted: str, default: Any = None) -> Any:
             return default
         node = node[key]
     return node
+
+
+def named_params(config_section: Mapping) -> list[dict]:
+    """Hyperparameter grid: cartesian ``params_product`` x zipped
+    ``params_zip`` (run_ppp.py:875-916 named_product / named_zip), the
+    parameter dicts ``validate_checkpoints`` sweeps."""
+    product_keys = list(config_section.get("params_product", []))
+    zip_keys = list(config_section.get("params_zip", []))
+    prod_values = [[(key, v) for v in config_section.get(key, [])]
+                   for key in product_keys]
+    zip_lists = [[(key, v) for v in config_section.get(key, [])]
+                 for key in zip_keys]
+    zipped = [list(t) for t in zip(*zip_lists)] if zip_lists else [[]]
+    out = []
+    for combo in itertools.product(*prod_values) if prod_values else [()]:
+        for z in zipped:
+            out.append(dict(list(combo) + z))
+    return out

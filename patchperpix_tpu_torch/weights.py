@@ -23,9 +23,13 @@ Checkpoints: the JAX package's CLI reads orbax checkpoints
 ``<train dir>/train_net_checkpoint_<step>``, which the GPU machine cannot
 read.  The port's checkpoint is a torch file of that name holding
 ``params`` and, where present, ``swa_params`` as flat trees of float32
-tensors ('/'-joined keys, as above), and ``step``:
-``write_checkpoint(load_npz(...), train_dir, step)`` turns the exported
-tree into one, and ``load_checkpoint`` reads it back.
+tensors ('/'-joined keys, as above), ``step``, and from a training run
+``swa_n`` and ``opt_state`` (the optimizer's name, whether an lr schedule
+ran, its update count and, for Adam, the moments ``mu`` / ``nu`` as flat
+trees in the same layout): ``write_checkpoint(load_npz(...), train_dir,
+step)`` turns the exported tree into one, and ``load_checkpoint`` reads it
+back.  ``from_state_dict`` is the inverse of ``to_state_dict``, so a
+trained module is written back in the Flax layout.
 """
 
 from __future__ import annotations
@@ -44,14 +48,14 @@ BENCH_PARAMS = os.path.join(REPO, "parity", "bench_ckpt_params.npz")
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
-    """Nested dict of arrays -> {'a/b/c': array}."""
+    """Nested dict of arrays -> {'a/b/c': array}; tensors stay tensors."""
     out = {}
     for k, v in tree.items():
         key = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, dict) or hasattr(v, "items"):
             out.update(flatten_tree(dict(v), key))
         else:
-            out[key] = np.asarray(v)
+            out[key] = v if torch.is_tensor(v) else np.asarray(v)
     return out
 
 
@@ -90,7 +94,8 @@ def to_state_dict(tree: dict) -> dict:
             parts = parts[1:]
         leaf = parts[-1]
         name = ".".join(parts[:-1])
-        t = torch.from_numpy(np.ascontiguousarray(val, np.float32))
+        t = (val.detach().float() if torch.is_tensor(val) else
+             torch.tensor(np.asarray(val, np.float32)))
         if leaf == "bias":
             sd[name + ".bias"] = t
         elif leaf == "kernel":
@@ -105,6 +110,30 @@ def to_state_dict(tree: dict) -> dict:
         else:
             raise KeyError(f"unexpected parameter leaf {key!r}")
     return sd
+
+
+def from_state_dict(sd) -> dict:
+    """torch state_dict (tensors) -> flat {'params/...': tensor} Flax
+    tree; the exact inverse of ``to_state_dict`` (permutes and flips only),
+    on the tensors' own device and dtype."""
+    out = {}
+    for key, t in sd.items():
+        name, leaf = key.rsplit(".", 1)
+        parts = name.split(".")
+        flax = "params/" + "/".join(parts)
+        if leaf == "bias":
+            out[flax + "/bias"] = t
+            continue
+        if leaf != "weight":
+            raise KeyError(f"unexpected state_dict entry {key!r}")
+        nd = t.ndim - 2
+        if parts[-1].startswith("ConvTranspose"):
+            w = t.flip(tuple(range(2, 2 + nd))).permute(
+                *range(2, 2 + nd), 0, 1)
+        else:
+            w = t.permute(*range(2, 2 + nd), 1, 0)
+        out[flax + "/kernel"] = w.contiguous()
+    return out
 
 
 def build_model(cfg: PPPConfig, tree: dict | None = None,
@@ -123,16 +152,35 @@ def checkpoint_path(train_dir: str, step: int) -> str:
     return os.path.join(train_dir, f"train_net_checkpoint_{int(step)}")
 
 
+def _flat_f32(tree: dict) -> dict:
+    """Flat {'params/...': float32 CPU tensor} of a nested or flat tree of
+    numpy arrays or tensors."""
+    out = {}
+    for k, v in flatten_tree(tree).items():
+        if torch.is_tensor(v):
+            out[k] = v.detach().to("cpu", torch.float32).clone()
+        else:
+            out[k] = torch.as_tensor(np.asarray(v, np.float32))
+    return out
+
+
 def write_checkpoint(tree: dict, train_dir: str, step: int,
-                     swa_tree: dict | None = None) -> str:
+                     swa_tree: dict | None = None,
+                     opt_state: dict | None = None,
+                     swa_n: int | None = None) -> str:
     """Write a checkpoint of ``tree`` (nested or '/'-flattened, numpy or
-    tensors) and, if given, its SWA average; returns its path."""
-    def flat(t):
-        return {k: torch.as_tensor(np.asarray(v, np.float32))
-                for k, v in flatten_tree(t).items()}
-    state = {"step": int(step), "params": flat(tree)}
+    tensors) and, if given, its SWA average with its count and the
+    optimizer state (``{"name", "schedule", "count"}`` and, for Adam,
+    ``"mu"`` / ``"nu"`` flat trees); returns its path."""
+    state = {"step": int(step), "params": _flat_f32(tree)}
     if swa_tree is not None:
-        state["swa_params"] = flat(swa_tree)
+        state["swa_params"] = _flat_f32(swa_tree)
+    if swa_n is not None:
+        state["swa_n"] = int(swa_n)
+    if opt_state is not None:
+        state["opt_state"] = {
+            k: (_flat_f32(v) if isinstance(v, dict) else v)
+            for k, v in opt_state.items()}
     os.makedirs(train_dir, exist_ok=True)
     path = checkpoint_path(train_dir, step)
     torch.save(state, path + ".tmp")
@@ -141,11 +189,19 @@ def write_checkpoint(tree: dict, train_dir: str, step: int,
 
 
 def load_checkpoint(path: str) -> dict:
-    """{"step", "params" and, where written, "swa_params"}, the trees as
-    flat {'params/...': float32 numpy array}."""
+    """{"step", "params" and, where written, "swa_params", "swa_n" and
+    "opt_state"}, the trees as flat {'params/...': float32 numpy array}.
+    Reads params-only checkpoints as well."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     out = {"step": int(state["step"])}
     for key in ("params", "swa_params"):
         if key in state:
             out[key] = {k: v.numpy() for k, v in state[key].items()}
+    if "swa_n" in state:
+        out["swa_n"] = int(state["swa_n"])
+    if "opt_state" in state:
+        out["opt_state"] = {
+            k: ({kk: vv.numpy() for kk, vv in v.items()}
+                if isinstance(v, dict) else v)
+            for k, v in state["opt_state"].items()}
     return out

@@ -51,10 +51,31 @@ Writes, from the repository's own files (nothing is downloaded):
   (engine jax, pt 0.6, fc 0.5, mws, rm 400): the instance map, the
   instance count, own-foreground voxels, AP@0.5 (IoU, Hungarian and
   clDice, greedy) and avg_f1_cov (clDice, greedy, keep_gt_shape).
+- ``parity/torch_port_train_ref_f32.npz`` / ``.json`` (``--train``): the
+  JAX package's float32 train step on the CPU (``make_train_step``, its
+  gradients read through an optax transformation that keeps them as its
+  state) on chip_smoke.py's fixed batch (three crops of the FlyLight crop
+  at seeded foreground centres, no augmentation): for the code branch
+  (configs/flylight_crop_dec.toml's model with the trained
+  ``bench_ckpt_params.npz``; the code corners the step draws under
+  PRNGKey(7), stored as integers) and the dense branch
+  (configs/flylight_crop.toml's model, 343-channel head, with
+  ``weights.seeded_tree`` weights): the loss parts, each gradient leaf's
+  L2 norm and 256 seeded entries of it.  Then two 200-step
+  ``train_until`` runs of the code model cut in width to
+  ``chip_smoke.TRAIN_RUN_WIDTHS`` (device sampler, constant lr 1e-3,
+  float32, seeds 0 and 1): every step's loss, the mean over the last 50
+  steps, and the wall seconds (~45 min in all).  ``--train-step`` redoes
+  the step part only and keeps the stored runs.  Both then run
+  ``--train-f64``, which adds the JAX f32 step's own error against the
+  same step in float64, by the JAX package under ``jax_enable_x64``
+  (chip_smoke.py's gate (a) allows twice that where it exceeds its 1e-5 /
+  1e-4 limits, up to TRAIN_WIDEN_CAP), and the float64 step's gradient
+  norms and entries.
 
 Usage: JAX_PLATFORMS=cpu python scripts/export_torch_fixtures.py
        [--params-only | --2d [H W] | --model2d | --blockwise [S] | --cli
-        | --bf16]
+        | --bf16 | --train | --train-step | --train-f64]
 """
 
 import json
@@ -82,6 +103,8 @@ CLI_JSON = os.path.join(ROOT, "parity", "torch_port_cli_ref_f32.json")
 CLI_CONFIG = os.path.join(ROOT, "configs", "flylight_crop_dec.toml")
 BF16_NPZ = os.path.join(ROOT, "parity", "torch_port_ref_bf16.npz")
 BF16_JSON = os.path.join(ROOT, "parity", "torch_port_ref_bf16.json")
+TRAIN_NPZ = os.path.join(ROOT, "parity", "torch_port_train_ref_f32.npz")
+TRAIN_JSON = os.path.join(ROOT, "parity", "torch_port_train_ref_f32.json")
 
 
 def flatten(tree, prefix=""):
@@ -608,6 +631,264 @@ def export_bf16():
     print(json.dumps(meta))
 
 
+class _JnpF64:
+    """``jax.numpy`` with ``float32`` read as ``float64``: put in place of
+    the JAX trainer's ``jnp`` so that its step casts the heads to float64
+    (and its losses accumulate in float64) instead of float32."""
+
+    def __init__(self, jnp):
+        self._jnp = jnp
+
+    def __getattr__(self, name):
+        return getattr(self._jnp, "float64" if name == "float32" else name)
+
+
+def export_train_f64():
+    """The JAX f32 step's own rounding error, measured by the JAX package
+    alone: the stored step's batch and corners through the same
+    ``make_train_step`` with ``jax_enable_x64``, a float64 model and
+    float64 parameters, its heads and losses in float64.  Stores each
+    branch's loss parts' and gradient leaves' relative error of the f32
+    step against this one (gradients compared as chip_smoke.leaf_rel_err
+    compares them) as ``float64_err``, and the float64 step's leaf norms
+    and seeded entries beside the f32 ones."""
+    import dataclasses
+
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+
+    import chip_smoke as cs
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.ops.affinities import (gt_affinities_dense,
+                                                gt_affinities_sampled,
+                                                sample_fg_corners)
+    from patchperpix_tpu.train import data as jd
+    from patchperpix_tpu.train import trainer as jt
+    from patchperpix_tpu_torch.weights import load_npz, seeded_tree
+
+    with open(TRAIN_JSON) as f:
+        meta = json.load(f)
+    with np.load(TRAIN_NPZ) as z:
+        out = dict(z)
+    raw, labels, _, _ = cs.train_batch(jd, out["centres"].astype(np.int64))
+    key = jax.random.PRNGKey(meta["corner_key"])
+    grads_as_state = optax.GradientTransformation(
+        lambda p: p,
+        lambda g, st, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+    for branch, path in (("code", cs.CLI_CONFIG),
+                         ("dense", cs.TRAIN_DENSE_CONFIG)):
+        cfg = dataclasses.replace(cs.train_model_config(jm, path),
+                                  dtype="float64")
+        model = jm.PPPModel(cfg)
+        if branch == "code":
+            flat = load_npz()
+        else:
+            shapes = jax.eval_shape(lambda: model.init(
+                jax.random.PRNGKey(0), jnp.zeros((1, 3, 8, 8, 8)),
+                method=model.full_init))
+            flat = seeded_tree([[k, list(v.shape)] for k, v in
+                                sorted(flatten(shapes).items())],
+                               cs.TRAIN_SEED)
+        params = {}
+        for name, val in flat.items():
+            node = params
+            parts = name.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = jnp.asarray(np.asarray(val, np.float64))
+        step, _ = jt.make_train_step(model, cfg, jt.TrainConfig(),
+                                     grads_as_state)
+        def stored_corners(rng, gt_fg, n):
+            # under x64 the same key draws other corners: take the f32
+            # step's, and its validity rows
+            _, valid = sample_fg_corners(rng, gt_fg, n)
+            return jnp.asarray(out["corners"], jnp.int32), valid
+
+        def x32(fn):
+            # the 0/1 targets: their window starts mix Python ints into
+            # int32 indices, which x64 would make int64
+            def run(*args):
+                with jax.enable_x64(False):
+                    return fn(*args)
+            return run
+
+        jnp_f32, jt.jnp = jt.jnp, _JnpF64(jnp)
+        jt.sample_fg_corners = stored_corners
+        jt.gt_affinities_sampled = x32(gt_affinities_sampled)
+        jt.gt_affinities_dense = x32(gt_affinities_dense)
+        try:
+            _, grads, mets = step(params, params,
+                                  jnp.asarray(raw, jnp.float64),
+                                  jnp.asarray(labels), key)
+        finally:
+            jt.jnp, jt.sample_fg_corners = jnp_f32, sample_fg_corners
+            jt.gt_affinities_sampled = gt_affinities_sampled
+            jt.gt_affinities_dense = gt_affinities_dense
+        want = meta["branches"][branch]
+        err = {"loss": {}, "grads": {},
+               "source": "the JAX package in float64 on the CPU "
+                         "(jax_enable_x64, scripts/export_torch_fixtures.py"
+                         " --train-f64)"}
+        for k in ("loss", "loss_patch", "loss_fg"):
+            err["loss"][k] = (abs(want["metrics"][k] - float(mets[k]))
+                              / abs(float(mets[k])))
+        norms = {}
+        for name, g in sorted(flatten(grads).items()):
+            g = np.asarray(g, np.float64).reshape(-1)
+            assert g.dtype == np.float64
+            err["grads"][name] = cs.leaf_rel_err(
+                name, g, want["grad_norms"][name], out[f"{branch}/{name}"])
+            norms[name] = float(np.linalg.norm(g))
+            out[f"f64/{branch}/{name}"] = g[cs.grad_sample_index(
+                name, g.size)]
+        want["float64_err"] = err
+        want["float64_metrics"] = {k: float(mets[k]) for k in
+                                   ("loss", "loss_patch", "loss_fg")}
+        want["float64_grad_norms"] = norms
+        print(branch, json.dumps(err["loss"]),
+              max(err["grads"].items(), key=lambda kv: kv[1]), flush=True)
+    np.savez_compressed(TRAIN_NPZ, **out)
+    with open(TRAIN_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+
+
+def export_train(with_runs=True):
+    """The train step's loss parts and gradient samples, both branches,
+    and (``with_runs``) the loss level of two 200-step runs; without, the
+    stored runs are kept."""
+    import shutil
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+
+    import chip_smoke as cs
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.ops.affinities import sample_fg_corners
+    from patchperpix_tpu.train import data as jd
+    from patchperpix_tpu.train import trainer as jt
+    from patchperpix_tpu.train.device_data import DeviceSampler
+    from patchperpix_tpu_torch.weights import load_npz, seeded_tree
+
+    def nest(flat):
+        tree = {}
+        for key, val in flat.items():
+            node = tree
+            parts = key.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = jnp.asarray(val)
+        return tree
+
+    grads_as_state = optax.GradientTransformation(
+        lambda p: p,
+        lambda g, st, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+    raw, labels, centres, sample = cs.train_batch(jd)
+    key = jax.random.PRNGKey(cs.TRAIN_CORNER_KEY)
+    out = {"centres": centres.astype(np.int16)}
+    meta = {"source": "scripts/export_torch_fixtures.py --train: JAX "
+                      "package, CPU, float32",
+            "batch": {"raw_sum": float(raw.astype(np.float64).sum()),
+                      "labels_sum": int(labels.astype(np.int64).sum()),
+                      "raw_shape": list(raw.shape),
+                      "labels_shape": list(labels.shape)},
+            "corner_key": cs.TRAIN_CORNER_KEY, "branches": {}}
+    for branch, path in (("code", cs.CLI_CONFIG),
+                         ("dense", cs.TRAIN_DENSE_CONFIG)):
+        cfg = cs.train_model_config(jm, path)
+        model = jm.PPPModel(cfg)
+        if branch == "code":
+            params = nest(load_npz())
+        else:
+            shapes = jax.eval_shape(lambda: model.init(
+                jax.random.PRNGKey(0), jnp.zeros((1, 3, 8, 8, 8)),
+                method=model.full_init))
+            leaves = [[k, list(v.shape)]
+                      for k, v in sorted(flatten(shapes).items())]
+            params = nest(seeded_tree(leaves, cs.TRAIN_SEED))
+        step, _ = jt.make_train_step(model, cfg, jt.TrainConfig(),
+                                     grads_as_state)
+        t0 = time.perf_counter()
+        _, grads, mets = step(params, params, jnp.asarray(raw),
+                              jnp.asarray(labels), key)
+        grads = {k: np.asarray(v, np.float32)
+                 for k, v in flatten(grads).items()}
+        sec = time.perf_counter() - t0
+        if branch == "code":
+            ninst = (labels[:, :, 3:-3, 3:-3, 3:-3] > 0).sum(1)
+            corners, _ = sample_fg_corners(key, jnp.asarray(ninst == 1),
+                                           cfg.num_code_samples)
+            out["corners"] = np.asarray(corners).astype(np.int16)
+        norms = {}
+        for name, g in sorted(grads.items()):
+            idx = cs.grad_sample_index(name, g.size)
+            out[f"{branch}/{name}"] = g.reshape(-1)[idx]
+            norms[name] = float(np.linalg.norm(g.astype(np.float64)))
+        meta["branches"][branch] = {
+            "config": os.path.relpath(path, ROOT),
+            "weights": ("parity/bench_ckpt_params.npz" if branch == "code"
+                        else f"weights.seeded_tree(leaves, "
+                             f"{cs.TRAIN_SEED})"),
+            "metrics": {k: float(v) for k, v in mets.items()},
+            "grad_norms": norms, "step_s_with_compile": round(sec, 1)}
+        print(branch, json.dumps(meta["branches"][branch]["metrics"]),
+              flush=True)
+
+    if not with_runs and os.path.exists(TRAIN_JSON):
+        with open(TRAIN_JSON) as f:
+            meta["runs"] = json.load(f).get("runs")
+    np.savez_compressed(TRAIN_NPZ, **out)
+    with open(TRAIN_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+    if not with_runs:
+        return
+
+    # gate (b): the loss level of two runs from Flax's init
+    cfg = cs.train_model_config(jm, cs.CLI_CONFIG, **cs.TRAIN_RUN_WIDTHS)
+    runs = []
+    for seed in (0, 1):
+        work = tempfile.mkdtemp(prefix="ppp_train_ref_")
+        try:
+            ds = DeviceSampler([sample], cs.train_sampler_config(jd),
+                               max_gt_channels=labels.shape[1])
+            tcfg = jt.TrainConfig(
+                max_iterations=cs.TRAIN_RUN_STEPS,
+                checkpoints=cs.TRAIN_RUN_STEPS, snapshots=0, lr=1e-3,
+                output_folder=work, log_every=1, tensorboard=False)
+            t0 = time.perf_counter()
+            jt.train_until(jm.PPPModel(cfg), cfg, tcfg, ds, rng_seed=seed)
+            wall = time.perf_counter() - t0
+            with open(os.path.join(work, "train_log.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        # by step: with log_every 1 the device loop logs step 1 twice
+        by_step = {r["step"]: r["loss"] for r in rows if "loss" in r}
+        losses = [by_step[k] for k in sorted(by_step)]
+        assert len(losses) == cs.TRAIN_RUN_STEPS, len(losses)
+        runs.append({"seed": seed, "wall_s": round(wall, 1),
+                     "tail_mean_loss": float(np.mean(
+                         losses[-cs.TRAIN_RUN_TAIL:])),
+                     "losses": losses})
+        print("run", seed, runs[-1]["wall_s"], runs[-1]["tail_mean_loss"],
+              flush=True)
+    meta["runs"] = {"steps": cs.TRAIN_RUN_STEPS, "tail": cs.TRAIN_RUN_TAIL,
+                    "lr": 1e-3, "schedule": "constant",
+                    "sampler": "device, configs/flylight_crop_dec.toml "
+                               "sampling, default augmentations",
+                    "init": "Flax full_init, PRNGKey(seed)",
+                    "widths": cs.TRAIN_RUN_WIDTHS, "runs": runs}
+    with open(TRAIN_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+    print(f"written {TRAIN_NPZ} ({os.path.getsize(TRAIN_NPZ)} bytes)")
+
+
 def main():
     import jax
 
@@ -628,6 +909,17 @@ def main():
         return
     if "--bf16" in sys.argv:
         export_bf16()
+        return
+    if "--train-f64" in sys.argv:
+        export_train_f64()
+        return
+    if "--train" in sys.argv or "--train-step" in sys.argv:
+        import subprocess
+
+        export_train(with_runs="--train" in sys.argv)
+        # float64 is process-wide in JAX: the witness runs on its own
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--train-f64"], check=True)
         return
     if "--blockwise" in sys.argv:
         rest = [int(a) for a in sys.argv[sys.argv.index("--blockwise") + 1:]

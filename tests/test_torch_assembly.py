@@ -220,8 +220,8 @@ import importlib.abc, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax",
-                                  "patchperpix_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                  "orbax", "patchperpix_tpu"):
             raise ImportError("blocked import of " + name)
         return None
 
@@ -338,8 +338,36 @@ assert load_checkpoint(ck)["params"]["params/a/kernel"].shape == (2,)
 paths = cli.main(["-c", "configs/flylight_crop_dec.toml", "--root", tmp,
                   "-d", "mknet", "--device", "cpu"])
 assert os.path.exists(os.path.join(paths["base"], "test_net_config.json"))
+# the training slice: init, losses, samplers, trainer, the CLI's train
+from patchperpix_tpu_torch.models.init import init_tree
+from patchperpix_tpu_torch.models.losses import summaries
+from patchperpix_tpu_torch.ops.affinities import (gather_at,
+                                                  gt_affinities_sampled,
+                                                  sample_fg_corners)
+from patchperpix_tpu_torch.train.data import (AugmentConfig, CropSampler,
+                                              Prefetcher, SamplerConfig)
+from patchperpix_tpu_torch.train.device_data import DeviceSampler
+from patchperpix_tpu_torch.train.trainer import TrainConfig, train_until
+from patchperpix_tpu_torch.weights import from_state_dict
+assert set(init_tree(cfg3, torch.Generator().manual_seed(0))) == set(
+    from_state_dict(model3.state_dict()))
+scfg = SamplerConfig(input_shape=(8, 8, 8), output_shape=(8, 8, 8),
+                     patchshape=(3, 3, 3), batch_size=2)
+ds = DeviceSampler([sd], scfg, max_gt_channels=3, device="cpu")
+import dataclasses
+cfg3c = dataclasses.replace(cfg3, num_channels=3)
+st = train_until(PPPModel(cfg3c), cfg3c, TrainConfig(
+    max_iterations=2, checkpoints=2, snapshots=0,
+    output_folder=tempfile.mkdtemp(),
+    tensorboard=False), ds, device="cpu")
+assert st["step"] == 2 and st["opt_state"]["count"] == 2
+pf = Prefetcher(CropSampler([sd], scfg), cache_size=1, max_gt_channels=3)
+assert pf.next()[0].shape == (2, 3, 8, 8, 8)
+pf.stop()
+assert config.named_params(fl["validation"]) == [
+    {"patch_threshold": 0.5, "fc_threshold": 0.5}]
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("jax", "jaxlib", "flax", "patchperpix_tpu")]
+       ("jax", "jaxlib", "flax", "optax", "orbax", "patchperpix_tpu")]
 assert not bad, bad
 print("NO_JAX_OK")
 """

@@ -395,12 +395,30 @@ def test_mknet_valid_padding_equals_jax(tmp_path):
     assert out[0][1]["output_shape"] != out[0][1]["input_shape"]
 
 
-@pytest.mark.parametrize("task", sorted(cli.NOT_PORTED))
+# the tasks that raised before the training slice
+LATER_TASKS = ["all", "cleanup", "cross_validate", "train", "validate",
+               "validate_checkpoints", "visualize"]
+
+
+@pytest.mark.parametrize("task", LATER_TASKS)
 def test_later_tasks_raise(task, tmp_path):
+    """Tasks still to port raise, naming their ROADMAP.md item.  The
+    training slice's run: validation without checkpoints scores none, and
+    ``--debug_args``' 10 steps under the config's 1,000-step warmup are
+    refused, as optax's schedule refuses them."""
     cfg = os.path.join(REPO, "configs", "flylight_crop_dec.toml")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["-c", cfg, "--root", str(tmp_path), "--device", "cpu",
-                  "-d", task])
+    argv = ["-c", cfg, "--root", str(tmp_path), "--device", "cpu",
+            "-d", task]
+    if task in cli.NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            cli.main(argv)
+    elif task.startswith("validate"):
+        paths = cli.main(argv)
+        with open(os.path.join(paths["base"], "results.json")) as f:
+            assert json.load(f) == {"results": [], "best": None}
+    else:
+        with pytest.raises(ValueError, match="decay_steps"):
+            cli.main(argv + ["--debug_args"])
 
 
 def test_cli_defaults_to_cuda():

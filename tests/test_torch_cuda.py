@@ -421,3 +421,144 @@ def test_infer_fused_writes_the_label_keys(dev, crop_cli):
     keys = [_result(p).list_keys() for p in (label, fused)]
     assert keys[0] == keys[1] and "vote_instances" in keys[0]
     assert _result(fused).read(key="vote_instances").max() > 0
+
+
+# -- training -------------------------------------------------------------------
+
+def _small_train(seed=0):
+    """A narrow crop-like code model and a batch of 2 crops of 12^3 with
+    5^3 patches (labels with the patch context)."""
+    from patchperpix_tpu_torch.models import PPPConfig
+
+    cfg = PPPConfig(patchshape=(5, 5, 5), num_channels=3, num_fmaps=8,
+                    fmap_inc_factors=(2,), fmap_dec_factors=(1.0,),
+                    downsample_factors=((2, 2, 2),), train_code=True,
+                    code_units=16, ae_code_fmaps=2, ae_num_fmaps=(8, 16),
+                    num_code_samples=64, overlapping_inst=True,
+                    padding="same")
+    rng = np.random.RandomState(seed)
+    raw = rng.rand(2, 3, 12, 12, 12).astype(np.float32)
+    labels = np.zeros((2, 2, 16, 16, 16), np.int32)
+    labels[:, 0, 2:12, 3:13, 2:14] = 1
+    labels[:, 1, 7:15, 5:12, 6:13] = 2
+    return cfg, raw, labels
+
+
+def test_train_step_on_the_card_equals_the_cpu(dev):
+    """One f32 step (TF32 off) with the same corners on the card and on
+    the CPU: loss parts and every gradient leaf within 1e-4 relative."""
+    from patchperpix_tpu_torch import weights
+    from patchperpix_tpu_torch.models import PPPModel
+    from patchperpix_tpu_torch.models.init import init_tree
+    from patchperpix_tpu_torch.ops.affinities import sample_fg_corners
+    from patchperpix_tpu_torch.train.trainer import (TrainConfig,
+                                                     compute_losses)
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    cfg, raw, labels = _small_train()
+    tree = init_tree(cfg, torch.Generator().manual_seed(0))
+    gt_fg = torch.from_numpy((labels[:, :, 2:-2, 2:-2, 2:-2] > 0).sum(1)
+                             == 1)
+    corners, _ = sample_fg_corners(gt_fg, cfg.num_code_samples,
+                                   torch.Generator().manual_seed(1))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        model = PPPModel(cfg)
+        model.load_state_dict(weights.to_state_dict(tree))
+        model.to(d)
+        with exact_f32():
+            loss, mets = compute_losses(
+                model, cfg, TrainConfig(), torch.from_numpy(raw).to(d),
+                torch.from_numpy(labels).to(d), corners=corners.to(d))
+            loss.backward()
+        out[d.type] = ({k: float(v) for k, v in mets.items()},
+                       {n: p.grad.cpu().numpy()
+                        for n, p in model.named_parameters()})
+    (m0, g0), (m1, g1) = out["cpu"], out["cuda"]
+    for k in ("loss", "loss_patch", "loss_fg"):
+        assert abs(m1[k] - m0[k]) <= 1e-4 * abs(m0[k]), k
+    for n in g0:
+        err = np.linalg.norm(g1[n] - g0[n]) / max(np.linalg.norm(g0[n]),
+                                                  1e-30)
+        assert err <= 1e-4, (n, err)
+
+
+def test_device_sampler_on_the_card_repeats_under_a_seed(dev):
+    import chip_smoke
+    from patchperpix_tpu_torch.train import data as td
+    from patchperpix_tpu_torch.train.device_data import DeviceSampler
+
+    s = td.load_sample(chip_smoke.FIXTURE, "volumes/raw",
+                       "volumes/gt_instances", clipmax=1500)
+    ds = DeviceSampler([s], chip_smoke.train_sampler_config(td),
+                       max_gt_channels=3, device=dev)
+    a = ds.sample_batch(torch.Generator(device=dev).manual_seed(3))
+    b = ds.sample_batch(torch.Generator(device=dev).manual_seed(3))
+    assert a[0].is_cuda and a[0].shape == (3, 3, 40, 40, 40)
+    assert a[1].shape == (3, 3, 46, 46, 46)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    c = ds.sample_batch(torch.Generator(device=dev).manual_seed(4))
+    assert not torch.equal(a[0], c[0])
+
+
+def test_bf16_step_keeps_f32_parameters_and_adam_state(dev):
+    import dataclasses
+
+    from patchperpix_tpu_torch.models import PPPModel
+    from patchperpix_tpu_torch.train.trainer import (TrainConfig,
+                                                     make_optimizer,
+                                                     make_train_step)
+
+    cfg, raw, labels = _small_train()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    model = PPPModel(cfg).to(dev)
+    tcfg = TrainConfig(lr=1e-3)
+    opt, sched = make_optimizer(tcfg, model.parameters())
+    step, _ = make_train_step(model, cfg, tcfg, opt, sched)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        mets = step(torch.from_numpy(raw).to(dev),
+                    torch.from_numpy(labels).to(dev), gen)
+    assert np.isfinite(float(mets["loss"]))
+    for p in model.parameters():
+        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32
+        st = opt.state[p]
+        assert st["exp_avg"].dtype == torch.float32
+        assert st["exp_avg_sq"].dtype == torch.float32
+
+
+def test_device_loop_step_makes_no_host_sync(dev):
+    """What the device loop runs per step (a batch drawn and augmented on
+    the card, the step with its code corners, Adam, the schedule) under
+    torch's sync debug mode set to raise on any host synchronisation."""
+    import chip_smoke
+    from patchperpix_tpu_torch.models import PPPModel
+    from patchperpix_tpu_torch.train import data as td
+    from patchperpix_tpu_torch.train.device_data import DeviceSampler
+    from patchperpix_tpu_torch.train.trainer import (TrainConfig,
+                                                     make_optimizer,
+                                                     make_train_step)
+
+    cfg, _, _ = _small_train()
+    s = td.load_sample(chip_smoke.FIXTURE, "volumes/raw",
+                       "volumes/gt_instances", clipmax=1500)
+    ds = DeviceSampler([s], td.SamplerConfig(
+        input_shape=(12,) * 3, output_shape=(12,) * 3, patchshape=(5,) * 3,
+        batch_size=2), max_gt_channels=2, device=dev)
+    model = PPPModel(cfg).to(dev)
+    tcfg = TrainConfig(lr=1e-3, lr_schedule="cosine", warmup_steps=2,
+                       max_iterations=10)
+    opt, sched = make_optimizer(tcfg, model.parameters())
+    step, _ = make_train_step(model, cfg, tcfg, opt, sched)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw, labels, _ = ds.sample_batch(gen)
+    step(raw, labels, gen)                     # first step: lazy state
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            raw, labels, _ = ds.sample_batch(gen)
+            mets = step(raw, labels, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(mets["loss"]))
