@@ -267,7 +267,9 @@ def _params_fingerprint(params: VoteInstancesParams, chunksize) -> str:
             "overlapping_inst", "select_patches_for_sparse_data",
             "removeIntersection", "includeSinglePatchCCS",
             "max_total_patch_distance_in_ps_multiples",
-            "skeletonize_foreground", "ignore_small_comps")
+            "skeletonize_foreground", "ignore_small_comps", "skipThinCover",
+            "sample", "seed", "score_threshold", "isbi_hack",
+            "isbi_sparsify_stride")
     sig = repr([(k, getattr(params, k)) for k in keys]
                + [tuple(int(c) for c in np.asarray(chunksize)), "window_v2"])
     return hashlib.sha1(sig.encode()).hexdigest()[:10]
@@ -663,7 +665,8 @@ def stitch_blocks(reader, fg, numinst, block_results,
             wparams = dataclasses.replace(
                 params, blockwise=True, return_intermediates=True,
                 skipRanking=True, skeletonize_foreground=False,
-                selected_patch_pairs=local_pairs, center_valid=cv)
+                selected_patch_pairs=local_pairs, selected_patches=None,
+                center_valid=cv)
             inter: dict = {}
             timings = {} if stats is not None else None
             lap("windows_host")
@@ -694,7 +697,9 @@ def stitch_blocks(reader, fg, numinst, block_results,
     patch_dict = reader.read_columns([idx for comp in comps for idx in comp])
     instances = ref.components_to_instances(
         comps, patch_dict, ps, tuple(vol_shape),
-        patch_threshold=params.patch_threshold)
+        patch_threshold=params.patch_threshold,
+        one_instance_per_channel=params.one_instance_per_channel,
+        no_overlap_per_channel=params.no_overlap_per_channel)
     lap("paint")
     if stats is not None:
         stats.stitch_seconds = time.perf_counter() - t0

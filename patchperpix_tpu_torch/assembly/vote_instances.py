@@ -29,9 +29,21 @@ from a prediction store, ``to_instance_seg`` (or blockwise assembly), and
 of the port's ``utils/io.py``; the JAX package writes ``.hdf``, and the
 GPU machine has no h5py) under the JAX package's keys.
 ``VoteInstancesParams.from_config`` reads a [vote_instances] section; a
-key of the JAX package that the port does not implement yet raises when
-it is set to anything but its default, naming the ROADMAP.md item that
-ports it.
+key of the JAX package that the port does not implement yet (multi-device,
+visualization) raises when it is set to anything but its default, naming
+the ROADMAP.md item that ports it.
+
+The options of the JAX package's ``to_instance_seg`` follow its branches:
+``pad_with_ps``, the ISBI hacks (``assembly/isbi_hacks.py``), ``sample``
+/ ``seed``, ``shuffle_patches``, ``store_scores``, the host cover that
+``score_threshold``, ``select_patches_overlap_neighborhood`` and
+``mark_close_neighboorhood`` need (one device-to-host copy of the stack,
+as in the JAX package), the skip flags, injected ``selected_patches`` or
+``aff_graph``, the score oracle and the multi-channel outputs.  ``sample <
+1`` thins each patch's pixels by a keep mask drawn on the host with
+``np.random.RandomState(seed)`` and uploaded once: that is the JAX
+package's host (``engine="numpy"``) draw, bit for bit; its device path
+draws with ``jax.random.bernoulli``, a stream the port does not reproduce.
 
 3D volumes and 2D ones run the same stages; a 2D volume is the flat-z
 volume (1, H, W) with patchshape (1, p, p), as in the JAX package, and
@@ -43,12 +55,14 @@ over.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from scipy import ndimage
 from scipy.special import expit
 
@@ -63,39 +77,12 @@ from ..utils import io as vio
 from ..utils.device import resolve_device
 from ..utils.postprocess import remove_small_components
 from ..utils.skeleton import skeletonize
+from . import isbi_hacks
 
 # [vote_instances] keys of the JAX package's VoteInstancesParams that the
 # port does not implement yet: {key: (the JAX default, the ROADMAP.md item
 # that ports it)}.  from_config raises on any other value.
-_REST = ("ROADMAP.md §1 item 2 (the rest of the CLI and the assembly's "
-         "options)")
 _NOT_PORTED = {
-    "isbi_hack": (False, _REST + ": assembly/isbi_hacks.py"),
-    "isbi_sparsify_stride": (20, _REST + ": assembly/isbi_hacks.py"),
-    "one_instance_per_channel": (False, _REST),
-    "no_overlap_per_channel": (False, _REST),
-    "skipThinCover": (False, _REST),
-    "skipConsensus": (False, _REST),
-    "skipSelection": (False, _REST),
-    "select_patches_overlap_neighborhood": (False, _REST),
-    "mark_close_neighboorhood": (False, _REST),
-    "pad_with_ps": (False, _REST),
-    "vi_bg_use_inv_th": (False, _REST),
-    "score_threshold": (None, _REST),
-    "only_bb": (True, _REST),
-    "crop_to_foreground": (True, _REST),
-    "sample": (1.0, _REST),
-    "seed": (0, _REST),
-    "shuffle_patches": (False, _REST),
-    "store_scores": (False, _REST),
-    "store_intermediates": (False, _REST),
-    "use_score_oracle": (False, _REST),
-    "score_oracle_key": ("volumes/patch_iou", _REST),
-    "oracle_scores": (None, _REST),
-    "selected_patches": (None, _REST),
-    "aff_graph": (None, _REST),
-    "aff_file": (None, _REST),
-    "profile_dir": (None, _REST),
     "sharded_devices": (0, "ROADMAP.md §1 item 3 (multi-device)"),
     "save_mip": (False, "ROADMAP.md §1 item 5 (visualization)"),
     "save_tif": (False, "ROADMAP.md §1 item 5 (visualization)"),
@@ -155,6 +142,41 @@ class VoteInstancesParams:
     skipRanking: bool = False
     selected_patch_pairs: np.ndarray | None = None
     center_valid: np.ndarray | None = None
+    # the options (JAX vote_instances.py:77-196)
+    one_instance_per_channel: bool = False
+    no_overlap_per_channel: bool = False
+    isbi_hack: bool = False
+    isbi_sparsify_stride: int = 20
+    select_patches_overlap_neighborhood: bool = False
+    mark_close_neighboorhood: bool = False  # the reference's spelling
+    pad_with_ps: bool = False
+    skipThinCover: bool = False
+    skipConsensus: bool = False
+    skipSelection: bool = False
+    score_threshold: float | None = None
+    sample: float = 1.0        # < 1: patch-pixel thinning in the cover
+                               # stages, patch-list subsample in the ISBI
+                               # hack (get_patch_sets.py:32-54,
+                               # isbi_hacks.py:25-28)
+    seed: int = 0
+    shuffle_patches: bool = False
+    store_scores: bool = False  # rank scores (+100 at the candidates) back
+                                # into the prediction store
+    store_intermediates: bool = False  # do_all: pairs / weights as .npy
+                                       # beside the result, reused on rerun
+    use_score_oracle: bool = False
+    score_oracle_key: str = "volumes/patch_iou"
+    oracle_scores: np.ndarray | None = None
+    selected_patches: list | None = None
+    aff_graph: np.ndarray | None = None  # with selected_patch_pairs: label
+                                         # the given graph, compute nothing
+    crop_to_foreground: bool = True
+    aff_file: str | None = None          # set by do_all (store_scores)
+    profile_dir: str | None = None       # do_all: torch.profiler trace
+    # read by nothing, in either package: bg_mode is "inv" when the other
+    # two flags are off, and the reference's only_bb is always on
+    vi_bg_use_inv_th: bool = False
+    only_bb: bool = True
 
     @classmethod
     def from_config(cls, cfg: dict, **overrides) -> "VoteInstancesParams":
@@ -287,6 +309,85 @@ class _Stages:
         self.t = now
 
 
+def _pad_all(affs, arrays, rad):
+    """Zero-pad the stack (on its device) and the masks by the patch
+    radius on every spatial side (vote_instances.py:238-248)."""
+    pad = []
+    for r in reversed(rad):
+        pad += [int(r), int(r)]
+    pads = [(int(r), int(r)) for r in rad]
+    return F.pad(affs, pad), [np.pad(np.asarray(a), pads) for a in arrays]
+
+
+def _maybe_unpad(instances, foreground, rad, params):
+    if params.pad_with_ps:
+        sl = tuple(slice(int(r), int(s - r))
+                   for r, s in zip(rad, foreground.shape))
+        foreground = foreground[sl]
+        instances = instances[(Ellipsis,) + sl]
+    return instances.astype(np.uint16), foreground.astype(np.uint8)
+
+
+def _multi_out(params) -> bool:
+    return params.one_instance_per_channel or params.no_overlap_per_channel
+
+
+def _components(pairs, weights, params, dev):
+    if params.mws:
+        return ref.graph_components(pairs, weights)
+    return graph_components_device(pairs, weights, dev)
+
+
+def _paint(comps, affs, ps, vol_shape, params):
+    return ref.components_to_instances(
+        comps, _paint_src(affs, comps, params.patch_threshold), ps,
+        vol_shape, patch_threshold=params.patch_threshold,
+        one_instance_per_channel=params.one_instance_per_channel,
+        no_overlap_per_channel=params.no_overlap_per_channel)
+
+
+def _candidates(cand, affs, foreground, mask_to_cover, ps, params):
+    """The ISBI hack on the candidate centers (vote_instances.py:588-606):
+    the sparse grid, with ``sample < 1`` a subsample of it, and on stacks
+    of more than one slice the boundary filter of the mask to cover.
+    Returns (centers (n, 3), mask to cover)."""
+    vol_shape = foreground.shape
+    pts = isbi_hacks.sparsify_patches([tuple(c) for c in cand],
+                                      params.isbi_sparsify_stride,
+                                      vol_shape=vol_shape)
+    if params.sample < 1.0 and pts:
+        rng = np.random.RandomState(params.seed)
+        n_keep = max(1, int(params.sample * len(pts)))
+        pts = [pts[i] for i in sorted(rng.choice(len(pts), n_keep,
+                                                 replace=False))]
+    if vol_shape[0] > 1:
+        mask_to_cover = isbi_hacks.filter_instance_boundaries_from_fg(
+            affs.cpu().numpy(), foreground, pts, ps, mask_to_cover,
+            patch_threshold=params.patch_threshold)
+    return np.asarray(pts, dtype=np.int64).reshape(-1, 3), mask_to_cover
+
+
+def _write_scores_volume(params: VoteInstancesParams, scores: np.ndarray,
+                         centers: np.ndarray, rad):
+    """Rank scores into the prediction store (ranked_patches.py:147-181):
+    candidate centers +100, key ``volumes/<patch_threshold>/scores`` (dots
+    as underscores), cut by the radius after ``pad_with_ps``."""
+    marked = np.array(scores, dtype=np.float32, copy=True)
+    for c in centers:
+        marked[tuple(int(x) for x in c)] += 100.0
+    if params.pad_with_ps:
+        marked = marked[tuple(slice(int(r), int(s - r))
+                              for r, s in zip(rad, marked.shape))]
+    key = "volumes/{}/scores".format(
+        str(round(float(params.patch_threshold), 2)).replace(".", "_"))
+    marked = np.squeeze(marked)
+    out = vio.open_volume(params.aff_file, mode="r+")
+    out.create(key, marked.shape, np.float32,
+               chunks=[max(1, s // 2) for s in marked.shape])
+    out.write(marked, key=key)
+    out.close()
+
+
 def to_instance_seg(pred_affs, foreground: np.ndarray,
                     mask_to_cover: np.ndarray, numinst: np.ndarray,
                     params: VoteInstancesParams, device="cuda",
@@ -295,9 +396,10 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     """Full assembly of a (P, *vol) affinity stack; *vol is (Z, Y, X),
     with Z == 1 and patchshape (1, p, p) for 2D.
 
-    Returns (instances uint16, foreground uint8) as numpy arrays, or with
-    ``params.return_intermediates`` (pairs, weights), (None, None) where
-    nothing is assembled.  ``timings``, if given, receives per-stage
+    Returns (instances uint16, foreground uint8) as numpy arrays (instances
+    (C, *vol) with ``one_instance_per_channel`` / ``no_overlap_per_channel``),
+    or with ``params.return_intermediates`` (pairs, weights), (None, None)
+    where nothing is assembled.  ``timings``, if given, receives per-stage
     seconds; ``intermediates``, if given, receives the candidate order,
     the selected patches, the pairs and the graph weights, and
     ``consensus`` True once the consensus kernel has run."""
@@ -312,26 +414,54 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     else:
         affs = torch.tensor(np.asarray(pred_affs), dtype=torch.float32,
                             device=dev)
+    if params.pad_with_ps:
+        if params.blockwise:
+            raise ValueError("pad_with_ps pads whole volumes only, not "
+                             "blockwise windows")
+        affs, (foreground, mask_to_cover, numinst) = _pad_all(
+            affs, (foreground, mask_to_cover, numinst), rad)
     foreground = np.asarray(foreground).astype(bool)
     vol_shape = foreground.shape
     inner = ref.interior(vol_shape, rad)
     overlap_mask = (np.asarray(numinst) > 1).astype(np.uint8)
     mask_to_cover = np.asarray(mask_to_cover).astype(bool).copy()
+    if params.isbi_hack and vol_shape[0] > 1:
+        foreground = isbi_hacks.keep_single_slice(foreground)
+        mask_to_cover = isbi_hacks.keep_single_slice(mask_to_cover)
     if not params.blockwise and params.skeletonize_foreground:
         t_skel = time.perf_counter()
         mask_to_cover = skeletonize(mask_to_cover) > 0
         if timings is not None:
             timings["skeletonize"] = time.perf_counter() - t_skel
     mask_to_cover[overlap_mask > 0] = False
-    instances = np.zeros(vol_shape, dtype=np.uint16)
+    instances = np.zeros(((1,) if _multi_out(params) else ()) + vol_shape,
+                         dtype=np.uint16)
 
     def nothing():
         if params.return_intermediates:
             return None, None
-        return instances, foreground.astype(np.uint8)
+        return _maybe_unpad(instances, foreground, rad, params)
 
     if not np.any(mask_to_cover & inner):
         return nothing()
+
+    if params.aff_graph is not None \
+            and params.selected_patch_pairs is not None:
+        # the graph is given (graph_to_labeling.py:16-31): label it
+        pairs = np.asarray(params.selected_patch_pairs)
+        weights = np.asarray(params.aff_graph, dtype=np.float32)
+        if params.return_intermediates:
+            return pairs, weights
+        comps = _components(pairs, weights, params, dev)
+        return _maybe_unpad(_paint(comps, affs, ps, vol_shape, params),
+                            foreground, rad, params)
+    if params.skipConsensus:
+        # the rank and the graph weights both read the consensus: only the
+        # given-graph case above can skip it
+        raise ValueError(
+            "skipConsensus=true requires precomputed selected_patch_pairs "
+            "+ aff_graph (ranking and graph weights both consume the "
+            "consensus array)")
 
     stages = _Stages(timings, dev)
     inter = intermediates if intermediates is not None else {}
@@ -347,7 +477,9 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
         inner = inner & cv_np
         cv = torch.as_tensor(cv_np, device=dev)
     injected = params.selected_patch_pairs is not None
-    skip_rank = params.skipRanking and injected
+    oracle = params.use_score_oracle and params.oracle_scores is not None
+    skip_rank = params.skipRanking and (
+        injected or params.selected_patches is not None)
 
     # (1) consensus: operands in PyTorch (2D: one gated stack and a target
     # plane; 3D: the mask stacks), the canonical half from the kernel
@@ -356,25 +488,43 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     inter["consensus"] = True
     stages.mark("consensus")
 
-    # (2) rank kernel, then a gather of the candidates' scores and the
-    # host stable descending sort (ties keep scan order); injected pairs
-    # with skipRanking (stitch windows) need neither
-    cand = np.argwhere(foreground & inner)
-    if skip_rank:
-        del operands
-        if len(cand) == 0:
-            return nothing()
-    else:
+    # (2) rank kernel (or the oracle's scores, or none when the selection
+    # is given), the candidates' scores gathered, and the host stable
+    # descending sort (ties keep scan order)
+    scores = None
+    if oracle:
+        scores = torch.as_tensor(np.asarray(params.oracle_scores,
+                                            dtype=np.float32), device=dev)
+        if tuple(scores.shape) != vol_shape:
+            raise ValueError(f"oracle scores {tuple(scores.shape)} != "
+                             f"volume {vol_shape}")
+    elif not skip_rank:
         scores = rank_scores(affs, cons, operands, ccfg, cv)
-        del operands
-        if len(cand) == 0:
-            return nothing()
+    del operands
+    cand = np.argwhere(foreground & inner)
+    if params.isbi_hack:
+        cand, mask_to_cover = _candidates(cand, affs, foreground,
+                                          mask_to_cover, ps, params)
+    if len(cand) == 0:
+        return nothing()
+    if scores is None:
+        svals = np.zeros(len(cand), dtype=np.float32)
+    else:
         flat = torch.as_tensor(
             np.ravel_multi_index(tuple(cand.T), vol_shape), device=dev)
         svals = scores.reshape(-1)[flat].cpu().numpy().astype(np.float32)
-        del scores
-        order = np.argsort(-svals, kind="stable")
-        ranked = [(cand[i], float(svals[i])) for i in order]
+    order = np.argsort(-svals, kind="stable")
+    if params.store_scores and params.aff_file:
+        _write_scores_volume(
+            params, np.zeros(vol_shape, np.float32) if scores is None
+            else scores.cpu().numpy(), cand, rad)
+    del scores
+    if params.shuffle_patches:
+        # diagnostic (ranked_patches.py:199-210): no rank order
+        order = order[np.random.RandomState(params.seed).permutation(
+            len(order))]
+    ranked = [(cand[i], float(svals[i])) for i in order]
+    if not skip_rank:
         inter["ranked_centers"] = cand[order]
         inter["ranked_scores"] = svals[order]
     stages.mark("rank")
@@ -384,17 +534,47 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
         # the pair generation
         pairs = np.asarray(params.selected_patch_pairs, dtype=np.uint32)
     else:
-        # (3) greedy cover (4) thin-out set cover
-        selected, _ = greedy_cover_device(
-            affs, mask_to_cover, ranked, ps,
-            fc_threshold=params.fc_threshold, overlap=overlap_mask,
-            sparse_data=params.select_patches_for_sparse_data)
+        # (3) greedy cover (4) thin-out set cover, on each patch's pixels
+        # thinned with sample < 1 (one keep mask, drawn as the JAX
+        # package's host path draws it)
+        given = params.selected_patches is not None or params.skipSelection
+        thin = not (given or params.skipThinCover)
+        cover_affs = affs
+        if params.sample < 1.0 and not given:
+            keep = np.random.RandomState(params.seed).rand(
+                *affs.shape) < params.sample
+            cover_affs = torch.where(torch.as_tensor(keep, device=dev),
+                                     affs, 0.0)
+            del keep
+        if params.selected_patches is not None:
+            selected = [(np.asarray(c), 1.0)
+                        for c in params.selected_patches]
+        elif params.skipSelection:
+            selected = ranked
+        elif (params.score_threshold is not None
+              or params.select_patches_overlap_neighborhood
+              or params.mark_close_neighboorhood):
+            # the options of the host loop: one copy of the stack
+            selected, _ = ref.foreground_cover_reference(
+                cover_affs.cpu().numpy(), mask_to_cover, ranked, ps,
+                fc_threshold=params.fc_threshold, overlap=overlap_mask,
+                sparse_data=params.select_patches_for_sparse_data,
+                score_threshold=params.score_threshold,
+                overlap_neighborhood=(
+                    params.select_patches_overlap_neighborhood),
+                mark_close=params.mark_close_neighboorhood)
+        else:
+            selected, _ = greedy_cover_device(
+                cover_affs, mask_to_cover, ranked, ps,
+                fc_threshold=params.fc_threshold, overlap=overlap_mask,
+                sparse_data=params.select_patches_for_sparse_data)
         inter["cover_centers"] = np.array([c for c, _ in selected])
         stages.mark("cover")
-        if selected:
+        if thin and selected:
             selected = thin_out_cover_device(
-                affs, mask_to_cover, selected, ps,
+                cover_affs, mask_to_cover, selected, ps,
                 fc_threshold=params.fc_threshold)
+        del cover_affs
         inter["thin_centers"] = np.array([c for c, _ in selected])
         stages.mark("thin_cover")
         # (5) patch pairs (host)
@@ -418,16 +598,11 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
 
     # (6) components (host mutex watershed, or label propagation on the
     # device) -> painting
-    if params.mws:
-        comps = ref.graph_components(pairs, weights)
-    else:
-        comps = graph_components_device(pairs, weights, dev)
-    paint = _paint_src(affs, comps, params.patch_threshold)
-    instances = ref.components_to_instances(
-        comps, paint, ps, vol_shape, patch_threshold=params.patch_threshold)
+    comps = _components(pairs, weights, params, dev)
+    instances = _paint(comps, affs, ps, vol_shape, params)
     inter["n_components"] = len(comps)
     stages.mark("mws_paint")
-    return instances.astype(np.uint16), foreground.astype(np.uint8)
+    return _maybe_unpad(instances, foreground, rad, params)
 
 
 def load_affinities(aff_file: str, params: VoteInstancesParams):
@@ -457,11 +632,42 @@ def do_all(aff_file: str, params: VoteInstancesParams,
     for one sample): blockwise assembly streaming from the store when
     ``params.blockwise``, else the whole volume through
     ``to_instance_seg``; then ``finalize_and_write``.  Returns the
-    result's path."""
-    from .blockwise import blockwise_vote_instances_zarr
-
+    result's path.  With ``profile_dir`` the run is traced by
+    torch.profiler into ``<profile_dir>/<sample>.trace.json`` (the JAX
+    package writes a jax.profiler trace there)."""
     result_folder = result_folder or params.result_folder
     os.makedirs(result_folder, exist_ok=True)
+    if not params.profile_dir:
+        return _do_all_inner(aff_file, params, result_folder, device)
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        out = _do_all_inner(aff_file, params, result_folder, device)
+    os.makedirs(params.profile_dir, exist_ok=True)
+    base = os.path.splitext(os.path.basename(aff_file.rstrip("/")))[0]
+    prof.export_chrome_trace(os.path.join(params.profile_dir,
+                                          base + ".trace.json"))
+    return out
+
+
+def _do_all_inner(aff_file, params, result_folder, device):
+    from .blockwise import blockwise_vote_instances_zarr
+
+    base = os.path.splitext(os.path.basename(aff_file.rstrip("/")))[0]
+    params = dataclasses.replace(params, aff_file=aff_file)
+    if params.use_score_oracle and params.oracle_scores is None:
+        # the GT patch-IoU volume evaluate_prediction wrote
+        # (run_ppp.py:1347-1364)
+        oio = vio.open_volume(aff_file, mode="r")
+        oracle = np.squeeze(oio.read(key=params.score_oracle_key)).astype(
+            np.float32)
+        oio.close()
+        params = dataclasses.replace(
+            params, oracle_scores=oracle[None] if oracle.ndim == 2
+            else oracle)
     if params.blockwise:
         instances, fg_out = blockwise_vote_instances_zarr(
             aff_file, params, chunksize=params.chunksize,
@@ -469,10 +675,27 @@ def do_all(aff_file: str, params: VoteInstancesParams,
             device=device)
     else:
         affs, numinst, foreground = load_affinities(aff_file, params)
+        if params.store_intermediates:
+            # pairs and weights once, as .npy beside the result; a rerun
+            # labels from them (aff_patch_graph.py:96-110)
+            pp_path = os.path.join(result_folder,
+                                   base + "_selected_patch_pairs.npy")
+            ag_path = os.path.join(result_folder, base + "_aff_graph.npy")
+            if not (os.path.exists(pp_path) and os.path.exists(ag_path)):
+                pairs, weights = to_instance_seg(
+                    affs, foreground, foreground.copy(), numinst,
+                    dataclasses.replace(params, return_intermediates=True),
+                    device=device)
+                if pairs is not None:
+                    np.save(pp_path, pairs)
+                    np.save(ag_path, np.asarray(weights))
+            if os.path.exists(pp_path):
+                params = dataclasses.replace(
+                    params, selected_patch_pairs=np.load(pp_path),
+                    aff_graph=np.load(ag_path))
         instances, fg_out = to_instance_seg(
             affs, foreground, foreground.copy(), numinst, params,
             device=device)
-    base = os.path.splitext(os.path.basename(aff_file.rstrip("/")))[0]
     return finalize_and_write(instances, fg_out, params, base,
                               result_folder)
 
@@ -488,27 +711,30 @@ def _write_label_volume(io, key: str, arr: np.ndarray):
 
 def finalize_and_write(instances, fg_out, params: VoteInstancesParams,
                        base: str, result_folder: str) -> str:
-    """Small-component removal, the crop to the foreground and the result
-    store
+    """Small-component removal, the crop to the foreground (with
+    ``crop_to_foreground``) and the result store
     ``<result_folder>/<base>.zarr`` (vote_instances.py:521-554 and the
     stitch's post outputs, stitch_patch_graph.py:823-895): ``res_key``,
-    ``vote_foreground``, ``vote_instances_masked`` and, with
-    ``dilate_instances``, ``<res_key>_dil_1`` / ``<res_key>_masked_dil_1``.
-    An existing store keeps its other keys.  Shared by ``do_all`` and the
-    CLI's ``infer_fused``."""
+    ``vote_foreground``, ``vote_instances_masked`` (always cropped) and,
+    with ``dilate_instances``, ``<res_key>_dil_1`` /
+    ``<res_key>_masked_dil_1``.  Multi-channel maps (C, *vol) are cropped
+    channel by channel.  An existing store keeps its other keys.  Shared
+    by ``do_all`` and the CLI's ``infer_fused``."""
     instances = np.asarray(instances)
     fg_out = np.asarray(fg_out)
+    bg = (slice(None),) * (instances.ndim - fg_out.ndim) + (fg_out == 0,)
     if params.remove_small_comps > 0:
         instances = remove_small_components(instances,
                                             params.remove_small_comps)
     instances = instances.copy()
-    instances[fg_out == 0] = 0
+    if params.crop_to_foreground:
+        instances[bg] = 0
     out_path = os.path.join(result_folder, base + ".zarr")
     out = vio.IoZarr(out_path, mode="a")
     _write_label_volume(out, params.res_key, instances)
     _write_label_volume(out, "vote_foreground", fg_out.astype(np.uint8))
     masked = instances.copy()
-    masked[fg_out == 0] = 0
+    masked[bg] = 0
     _write_label_volume(out, "vote_instances_masked", masked)
     if params.dilate_instances:
         # per-label 1-iteration binary dilation; later (higher) labels win
@@ -521,7 +747,7 @@ def finalize_and_write(instances, fg_out, params: VoteInstancesParams,
             instdil[grown] = lbl
         _write_label_volume(out, params.res_key + "_dil_1", instdil)
         mdil = instdil.copy()
-        mdil[fg_out == 0] = 0
+        mdil[bg] = 0
         _write_label_volume(out, params.res_key + "_masked_dil_1", mdil)
     out.close()
     return out_path

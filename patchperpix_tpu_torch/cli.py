@@ -3,8 +3,9 @@
 Counterpart of ``patchperpix_tpu/cli.py`` (reference experiments/run_ppp.py):
 ``mknet``, ``train``, ``validate_checkpoints`` / ``validate``, ``predict``,
 ``decode``, ``label``, ``infer_fused``, ``evaluate``,
-``evaluate_prediction``, ``postprocess`` and ``all`` (``mknet train
-validate_checkpoints predict decode label evaluate``), with the JAX CLI's
+``evaluate_prediction``, ``postprocess``, ``cross_validate``, ``cleanup``
+and ``all`` (``mknet train validate_checkpoints predict decode label
+evaluate``), with the JAX CLI's
 experiment folders, layered TOML config with ``--set`` overrides, the
 merged config written back into the run directory, per-stage wall-time
 logging and skip-if-exists resume.
@@ -19,13 +20,15 @@ What differs from the JAX CLI:
   (``weights.write_checkpoint``), not orbax directories; training
   snapshots are zarr stores, not ``.hdf``.
 - Results are ``<sample>.zarr`` stores in the instanced folder (the JAX
-  package writes ``.hdf``), under the same keys; ``evaluate`` and
-  ``postprocess`` read them.
+  package writes ``.hdf``), under the same keys; ``evaluate``,
+  ``postprocess`` and ``cleanup`` look for them.
+- ``[evaluation] num_workers > 1`` evaluates samples in processes started
+  with ``spawn`` (a forked child of a process that has used CUDA breaks).
 - Samples are not sharded over hosts, ``training.num_devices > 1`` raises
   (multi-device is ROADMAP.md §1 item 3), and no git diff of the source
   is stored with the config.
-- ``cross_validate``, ``visualize`` and ``cleanup`` raise
-  NotImplementedError naming the ROADMAP.md item that ports them.
+- ``visualize`` raises NotImplementedError naming the ROADMAP.md item
+  that ports it.
 
 Usage:
   python -m patchperpix_tpu_torch.cli -c configs/flylight_crop_dec.toml \\
@@ -38,16 +41,18 @@ from __future__ import annotations
 
 import argparse
 import ast
+import copy
 import dataclasses
 import functools
 import glob
 import json
 import logging
+import multiprocessing
 import os
 import re
 import shutil
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from datetime import datetime
 
 import numpy as np
@@ -69,8 +74,6 @@ TASKS = ["all", "mknet", "train", "validate_checkpoints", "validate",
          "cleanup"]
 # tasks of later slices: {task: the ROADMAP.md item that ports it}
 NOT_PORTED = {
-    "cross_validate": "ROADMAP.md §1 item 2 (the rest of the CLI)",
-    "cleanup": "ROADMAP.md §1 item 2 (the rest of the CLI)",
     "visualize": "ROADMAP.md §1 item 5 (visualization)",
 }
 
@@ -660,13 +663,20 @@ def evaluate(args, config, paths, mode=None, checkpoint=None,
                 gt_file, partly = partly_gt, True
         jobs.append((s, path, gt_file, partly))
 
-    if int(ev.get("num_workers", 1)) > 1:
-        raise NotImplementedError(
-            "[evaluation] num_workers > 1 is not ported yet (ROADMAP.md §1 "
-            "item 2): samples are evaluated in turn")
     complete = {s: not partly for s, _p, _g, partly in jobs}
-    metric_dicts = {s: evaluate_file(p, g, partly=partly, **kwargs)
+    n_workers = int(ev.get("num_workers", 1))
+    if n_workers > 1 and len(jobs) > 1:
+        # host numpy per sample (ref joblib, run_ppp.py:1469-1475)
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=n_workers,
+                                 mp_context=ctx) as ex:
+            futs = {s: ex.submit(evaluate_file, p, g, partly=partly,
+                                 **kwargs)
                     for s, p, g, partly in jobs}
+            metric_dicts = {s: f.result() for s, f in futs.items()}
+    else:
+        metric_dicts = {s: evaluate_file(p, g, partly=partly, **kwargs)
+                        for s, p, g, partly in jobs}
     for s, res in metric_dicts.items():
         with open(os.path.join(eval_dir, s + ".json"), "w") as f:
             json.dump(res, f, indent=2, default=float)
@@ -824,6 +834,82 @@ def validate_checkpoints(args, config, paths, mode=None,
     return out
 
 
+@time_func
+def cross_validate(args, config, paths):
+    """Two-fold cross validation over the configured folds
+    (run_ppp.py:1674-1971): the best checkpoint and parameters selected on
+    one fold are applied to the other and back; ``results_<mode>.json``
+    per selection, ``cross_val_results.json`` with each fold's applied
+    score, their mean and, with ``[evaluation] average_over_instances``,
+    the scores accumulated over instances."""
+    from .evaluate import (average_score_over_instances,
+                           average_score_with_instance_counts)
+
+    metric_key = config.get("evaluation", {}).get(
+        "metric", "confusion_matrix.avFscore")
+    folds = config.get("data", {}).get("cross_val_folders",
+                                       ["val_data", "test_data"])
+    fold_modes = {"val_data": "val", "test_data": "test"}
+    over_instances = config.get("evaluation", {}).get(
+        "average_over_instances", False)
+    fold_counts = []
+    results = {}
+    for select_fold, apply_fold in (tuple(folds), tuple(reversed(folds))):
+        sel_mode = fold_modes.get(select_fold, "val")
+        app_mode = fold_modes.get(apply_fold, "test")
+        args_sel = copy.copy(args)
+        args_sel.mode = sel_mode
+        r = validate_checkpoints(args_sel, config, paths, mode=sel_mode,
+                                 results_name=f"results_{sel_mode}.json")
+        best = r["best"]
+        if best is None:
+            continue
+        cp = best["checkpoint"]
+        predict(args, config, paths, mode=app_mode, checkpoint=cp)
+        decode(args, config, paths, mode=app_mode, checkpoint=cp)
+        label(args, config, paths, mode=app_mode, checkpoint=cp,
+              param_overrides=best["params"])
+        mdicts = evaluate(args, config, paths, mode=app_mode, checkpoint=cp)
+        entry = {"best": best,
+                 "applied_score": _metric_of(mdicts, metric_key)}
+        if over_instances:
+            avs, counts = average_score_over_instances(mdicts)
+            entry["applied_score_over_instances"] = avs
+            fold_counts.append(counts)
+        results[f"{select_fold}->{apply_fold}"] = entry
+    scores = [v["applied_score"] for v in results.values()]
+    results["mean_score"] = float(np.mean(scores)) if scores else None
+    if over_instances and len(fold_counts) == 2:
+        _, acc = average_score_with_instance_counts(*fold_counts)
+        results["instance_weighted"] = acc
+    with open(os.path.join(paths["base"], "cross_val_results.json"),
+              "w") as f:
+        json.dump(results, f, indent=2, default=float)
+    return results
+
+
+@time_func
+def cleanup(args, config, paths):
+    """Delete the prediction stores of the val and test splits whose
+    instance store exists (run_ppp.py:1092-1107).  The port's results are
+    ``<sample>.zarr`` (the JAX CLI tests for ``<sample>.hdf``); a result
+    store counts once it holds ``vote_instances_masked``, which
+    ``finalize_and_write`` writes under every ``res_key``, so a prediction
+    without its instances stays."""
+    checkpoint = _resolve_checkpoint(args, config, paths)
+    removed = []
+    for mode in ("val", "test"):
+        proc = os.path.join(paths[f"{mode}_processed"], str(checkpoint))
+        inst = os.path.join(paths[f"{mode}_instanced"], str(checkpoint))
+        for path in sorted(glob.glob(os.path.join(proc, "*.zarr"))):
+            s = os.path.splitext(os.path.basename(path))[0]
+            if vio.check_file(os.path.join(inst, s + ".zarr"),
+                              keys=["vote_instances_masked"]):
+                shutil.rmtree(path, ignore_errors=True)
+                removed.append(path)
+    return removed
+
+
 def _not_ported(task):
     def run(args, config, paths):
         raise NotImplementedError(
@@ -874,7 +960,8 @@ def main(argv=None):
         "validate": validate_checkpoints,
         "label": label, "infer_fused": infer_fused, "evaluate": evaluate,
         "evaluate_prediction": evaluate_prediction,
-        "postprocess": postprocess,
+        "postprocess": postprocess, "cross_validate": cross_validate,
+        "cleanup": cleanup,
     }
     for task in tasks:
         logger.info("=== task %s ===", task)

@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .np_reference import patch_offsets
 
 
 def _unravel(idx: torch.Tensor, shape) -> torch.Tensor:
@@ -100,24 +99,29 @@ def gt_affinities_dense(labels, patchshape, device="cuda") -> torch.Tensor:
     """labels (B, C, *S) integers (numpy or tensor) -> (B, P, *(S - 2 *
     (ps // 2))) float32 on ``device``: channel p at interior pixel x
     compares x with x + offset(p) - rad, so the output covers the pixels
-    whose whole patch window is in bounds."""
+    whose whole patch window is in bounds.  All P offsets at once, through
+    a strided view of the labels (one pass of a few kernels, not a loop of
+    P: at 25x25 patches the loop's ~4,000 launches were most of a
+    training step)."""
     dev = resolve_device(device)
     if not torch.is_tensor(labels):
         labels = torch.from_numpy(np.asarray(labels, dtype=np.int64))
-    labels = labels.to(device=dev, dtype=torch.int64)
-    ps = np.asarray(patchshape, dtype=np.int64)
-    rad = ps // 2
-    spatial = np.array(labels.shape[2:])
+    labels = labels.to(device=dev, dtype=torch.int64).contiguous()
+    ps = tuple(int(p) for p in patchshape)
+    rad = [p // 2 for p in ps]
+    spatial = labels.shape[2:]
     out_sp = tuple(int(s - 2 * r) for s, r in zip(spatial, rad))
-    fg = (labels != 0).any(dim=1)                        # (B, *S)
-    center_sl = tuple(slice(int(r), int(r + o)) for r, o in zip(rad, out_sp))
-    center = labels[(slice(None), slice(None)) + center_sl]
-    fg_center = fg[(slice(None),) + center_sl]
-    out = torch.empty((labels.shape[0], len(patch_offsets(ps))) + out_sp,
-                      dtype=torch.float32, device=dev)
-    for p, start in enumerate(patch_offsets(ps)):
-        sl = tuple(slice(int(s), int(s + o)) for s, o in zip(start, out_sp))
-        other = labels[(slice(None), slice(None)) + sl]
-        same = ((center == other) & (center != 0)).any(dim=1)
-        out[:, p] = (same & fg_center & fg[(slice(None),) + sl]).float()
-    return out
+    nd = len(ps)
+    # win[b, c, q, x] = labels[b, c, x + q]: q over the patch, x over the
+    # interior (both in C order, so q flattens to the patch index p)
+    st = labels.stride()
+    win = labels.as_strided(labels.shape[:2] + ps + out_sp,
+                            st[:2] + st[2:] + st[2:])
+    center = labels[(slice(None), slice(None)) + tuple(
+        slice(r, r + o) for r, o in zip(rad, out_sp))]
+    center = center.reshape(center.shape[:2] + (1,) * nd + out_sp)
+    same = ((win == center) & (center != 0)).any(dim=1)
+    fg_other = (win != 0).any(dim=1)
+    fg_center = (center != 0).any(dim=1)
+    out = same & fg_other & fg_center
+    return out.reshape((labels.shape[0], int(np.prod(ps))) + out_sp).float()

@@ -1,6 +1,5 @@
 """Label postprocessing; counterpart of ``patchperpix_tpu/utils/postprocess.py``
-trimmed to what the port's paths run (``postprocess_fg``, ``color_labels``
-and ``crop_to_shape`` are not ported)."""
+(reference PatchPerPix/util/postprocess.py:12-199)."""
 
 from __future__ import annotations
 
@@ -50,6 +49,42 @@ def clean_mask(mask: np.ndarray, min_size: int) -> np.ndarray:
     keep = np.zeros(n + 1, dtype=bool)
     keep[1:] = counts[1:] >= min_size
     return keep[lab]
+
+
+def postprocess_fg(fg: np.ndarray, min_size: int = 0,
+                   max_dist_to_big: float | None = None) -> np.ndarray:
+    """Foreground components as instances: label the components (full
+    connectivity), drop those under ``min_size`` pixels unless within
+    ``max_dist_to_big`` of a big one, relabel 1..N (uint16)."""
+    lab, n = connected_components(fg > 0, connectivity=fg.ndim)
+    if n == 0:
+        return lab.astype(np.uint16)
+    counts = np.bincount(lab.ravel())
+    big = np.isin(lab, np.where(counts >= max(min_size, 1))[0][1:])
+    if max_dist_to_big is not None and big.any():
+        dist = ndimage.distance_transform_edt(~big)
+        keep = big | ((lab > 0) & (dist <= max_dist_to_big))
+    else:
+        keep = big
+    out = lab.copy()
+    out[~keep] = 0
+    return relabel(out).astype(np.uint16)
+
+
+def color_labels(labels: np.ndarray, seed: int = 0) -> np.ndarray:
+    """(..., 3) uint8 random colours of a label volume, 0 black."""
+    rng = np.random.RandomState(seed)
+    lut = rng.randint(64, 255, size=(int(labels.max()) + 1, 3),
+                      dtype=np.uint8)
+    lut[0] = 0
+    return lut[labels]
+
+
+def crop_to_shape(arr: np.ndarray, shape) -> np.ndarray:
+    """Centre crop of the trailing axes to ``shape``."""
+    offsets = [(s - t) // 2 for s, t in zip(arr.shape[-len(shape):], shape)]
+    return arr[(Ellipsis,) + tuple(slice(o, o + t)
+                                   for o, t in zip(offsets, shape))]
 
 
 def postprocess_instances(result_path: str, res_key: str = "vote_instances",

@@ -73,9 +73,31 @@ Writes, from the repository's own files (nothing is downloaded):
   1e-4 limits, up to TRAIN_WIDEN_CAP), and the float64 step's gradient
   norms and entries.
 
+- ``data/synth_isbi_zlib/{train,val,test}/*.zarr`` and
+  ``parity/torch_port_isbi_ref_f32.npz`` / ``.json`` (``--isbi [PART
+  ...]``): first a zlib copy of every array of ``data/synth_isbi`` (its
+  blosc stores, read by the JAX package's tensorstore reader) under the
+  same keys, chunks and types, which the port's store reads (only
+  without PART); then the JAX package's CPU float32 runs of
+  chip_smoke.py's isbi phase, by part (all five without PART): ``a``
+  ``to_instance_seg`` of ``configs/isbi_rehearsal.toml``'s
+  [vote_instances] on the ideal 25x25 affinities of both test samples at
+  512^2 (instance maps, kept candidates, metric dicts; ~10 min and ~12 GB
+  per sample); ``b`` ``keep_single_slice``, the sparse grid and the ISBI
+  boundary filter on chip_smoke's seeded three-slice stack; ``c`` the JAX
+  CLI's ``mknet predict label evaluate cross_validate`` with the
+  rehearsal config on the zlib copy, float32, from a seeded checkpoint
+  (``chip_smoke.isbi_seeded_tree``; four 512^2 labels, ~25-35 min); ``d`` the full-width ``configs/isbi2012.toml`` model
+  (seeded) on one 512^2 test window: sampled affinities and foreground,
+  per-channel means; ``e`` one float32 train step of the rehearsal model
+  on chip_smoke's fixed batch (loss parts, gradient samples), then in a
+  subprocess ``--isbi-f64``, the same step in float64 by the JAX package.
+  Each part is merged into the stored files, the others kept.
+
 Usage: JAX_PLATFORMS=cpu python scripts/export_torch_fixtures.py
        [--params-only | --2d [H W] | --model2d | --blockwise [S] | --cli
-        | --bf16 | --train | --train-step | --train-f64]
+        | --bf16 | --train | --train-step | --train-f64
+        | --isbi [a b c d e] | --isbi-f64]
 """
 
 import json
@@ -105,6 +127,7 @@ BF16_NPZ = os.path.join(ROOT, "parity", "torch_port_ref_bf16.npz")
 BF16_JSON = os.path.join(ROOT, "parity", "torch_port_ref_bf16.json")
 TRAIN_NPZ = os.path.join(ROOT, "parity", "torch_port_train_ref_f32.npz")
 TRAIN_JSON = os.path.join(ROOT, "parity", "torch_port_train_ref_f32.json")
+ISBI_SRC = os.path.join(ROOT, "data", "synth_isbi")
 
 
 def flatten(tree, prefix=""):
@@ -643,6 +666,123 @@ class _JnpF64:
         return getattr(self._jnp, "float64" if name == "float32" else name)
 
 
+def _grads_as_state():
+    """An optax transformation that keeps the gradients as its state, so a
+    train step's gradients can be read."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    return optax.GradientTransformation(
+        lambda p: p,
+        lambda g, st, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+
+
+def _nest(flat, dtype=None):
+    """{'a/b/c': array} -> nested dict of jax arrays (in ``dtype``)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    tree = {}
+    for key, val in flat.items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = jnp.asarray(val if dtype is None
+                                      else np.asarray(val, dtype))
+    return tree
+
+
+def _leaves(model, shape):
+    """[name, shape] of every parameter of a Flax model, by eval_shape on
+    an input of ``shape``."""
+    import jax
+    import jax.numpy as jnp
+
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros(shape), method=model.full_init))
+    return [[k, list(v.shape)] for k, v in sorted(flatten(shapes).items())]
+
+
+def _step_f64(cfg, flat, raw, labels, key, corners=None):
+    """One ``make_train_step`` of the JAX package under jax_enable_x64
+    (enabled by the caller): a float64 model, float64 parameters, its
+    heads and losses in float64; ``corners`` (if given) replace the code
+    corners the step draws, since x64 draws others.  Returns (grads,
+    metrics)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.ops.affinities import (gt_affinities_dense,
+                                                gt_affinities_sampled,
+                                                sample_fg_corners)
+    from patchperpix_tpu.train import trainer as jt
+
+    cfg = dataclasses.replace(cfg, dtype="float64")
+    model = jm.PPPModel(cfg)
+    params = _nest(flat, np.float64)
+    step, _ = jt.make_train_step(model, cfg, jt.TrainConfig(),
+                                 _grads_as_state())
+
+    def stored_corners(rng, gt_fg, n):
+        _, valid = sample_fg_corners(rng, gt_fg, n)
+        return jnp.asarray(corners, jnp.int32), valid
+
+    def x32(fn):
+        # the 0/1 targets: their window starts mix Python ints into
+        # int32 indices, which x64 would make int64
+        def run(*args):
+            with jax.enable_x64(False):
+                return fn(*args)
+        return run
+
+    jnp_f32, jt.jnp = jt.jnp, _JnpF64(jnp)
+    if corners is not None:
+        jt.sample_fg_corners = stored_corners
+    jt.gt_affinities_sampled = x32(gt_affinities_sampled)
+    jt.gt_affinities_dense = x32(gt_affinities_dense)
+    try:
+        _, grads, mets = step(params, params, jnp.asarray(raw, jnp.float64),
+                              jnp.asarray(labels), key)
+    finally:
+        jt.jnp, jt.sample_fg_corners = jnp_f32, sample_fg_corners
+        jt.gt_affinities_sampled = gt_affinities_sampled
+        jt.gt_affinities_dense = gt_affinities_dense
+    return grads, mets
+
+
+def _f64_record(want, out, branch, grads, mets, source):
+    """The f32 step's errors against the float64 one into ``want`` (the
+    branch's record) and the float64 gradient samples into ``out``."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    err = {"loss": {}, "grads": {}, "source": source}
+    for k in ("loss", "loss_patch", "loss_fg"):
+        err["loss"][k] = (abs(want["metrics"][k] - float(mets[k]))
+                          / abs(float(mets[k])))
+    norms = {}
+    for name, g in sorted(flatten(grads).items()):
+        g = np.asarray(g, np.float64).reshape(-1)
+        assert g.dtype == np.float64
+        err["grads"][name] = cs.leaf_rel_err(
+            name, g, want["grad_norms"][name], out[f"{branch}/{name}"])
+        norms[name] = float(np.linalg.norm(g))
+        out[f"f64/{branch}/{name}"] = g[cs.grad_sample_index(name, g.size)]
+    want["float64_err"] = err
+    want["float64_metrics"] = {k: float(mets[k]) for k in
+                               ("loss", "loss_patch", "loss_fg")}
+    want["float64_grad_norms"] = norms
+    print(branch, json.dumps(err["loss"]),
+          max(err["grads"].items(), key=lambda kv: kv[1]), flush=True)
+
+
 def export_train_f64():
     """The JAX f32 step's own rounding error, measured by the JAX package
     alone: the stored step's batch and corners through the same
@@ -652,22 +792,14 @@ def export_train_f64():
     step against this one (gradients compared as chip_smoke.leaf_rel_err
     compares them) as ``float64_err``, and the float64 step's leaf norms
     and seeded entries beside the f32 ones."""
-    import dataclasses
-
     import jax
 
     jax.config.update("jax_enable_x64", True)
-    import jax.numpy as jnp
     import numpy as np
-    import optax
 
     import chip_smoke as cs
     from patchperpix_tpu import models as jm
-    from patchperpix_tpu.ops.affinities import (gt_affinities_dense,
-                                                gt_affinities_sampled,
-                                                sample_fg_corners)
     from patchperpix_tpu.train import data as jd
-    from patchperpix_tpu.train import trainer as jt
     from patchperpix_tpu_torch.weights import load_npz, seeded_tree
 
     with open(TRAIN_JSON) as f:
@@ -676,81 +808,21 @@ def export_train_f64():
         out = dict(z)
     raw, labels, _, _ = cs.train_batch(jd, out["centres"].astype(np.int64))
     key = jax.random.PRNGKey(meta["corner_key"])
-    grads_as_state = optax.GradientTransformation(
-        lambda p: p,
-        lambda g, st, p=None: (jax.tree.map(jnp.zeros_like, g), g))
     for branch, path in (("code", cs.CLI_CONFIG),
                          ("dense", cs.TRAIN_DENSE_CONFIG)):
-        cfg = dataclasses.replace(cs.train_model_config(jm, path),
-                                  dtype="float64")
-        model = jm.PPPModel(cfg)
+        cfg = cs.train_model_config(jm, path)
         if branch == "code":
             flat = load_npz()
         else:
-            shapes = jax.eval_shape(lambda: model.init(
-                jax.random.PRNGKey(0), jnp.zeros((1, 3, 8, 8, 8)),
-                method=model.full_init))
-            flat = seeded_tree([[k, list(v.shape)] for k, v in
-                                sorted(flatten(shapes).items())],
+            flat = seeded_tree(_leaves(jm.PPPModel(cfg), (1, 3, 8, 8, 8)),
                                cs.TRAIN_SEED)
-        params = {}
-        for name, val in flat.items():
-            node = params
-            parts = name.split("/")
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = jnp.asarray(np.asarray(val, np.float64))
-        step, _ = jt.make_train_step(model, cfg, jt.TrainConfig(),
-                                     grads_as_state)
-        def stored_corners(rng, gt_fg, n):
-            # under x64 the same key draws other corners: take the f32
-            # step's, and its validity rows
-            _, valid = sample_fg_corners(rng, gt_fg, n)
-            return jnp.asarray(out["corners"], jnp.int32), valid
-
-        def x32(fn):
-            # the 0/1 targets: their window starts mix Python ints into
-            # int32 indices, which x64 would make int64
-            def run(*args):
-                with jax.enable_x64(False):
-                    return fn(*args)
-            return run
-
-        jnp_f32, jt.jnp = jt.jnp, _JnpF64(jnp)
-        jt.sample_fg_corners = stored_corners
-        jt.gt_affinities_sampled = x32(gt_affinities_sampled)
-        jt.gt_affinities_dense = x32(gt_affinities_dense)
-        try:
-            _, grads, mets = step(params, params,
-                                  jnp.asarray(raw, jnp.float64),
-                                  jnp.asarray(labels), key)
-        finally:
-            jt.jnp, jt.sample_fg_corners = jnp_f32, sample_fg_corners
-            jt.gt_affinities_sampled = gt_affinities_sampled
-            jt.gt_affinities_dense = gt_affinities_dense
-        want = meta["branches"][branch]
-        err = {"loss": {}, "grads": {},
-               "source": "the JAX package in float64 on the CPU "
-                         "(jax_enable_x64, scripts/export_torch_fixtures.py"
-                         " --train-f64)"}
-        for k in ("loss", "loss_patch", "loss_fg"):
-            err["loss"][k] = (abs(want["metrics"][k] - float(mets[k]))
-                              / abs(float(mets[k])))
-        norms = {}
-        for name, g in sorted(flatten(grads).items()):
-            g = np.asarray(g, np.float64).reshape(-1)
-            assert g.dtype == np.float64
-            err["grads"][name] = cs.leaf_rel_err(
-                name, g, want["grad_norms"][name], out[f"{branch}/{name}"])
-            norms[name] = float(np.linalg.norm(g))
-            out[f"f64/{branch}/{name}"] = g[cs.grad_sample_index(
-                name, g.size)]
-        want["float64_err"] = err
-        want["float64_metrics"] = {k: float(mets[k]) for k in
-                                   ("loss", "loss_patch", "loss_fg")}
-        want["float64_grad_norms"] = norms
-        print(branch, json.dumps(err["loss"]),
-              max(err["grads"].items(), key=lambda kv: kv[1]), flush=True)
+        grads, mets = _step_f64(
+            cfg, flat, raw, labels, key,
+            corners=out["corners"] if branch == "code" else None)
+        _f64_record(meta["branches"][branch], out, branch, grads, mets,
+                    "the JAX package in float64 on the CPU "
+                    "(jax_enable_x64, scripts/export_torch_fixtures.py"
+                    " --train-f64)")
     np.savez_compressed(TRAIN_NPZ, **out)
     with open(TRAIN_JSON, "w") as f:
         json.dump(meta, f, indent=1)
@@ -766,7 +838,6 @@ def export_train(with_runs=True):
     import jax
     import jax.numpy as jnp
     import numpy as np
-    import optax
 
     import chip_smoke as cs
     from patchperpix_tpu import models as jm
@@ -776,19 +847,6 @@ def export_train(with_runs=True):
     from patchperpix_tpu.train.device_data import DeviceSampler
     from patchperpix_tpu_torch.weights import load_npz, seeded_tree
 
-    def nest(flat):
-        tree = {}
-        for key, val in flat.items():
-            node = tree
-            parts = key.split("/")
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = jnp.asarray(val)
-        return tree
-
-    grads_as_state = optax.GradientTransformation(
-        lambda p: p,
-        lambda g, st, p=None: (jax.tree.map(jnp.zeros_like, g), g))
     raw, labels, centres, sample = cs.train_batch(jd)
     key = jax.random.PRNGKey(cs.TRAIN_CORNER_KEY)
     out = {"centres": centres.astype(np.int16)}
@@ -804,16 +862,12 @@ def export_train(with_runs=True):
         cfg = cs.train_model_config(jm, path)
         model = jm.PPPModel(cfg)
         if branch == "code":
-            params = nest(load_npz())
+            params = _nest(load_npz())
         else:
-            shapes = jax.eval_shape(lambda: model.init(
-                jax.random.PRNGKey(0), jnp.zeros((1, 3, 8, 8, 8)),
-                method=model.full_init))
-            leaves = [[k, list(v.shape)]
-                      for k, v in sorted(flatten(shapes).items())]
-            params = nest(seeded_tree(leaves, cs.TRAIN_SEED))
+            params = _nest(seeded_tree(_leaves(model, (1, 3, 8, 8, 8)),
+                                       cs.TRAIN_SEED))
         step, _ = jt.make_train_step(model, cfg, jt.TrainConfig(),
-                                     grads_as_state)
+                                     _grads_as_state())
         t0 = time.perf_counter()
         _, grads, mets = step(params, params, jnp.asarray(raw),
                               jnp.asarray(labels), key)
@@ -889,6 +943,310 @@ def export_train(with_runs=True):
     print(f"written {TRAIN_NPZ} ({os.path.getsize(TRAIN_NPZ)} bytes)")
 
 
+def export_isbi_zlib():
+    """A zlib copy of every array of data/synth_isbi (blosc, read by the
+    JAX package's tensorstore reader) under the same keys, chunks and
+    types, checked by reading it back through the port's store."""
+    import glob
+    import shutil
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu.utils import io as jio
+    from patchperpix_tpu_torch.utils import io as tio
+
+    n = 0
+    for src in sorted(glob.glob(os.path.join(ISBI_SRC, "*", "*.zarr"))):
+        dst = os.path.join(cs.ISBI_DATA, os.path.relpath(src, ISBI_SRC))
+        shutil.rmtree(dst, ignore_errors=True)
+        jin, tout = jio.IoZarr(src, mode="r"), tio.IoZarr(dst, mode="w")
+        for key in ("volumes/raw", "volumes/gt_instances"):
+            with open(os.path.join(src, key, ".zarray")) as f:
+                meta = json.load(f)
+            arr = np.asarray(jin.read(key=key))
+            tout.create(key, arr.shape, arr.dtype, chunks=meta["chunks"])
+            tout.write(arr, key=key)
+            assert np.array_equal(tio.IoZarr(dst).read(key=key), arr)
+            n += 1
+        jin.close()
+        tout.close()
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(cs.ISBI_DATA) for f in fs)
+    print(f"written {cs.ISBI_DATA}: {n} arrays, {size} bytes", flush=True)
+
+
+def _isbi_part_a():
+    """(a) the rehearsal's assembly on the ideal affinities of both test
+    samples at full size."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu.assembly import isbi_hacks as jh
+    from patchperpix_tpu.assembly.vote_instances import (VoteInstancesParams,
+                                                         to_instance_seg)
+    from patchperpix_tpu.evaluate import evaluate_labels
+
+    params = VoteInstancesParams.from_config(cs.isbi_vote_kwargs())
+    rad = np.asarray(params.patchshape) // 2
+    arrays, meta = {}, {}
+    for sample in cs.ISBI_TEST:
+        affs, fg, gt = cs.isbi_ideal(sample)
+        inner = np.zeros(fg.shape, bool)
+        inner[tuple(slice(int(r), int(s - r))
+                    for r, s in zip(rad, fg.shape))] = True
+        kept = jh.sparsify_patches([tuple(c) for c in np.argwhere(
+            fg & inner)], params.isbi_sparsify_stride, vol_shape=fg.shape)
+        t0 = time.perf_counter()
+        inst, fg_out = to_instance_seg(affs, fg, fg.copy(),
+                                       fg.astype(np.uint8), params)
+        sec = time.perf_counter() - t0
+        inst = np.asarray(inst, np.uint16)
+        inst[np.asarray(fg_out) == 0] = 0
+        metrics = evaluate_labels(inst, gt, **cs.isbi_eval_kwargs())
+        arrays[f"a/{sample}/inst"] = inst
+        meta[sample] = {"cpu_seconds": round(sec, 1),
+                        "n_candidates": len(kept),
+                        "n_instances": int(len(np.unique(inst[inst > 0]))),
+                        "metrics": metrics}
+        print("a", sample, sec, meta[sample]["n_instances"],
+              metrics["general"]["rand_fscore"], flush=True)
+    return arrays, {"assembly": meta}
+
+
+def _isbi_part_b():
+    """(b) keep_single_slice, the sparse candidate grid and the boundary
+    filter on the seeded three-slice stack.  The filter takes every
+    interior candidate of the kept slice: on the stride-20 grid no pixel
+    lies in the rings of the 0.33 * 625 patches it takes to drop it."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu.assembly import isbi_hacks as jh
+
+    affs, fg = cs.isbi_stack()
+    ps = np.array([1, 25, 25])
+    rad = ps // 2
+    keep = jh.keep_single_slice(fg)
+    inner = np.zeros(fg.shape, bool)
+    inner[tuple(slice(int(r), int(s - r))
+                for r, s in zip(rad, fg.shape))] = True
+    cand = [tuple(c) for c in np.argwhere(keep & inner)]
+    pts = jh.sparsify_patches(cand, 20, vol_shape=fg.shape)
+    mask = jh.filter_instance_boundaries_from_fg(affs, fg, cand, ps,
+                                                 keep.copy())
+    print("b", len(pts), len(cand), int(keep.sum()), int(mask.sum()),
+          flush=True)
+    return ({"b/keep": np.packbits(keep), "b/mask": np.packbits(mask),
+             "b/grid": np.asarray(pts, np.int16)},
+            {"boundary": {"shape": list(fg.shape), "n_grid": len(pts),
+                          "n_candidates": len(cand),
+                          "keep_vox": int(keep.sum()),
+                          "mask_vox": int(mask.sum())}})
+
+
+def _isbi_part_c():
+    """(c) the JAX CLI's chain and cross_validate with the rehearsal config
+    on the zlib copy, float32, from a seeded checkpoint."""
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu import cli as jcli
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.train.trainer import checkpoint_path, save_checkpoint
+    from patchperpix_tpu.utils import io as jio
+    from patchperpix_tpu_torch.models.init import flax_leaves
+    from patchperpix_tpu_torch import models as tm
+
+    cfg = cs.train_model_config(jm, cs.ISBI_CONFIG)
+    leaves = _leaves(jm.PPPModel(cfg), (1, 1, 64, 64))
+    assert [(k, tuple(v)) for k, v in leaves] == sorted(
+        flax_leaves(cs.train_model_config(tm, cs.ISBI_CONFIG)))
+    work = tempfile.mkdtemp(prefix="ppp_isbi_cli_ref_")
+    arrays, meta = {}, {}
+    try:
+        exps = os.path.join(work, "exps")
+        save_checkpoint(checkpoint_path(os.path.join(exps, "jax", "train"),
+                                        cs.ISBI_CLI_STEP),
+                        {"params": _nest(cs.isbi_seeded_tree(leaves)),
+                         "step": cs.ISBI_CLI_STEP})
+        override = cs.isbi_cli_override(work)
+        t0 = time.perf_counter()
+        paths = jcli.main(cs.isbi_cli_argv(exps, override, "jax")
+                          + ["-d", "mknet", "predict", "label", "evaluate",
+                             "cross_validate"])
+        sec = time.perf_counter() - t0
+        for mode in ("val", "test"):
+            inst_dir = os.path.join(paths[f"{mode}_instanced"],
+                                    str(cs.ISBI_CLI_STEP))
+            for path in sorted(glob.glob(os.path.join(inst_dir, "*.hdf"))):
+                s = os.path.splitext(os.path.basename(path))[0]
+                io = jio.open_volume(path, mode="r")
+                arrays[f"c/{mode}/{s}/inst"] = np.asarray(
+                    io.read(key="vote_instances"), np.uint16)
+                arrays[f"c/{mode}/{s}/fg"] = np.packbits(np.asarray(
+                    io.read(key="vote_foreground")) > 0)
+                io.close()
+        evals = {}
+        for mode in ("val", "test"):
+            ev_dir = os.path.join(paths[f"{mode}_evaluated"],
+                                  str(cs.ISBI_CLI_STEP))
+            for path in sorted(glob.glob(os.path.join(ev_dir, "*.json"))):
+                with open(path) as f:
+                    evals[f"{mode}/{os.path.basename(path)[:-5]}"] = \
+                        json.load(f)
+        with open(os.path.join(paths["base"], "cross_val_results.json")) as f:
+            cross = json.load(f)
+        meta = {"cli": {"cpu_seconds": round(sec, 1), "metrics": evals,
+                        "cross_val_results": cross}}
+        print("c", sec, json.dumps({k: v["general"]["rand_fscore"]
+                                    for k, v in evals.items()}),
+              cross["mean_score"], flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return arrays, meta
+
+
+def _isbi_part_d():
+    """(d) the full-width isbi2012 model, seeded, on one 512^2 window."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.infer.fused import predict_volume_device
+    from patchperpix_tpu.train import data as jd
+
+    cfg = cs.train_model_config(jm, cs.ISBI2012_CONFIG)
+    model = jm.PPPModel(cfg)
+    leaves = _leaves(model, (1, 1, 64, 64))
+    raw = cs.isbi_window(jd)
+    win = tuple(cs.isbi_toml(cs.ISBI2012_CONFIG)["model"][
+        "test_input_shape_same"])
+    t0 = time.perf_counter()
+    affs, fg = predict_volume_device(model, _nest(cs.isbi_seeded_tree(
+        leaves)), raw, cfg, win, win)
+    affs, fg = np.asarray(affs, np.float32), np.asarray(fg, np.float32)
+    sec = time.perf_counter() - t0
+    ch, pix = cs.isbi_forward_positions(affs.shape)
+    print("d", sec, affs.shape, float(affs.std()), float(fg.mean()),
+          flush=True)
+    return ({"d/affs": affs.reshape(affs.shape[0], -1)[ch, pix],
+             "d/fg": fg.reshape(-1)[pix],
+             "d/affs_channel_mean": affs.reshape(affs.shape[0], -1).mean(1),
+             "d/fg_mean": np.array([fg.mean()], np.float32)},
+            {"forward": {"cpu_seconds_with_compile": round(sec, 1),
+                         "n_parameters": int(sum(np.prod(v)
+                                                 for _, v in leaves)),
+                         "window": list(win)}})
+
+
+def _isbi_part_e():
+    """(e) one float32 train step of the rehearsal model on the fixed
+    batch: loss parts, gradient norms and samples."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.train import data as jd
+    from patchperpix_tpu.train import trainer as jt
+
+    cfg = cs.train_model_config(jm, cs.ISBI_CONFIG)
+    model = jm.PPPModel(cfg)
+    params = _nest(cs.isbi_seeded_tree(_leaves(model, (1, 1, 64, 64))))
+    raw, labels = cs.isbi_train_batch(jd)
+    step, _ = jt.make_train_step(model, cfg, jt.TrainConfig(),
+                                 _grads_as_state())
+    t0 = time.perf_counter()
+    _, grads, mets = step(params, params, jnp.asarray(raw),
+                          jnp.asarray(labels), jax.random.PRNGKey(0))
+    sec = time.perf_counter() - t0
+    arrays, norms = {}, {}
+    for name, g in sorted(flatten(grads).items()):
+        g = np.asarray(g, np.float32)
+        arrays[f"isbi/{name}"] = g.reshape(-1)[cs.grad_sample_index(
+            name, g.size)]
+        norms[name] = float(np.linalg.norm(g.astype(np.float64)))
+    rec = {"config": os.path.relpath(cs.ISBI_CONFIG, ROOT),
+           "weights": "chip_smoke.isbi_seeded_tree",
+           "batch": {"raw_sum": float(raw.astype(np.float64).sum()),
+                     "labels_sum": int(labels.astype(np.int64).sum())},
+           "metrics": {k: float(v) for k, v in mets.items()},
+           "grad_norms": norms, "step_s_with_compile": round(sec, 1)}
+    print("e", json.dumps(rec["metrics"]), flush=True)
+    return arrays, {"branches": {"isbi": rec}}
+
+
+def _isbi_store(arrays, meta):
+    """Merge one part's arrays and records into the stored fixture."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    out, old = {}, {}
+    if os.path.exists(cs.ISBI_REF_NPZ):
+        with np.load(cs.ISBI_REF_NPZ) as z:
+            out = dict(z)
+        with open(cs.ISBI_REF_JSON) as f:
+            old = json.load(f)
+    out.update(arrays)
+    old.update(meta)
+    old["source"] = ("scripts/export_torch_fixtures.py --isbi: JAX package, "
+                     "CPU, float32, on data/synth_isbi_zlib")
+    np.savez_compressed(cs.ISBI_REF_NPZ, **out)
+    with open(cs.ISBI_REF_JSON, "w") as f:
+        json.dump(old, f, indent=1, default=float)
+
+
+def export_isbi(parts):
+    import subprocess
+
+    if not parts:
+        export_isbi_zlib()
+    fns = {"a": _isbi_part_a, "b": _isbi_part_b, "c": _isbi_part_c,
+           "d": _isbi_part_d, "e": _isbi_part_e}
+    for part in parts or sorted(fns):
+        _isbi_store(*fns[part]())
+        if part == "e":
+            # float64 is process-wide in JAX: the witness runs on its own
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--isbi-f64"], check=True)
+
+
+def export_isbi_f64():
+    """The stored ISBI step in float64 by the JAX package (as
+    ``--train-f64`` for the crop's branches)."""
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.train import data as jd
+
+    with open(cs.ISBI_REF_JSON) as f:
+        meta = json.load(f)
+    with np.load(cs.ISBI_REF_NPZ) as z:
+        out = dict(z)
+    cfg = cs.train_model_config(jm, cs.ISBI_CONFIG)
+    raw, labels = cs.isbi_train_batch(jd)
+    grads, mets = _step_f64(cfg, cs.isbi_seeded_tree(
+        _leaves(jm.PPPModel(cfg), (1, 1, 64, 64))), raw, labels,
+        jax.random.PRNGKey(0))
+    _f64_record(meta["branches"]["isbi"], out, "isbi", grads, mets,
+                "the JAX package in float64 on the CPU (jax_enable_x64, "
+                "scripts/export_torch_fixtures.py --isbi-f64)")
+    np.savez_compressed(cs.ISBI_REF_NPZ, **out)
+    with open(cs.ISBI_REF_JSON, "w") as f:
+        json.dump(meta, f, indent=1, default=float)
+
+
 def main():
     import jax
 
@@ -909,6 +1267,13 @@ def main():
         return
     if "--bf16" in sys.argv:
         export_bf16()
+        return
+    if "--isbi-f64" in sys.argv:
+        export_isbi_f64()
+        return
+    if "--isbi" in sys.argv:
+        export_isbi([a for a in sys.argv[sys.argv.index("--isbi") + 1:]
+                     if a in "abcde"])
         return
     if "--train-f64" in sys.argv:
         export_train_f64()

@@ -366,6 +366,34 @@ assert pf.next()[0].shape == (2, 3, 8, 8, 8)
 pf.stop()
 assert config.named_params(fl["validation"]) == [
     {"patch_threshold": 0.5, "fc_threshold": 0.5}]
+# the ISBI slice: the hacks, the options, the host cover, postprocess
+from patchperpix_tpu_torch.assembly import isbi_hacks
+from patchperpix_tpu_torch.ops import np_reference as tref
+from patchperpix_tpu_torch.utils.postprocess import (color_labels,
+                                                     crop_to_shape,
+                                                     postprocess_fg)
+isbi = config.load_config("configs/isbi_rehearsal.toml")
+vpi = VoteInstancesParams.from_config(
+    {**isbi["vote_instances"], "patchshape": (1, 9, 9)})
+assert vpi.isbi_hack and vpi.mws
+labels5 = np.stack([synthetic.worm_labels(72, 176, 2, seed=1)[0]] * 3)
+affs5 = synthetic.labels_to_affinities(labels5, (1, 9, 9))
+assert isbi_hacks.filter_instance_boundaries_from_fg(
+    affs5, labels5 > 0, isbi_hacks.sparsify_patches(
+        [tuple(c) for c in np.argwhere(labels5[1:2] > 0) + [1, 0, 0]], 3,
+        labels5.shape), (1, 9, 9), labels5 > 0).sum() > 0
+inst5, _ = to_instance_seg(affs5, labels5 > 0, labels5 > 0,
+                           (labels5 > 0).astype(np.uint8),
+                           dataclasses.replace(vpi, isbi_sparsify_stride=3,
+                                               sample=0.8, pad_with_ps=True,
+                                               one_instance_per_channel=True),
+                           device="cpu")
+assert inst5.ndim == 4 and inst5.max() > 0 and not inst5[:, 0].any()
+assert postprocess_fg(labels5 > 0).max() >= 1
+assert color_labels(labels5).shape == labels5.shape + (3,)
+assert crop_to_shape(labels5, (5, 5)).shape == (3, 5, 5)
+assert cli.NOT_PORTED.keys() == {"visualize"}
+assert tref.foreground_cover_reference
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "flax", "optax", "orbax", "patchperpix_tpu")]
 assert not bad, bad

@@ -562,3 +562,78 @@ def test_device_loop_step_makes_no_host_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert np.isfinite(float(mets["loss"]))
+
+
+# -- the ISBI 2012 slice -------------------------------------------------------
+
+def test_isbi_assembly_on_the_card_equals_the_fixture(dev):
+    """The rehearsal's assembly on the ideal affinities of isbi_test_00 at
+    512^2 (94 % foreground) on the card: the JAX package's map (identical
+    up to relabelling) and candidate count from
+    parity/torch_port_isbi_ref_f32.npz; K3 and K4 launched once each."""
+    import json
+
+    import chip_smoke as cs
+    from patchperpix_tpu_torch.assembly import (VoteInstancesParams,
+                                                to_instance_seg)
+
+    ref = np.load(cs.ISBI_REF_NPZ)
+    meta = json.load(open(cs.ISBI_REF_JSON))["assembly"][cs.ISBI_TEST[0]]
+    affs, fg, _ = cs.isbi_ideal(cs.ISBI_TEST[0])
+    n0 = (K.CONSENSUS2D.launches, K.RANK2D.launches)
+    inter = {}
+    inst, fg_out = to_instance_seg(
+        torch.from_numpy(affs).to(dev), fg, fg.copy(), fg.astype(np.uint8),
+        VoteInstancesParams.from_config(cs.isbi_vote_kwargs()), device=dev,
+        intermediates=inter)
+    assert (K.CONSENSUS2D.launches - n0[0], K.RANK2D.launches - n0[1]) == \
+        (1, 1)
+    inst[fg_out == 0] = 0
+    assert len(inter["ranked_centers"]) == meta["n_candidates"]
+    agree, same = cs.match_agreement(inst, ref[f"a/{cs.ISBI_TEST[0]}/inst"])
+    assert same, agree
+
+
+def test_kernels_2d_on_the_isbi_input(dev):
+    """K3 / K4 against their plain versions on the ISBI input (dense
+    foreground, 25x25), f32 and bf16 half; two launches equal."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from patchperpix_tpu_torch.assembly import VoteInstancesParams
+
+    affs, _, _ = cs.isbi_ideal(cs.ISBI_TEST[1])
+    base = VoteInstancesParams.from_config(
+        cs.isbi_vote_kwargs()).consensus_config()
+    for bf16 in (False, True):
+        cfg = dataclasses.replace(base, cons_bf16=bf16)
+        ag, tgt = C.gated_stack_2d(torch.from_numpy(affs).to(dev), cfg)
+        assert float((tgt != 0).float().mean()) > 0.9
+        half = K.consensus_half_2d_cuda(ag, tgt, cfg)
+        want = C.consensus_half_2d_plain(ag, tgt, cfg)
+        rtol = 2.0 ** -7 if bf16 else 1e-4
+        assert torch.all((half.float() - want.float()).abs()
+                         <= 1e-4 + rtol * want.float().abs())
+        del want
+        acc = K.rank_acc_2d_cuda(ag, tgt, half, cfg)
+        want = C.rank_acc_2d_plain(ag, tgt, half, cfg)
+        assert torch.allclose(acc, want, atol=1e-3, rtol=1e-4)
+        assert torch.equal(half, K.consensus_half_2d_cuda(ag, tgt, cfg))
+        assert torch.equal(acc, K.rank_acc_2d_cuda(ag, tgt, half, cfg))
+
+
+def test_device_sampler_2d_on_the_card_equals_the_host(dev):
+    """The 2D device sampler's batches on the card (the rehearsal's
+    sampler over the stand-in's training samples) against the host
+    sampler's numpy on the same decisions: raw 1e-6, labels equal."""
+    import chip_smoke as cs
+    from patchperpix_tpu_torch.train import data as td
+    from patchperpix_tpu_torch.train.device_data import DeviceSampler
+
+    samples = [td.load_sample(os.path.join(
+        cs.ISBI_DATA, "train", f"isbi_train_0{i}.zarr"), "volumes/raw",
+        "volumes/gt_instances") for i in range(3)]
+    ds = DeviceSampler(samples, cs.isbi_sampler_config(td),
+                       max_gt_channels=1, device=dev)
+    seen = cs.check_sampler_alignment(ds, samples, td, draws=6)
+    assert seen["flip"] and seen["transpose"]
