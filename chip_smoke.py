@@ -152,7 +152,40 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    checkpoints' val samples and the final test label), rand_fscore /
    adapted_rand_error / VOI per test sample beside the JAX rehearsal's
    (parity/isbi_rehearsal) and the seeded model's;
-14. the kernels line, then the contract's last line.
+14. swin (``run_swin``; f32 with TF32 off unless bf16 is named), held
+   against the JAX package's CPU runs in parity/torch_port_swin_ref_f32.*:
+   (a) configs/flylight.toml's model as a SwinUNETR (3 stages 20/40/80,
+   heads 2/5/10, window 7, 343-channel head) at full width with seeded
+   weights on one 156^3 window (the crop reflected): each head's seeded
+   entries within 1e-4 relative L2; f32 and bf16 forward ms and peak
+   memory; a 2D Swin at configs/bbbc010.toml's widths on the model2d
+   window (1e-4 + 1e-4 |x|); (b) one f32 step of configs/flylight_crop
+   .toml's model as a Swin on phase 12's batch under phase 12(a)'s
+   limits, ``rel_pos_bias`` and the qkv leaves named; its bf16 step ms;
+   (c) ``-d all`` with that config as a Swin (bf16, device sampler, 400
+   steps, checkpoints every 200, foreground by the numinst argmax) from
+   the seeded tree as checkpoint 0:
+   every checkpoint scored, K1 / K2 once per validated checkpoint plus
+   the final label; (d) information: the bf16 step of the full-width
+   Swin, batch 2 of 140^3;
+15. multidevice (``run_multidevice``, run inside phase 10 before its
+   store goes), meshes of n shards on the one card through
+   ``parallel/sharded.py``'s ``local_devices`` hook: (a)
+   ``sharded_consensus_and_rank`` with 2 shards on phase 3's 50^3
+   decoded affinities and 4 on phase 10's 100^3 stand-in against the
+   whole-volume K1 + K2 under phase 3's tolerances, one launch per shard,
+   whether bit for bit; (b) ``to_instance_seg(sharded_devices=4)`` on the
+   stand-in: the map identical up to relabelling to the one-device map,
+   the cover equal, the graph weights within 1e-5; (c) ``block_devices =
+   2`` on the stand-in's dense store: the block_devices = 0 map; (d) the
+   data-parallel f32 step with 3 shards on phase 12's batch, both
+   branches, within 1e-6 relative of the one-device step and phase
+   12(a)'s limits of the JAX fixture, then ``-d train`` through the CLI
+   with ``training.num_devices = 2`` (batch 4, the host sampler), 20
+   steps, finite losses; (e) (a) and (d) across real cards where there
+   are two, else a printed skip;
+16. the script's wall, the kernels line (each row with its launches by
+   counted phase), then the contract's last line.
 
 Any failure raises and exits non-zero before the last line; with no CUDA
 device, or without the repository beside it, it exits 2.
@@ -282,6 +315,58 @@ ISBI_HEAD_SHIFT = {"params/head_code_affs/bias": 6.0,
 ISBI_FWD_SAMPLES = 4096       # (d): sampled affinities and fg pixels
 ISBI_STACK_CROP = 256         # (b): the three-slice stack's extent
 ISBI_BATCH = (2, 160)         # (e): batch 2 of 160^2, the rehearsal's
+
+
+# the swin phase: configs/flylight.toml's model with network_style
+# "swinunetr" (3 stages, widths 20/40/80, heads 2/5/10, window 7, the
+# 343-channel dense head and 3 numinst classes) at full width with seeded
+# weights (weights.seeded_tree), on one 156^3 test window, the crop
+# reflected to that size; the crop config's Swin train step on the train
+# phase's batch; a 2D Swin at configs/bbbc010.toml's widths on the model2d
+# window; all against the JAX package's f32 CPU runs
+# (scripts/export_torch_fixtures.py --swin)
+SWIN_CONFIG = os.path.join(REPO, "configs", "flylight.toml")
+SWIN_REF_NPZ = os.path.join(REPO, "parity", "torch_port_swin_ref_f32.npz")
+SWIN_REF_JSON = os.path.join(REPO, "parity", "torch_port_swin_ref_f32.json")
+SWIN_SEED = 0
+SWIN_SAMPLES = 4096   # seeded (channel, voxel) entries per head
+SWIN_MODEL2D = dict(BBBC010_MODEL, network_style="swinunetr")
+
+
+def swin_model_config(mod, path=SWIN_CONFIG, **kw):
+    """[model] of ``path`` with network_style "swinunetr", float32, as
+    ``mod.PPPConfig`` (either package's)."""
+    return train_model_config(mod, path, network_style="swinunetr", **kw)
+
+
+def swin_window():
+    """(1, 3, 156, 156, 156) float32: the crop (clipmax 1500) reflected to
+    configs/flylight.toml's test window (53 / 53 voxels per side)."""
+    import tomllib
+
+    import numpy as np
+
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    with open(SWIN_CONFIG, "rb") as f:
+        win = tomllib.load(f)["model"]["test_input_shape_valid"]
+    raw = np.clip(IoZarr(FIXTURE).read(key="volumes/raw").astype(
+        np.float32), 0, 1500.0) / 1500.0
+    pads = [(0, 0)] + [((w - s) // 2, w - s - (w - s) // 2)
+                       for w, s in zip(win, raw.shape[1:])]
+    return np.pad(raw, pads, mode="reflect")[None]
+
+
+def swin_positions(shape):
+    """Seeded (channel, flat voxel) entries of a (C, *S) head."""
+    import zlib
+
+    import numpy as np
+
+    rng = np.random.default_rng([SWIN_SEED, zlib.crc32(repr(
+        tuple(shape)).encode())])
+    return (rng.integers(0, shape[0], SWIN_SAMPLES),
+            rng.integers(0, int(np.prod(shape[1:])), SWIN_SAMPLES))
 
 
 def isbi_toml(path=ISBI_CONFIG):
@@ -447,6 +532,18 @@ def isbi_forward_positions(shape):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+# {phase: {kernel name: launches}} of every counted run, for the kernels line
+LAUNCHES: dict = {}
+
+
+def count_launches(phase, kernels) -> dict:
+    """The launches of ``kernels`` since their counts were set to 0, kept
+    under ``phase`` for the kernels line."""
+    out = {k.name: k.launches for k in kernels}
+    LAUNCHES[phase] = out
+    return out
 
 
 def train_model_config(mod, path, **widths):
@@ -785,7 +882,7 @@ def run_probe(dev):
 
     PR.PROBE.launches = 0
     cases = PR.run_cases(dev)
-    launches = PR.PROBE.launches
+    launches = count_launches("probe", (PR.PROBE,))[PR.PROBE.name]
     emit({"phase": "probe", "launches": launches, "cases": cases})
     if not all(c["ok"] for c in cases) or launches != len(PR.CASES):
         raise AssertionError("the row-window probe failed")
@@ -920,7 +1017,7 @@ def run_path2d(dev, kernels):
               "n_instances": n_instances(inst),
               "gt_instances": int(full[s]["labels"].max()),
               "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9})
-    launches = {k.name: k.launches for k in kernels}
+    launches = count_launches("path2d", kernels)
 
     counts = gt_match_counts(runs["A"][0], full["A"]["labels"])
     emit({"phase": "path2d_gt", "setting": "A", "matches_per_gt_worm": counts})
@@ -1358,9 +1455,10 @@ def reader_split(store, dec, fg, extent, dev):
     return out
 
 
-def run_blockwise(model, cfg, raw, run, dev, kernels):
+def run_blockwise(model, cfg, raw, run, dev, kernels, then=None):
     """Phase blockwise (gates (a)-(e)); returns the K1 / K2 launches of the
-    counted code-reader run."""
+    counted code-reader run.  ``then(ctx)`` runs before the phase's
+    temporary store goes (the multidevice phase)."""
     import shutil
     import tempfile
 
@@ -1439,7 +1537,7 @@ def run_blockwise(model, cfg, raw, run, dev, kernels):
             decoder=dec, device=dev, stats=stats)
         torch.cuda.synchronize(dev)
         t["blockwise_codes"] = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels}
+        launches = count_launches("blockwise", kernels)
         peak_codes = extra_peak_gb(dev, base)
         k1, k2 = kernels
         if not (launches[k2.name] == stats.blocks_consensus >= 1
@@ -1480,12 +1578,13 @@ def run_blockwise(model, cfg, raw, run, dev, kernels):
         base = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         affs = torch.as_tensor(affs16, device=dev).float()
+        inter_w = {}
         inst_w, _ = to_instance_seg(affs, fg, mask, numinst, vote_params(),
-                                    device=dev)
+                                    device=dev, intermediates=inter_w)
         torch.cuda.synchronize(dev)
         t_whole = time.perf_counter() - t0
         peak_whole = extra_peak_gb(dev, base)
-        del affs, affs16
+        del affs
         torch.cuda.empty_cache()
         emit({"phase": "blockwise", "sample": list(sample.shape[1:]),
               "chunksize": list(SAMPLE_CHUNK), "wall_s": t,
@@ -1532,6 +1631,13 @@ def run_blockwise(model, cfg, raw, run, dev, kernels):
         emit({"phase": "blockwise_border_window", **res_e,
               "peak_mem_gb_one_block": peak_block,
               "phase_wall_s": time.perf_counter() - t_phase})
+        if then is not None:
+            then({"run": run, "store": store, "vp": vp, "work": work,
+                  "affs16": affs16, "fg": fg, "mask": mask,
+                  "numinst": numinst, "inst_w": inst_w, "inter_w": inter_w,
+                  "t_whole": t_whole, "inst_s": inst_s,
+                  "t_staged": t["blockwise_staged"]})
+        del affs16
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
@@ -1612,7 +1718,7 @@ def run_cli(dev, kernels):
             k.launches = 0
         paths = cli.main(argv + ["-id", "f32", "-d", "mknet", "predict",
                                  "decode", "label", "evaluate"])
-        launches = {k.name: k.launches for k in kernels}
+        launches = count_launches("cli_f32", kernels)
         res = IoZarr(os.path.join(paths["test_instanced"], str(CLI_STEP),
                                   sample + ".zarr"))
         inst = res.read(key="vote_instances")
@@ -1695,7 +1801,7 @@ def run_cli(dev, kernels):
                 key="vote_instances")
         tpu = tpu_figures()
         emit({"phase": "cli", "run": "bf16 infer_fused evaluate",
-              "launches": {k.name: k.launches for k in kernels},
+              "launches": count_launches("cli_bf16", kernels),
               "n_instances": n_instances(inst16),
               "own_fg_vox": int((inst16 > 0).sum()),
               "avg_f1_cov_score": metrics16["general"]["avg_f1_cov_score"],
@@ -1757,7 +1863,7 @@ def train_step_times(cfg, ds, dev, steps=40, warm=20, tree=None):
 
 
 def step_errors(dev, branch, cfg, tree, raw, labels, want, ref,
-                corners=None):
+                corners=None, mesh=None, named=(), grads_out=None):
     """One f32 step (TF32 off) of the port's model ``cfg`` with the flat
     parameters ``tree`` on the batch against a stored JAX step (``want``:
     the branch's record, ``ref``: the arrays keyed ``<branch>/<leaf>`` and
@@ -1765,7 +1871,10 @@ def step_errors(dev, branch, cfg, tree, raw, labels, want, ref,
     gradient leaf's norm and seeded entries within 1e-4 relative L2, or
     within twice the JAX f32 step's own error against the JAX package's
     float64 step where that is larger, up to TRAIN_LOSS_CAP /
-    TRAIN_GRAD_CAP.  Returns the branch's record."""
+    TRAIN_GRAD_CAP.  ``mesh``: the step data-parallel over those devices;
+    ``named``: substrings of leaves whose errors the record lists;
+    ``grads_out`` (a dict) receives the gradient leaves and loss parts
+    as float64 numpy.  Returns the branch's record."""
     import torch
 
     from patchperpix_tpu_torch import models, weights
@@ -1780,10 +1889,15 @@ def step_errors(dev, branch, cfg, tree, raw, labels, want, ref,
         loss, mets = compute_losses(model, cfg, TrainConfig(),
                                     torch.as_tensor(raw, device=dev),
                                     torch.as_tensor(labels, device=dev),
-                                    corners=corners)
+                                    corners=corners, mesh=mesh)
         loss.backward()
     grads = weights.from_state_dict(
         {n: p.grad for n, p in model.named_parameters()})
+    if grads_out is not None:
+        grads_out.update({k: g.detach().double().cpu().numpy()
+                          for k, g in grads.items()})
+        grads_out.update({k: float(mets[k])
+                          for k in ("loss", "loss_patch", "loss_fg")})
     loss_err = {k: abs(float(mets[k]) - want["metrics"][k])
                 / abs(want["metrics"][k])
                 for k in ("loss", "loss_patch", "loss_fg")}
@@ -1820,7 +1934,9 @@ def step_errors(dev, branch, cfg, tree, raw, labels, want, ref,
             # for information: both f32 steps against the exact (float64)
             # one, worst leaf
             "port_vs_f64_max": max(exact_err.values()),
-            "jax_f32_vs_f64_max": max(f64["grads"].values())}
+            "jax_f32_vs_f64_max": max(f64["grads"].values()),
+            "named": {k.removeprefix("params/"): [grad_err[k], grad_lim[k]]
+                      for k in grad_err if any(n in k for n in named)}}
 
 
 def gate_step(res):
@@ -1971,28 +2087,43 @@ ALL_STEPS, ALL_CHECKPOINTS, ALL_WARMUP, RESUME_STEPS = 400, 200, 100, 600
 LOG_EVERY = 100   # TrainConfig's default: no config key sets it
 
 
-def run_train_all(dev_args, kernels, work):
-    """Gate (c): ``-d all`` through the port's CLI in-process, from the
-    trained crop parameters seeded as train_net_checkpoint_0 (no optimizer
-    state), then ``train`` resumed to RESUME_STEPS.  Returns the phase's
-    record."""
+def crop_override(work, name, extra=""):
+    """An override TOML under ``work`` pointing every data folder at a
+    folder holding only the crop, plus ``extra`` (TOML text)."""
+    data = os.path.join(work, "data")
+    if not os.path.isdir(data):
+        os.makedirs(data)
+        os.symlink(FIXTURE, os.path.join(data, os.path.basename(FIXTURE)))
+    override = os.path.join(work, name)
+    with open(override, "w") as f:
+        f.write(extra + "[data]\n" + "".join(
+            f'{k}_data = "{data}"\n' for k in ("train", "val", "test")))
+    return override
+
+
+def run_train_all(dev_args, kernels, work, phase="train_all",
+                  config=CLI_CONFIG, model_toml="", vote_toml="", tree=None,
+                  resume=True):
+    """Gate (c): ``-d all`` through the port's CLI in-process with
+    ``config`` (and ``model_toml`` / ``vote_toml`` lines in its [model] /
+    [vote_instances]), from ``tree``
+    (default: the trained crop parameters) seeded as
+    train_net_checkpoint_0 (no optimizer state), then with ``resume``
+    ``train`` resumed to RESUME_STEPS.  Returns the phase's record."""
     import numpy as np
 
     from patchperpix_tpu_torch import cli, weights
     from patchperpix_tpu_torch.utils.io import IoZarr
 
-    data = os.path.join(work, "data")
-    os.makedirs(data)
-    os.symlink(FIXTURE, os.path.join(data, os.path.basename(FIXTURE)))
-    override = os.path.join(work, "override.toml")
-    with open(override, "w") as f:
-        f.write(f"[training]\nmax_iterations = {ALL_STEPS}\n"
-                f"checkpoints = {ALL_CHECKPOINTS}\n"
-                f"[optimizer.optimizer]\nwarmup_steps = {ALL_WARMUP}\n"
-                "[data]\n" + "".join(f'{k}_data = "{data}"\n'
-                                     for k in ("train", "val", "test")))
-    exps = os.path.join(work, "exps")
-    weights.write_checkpoint(weights.load_npz(),
+    override = crop_override(
+        work, phase + ".toml",
+        (f"[model]\n{model_toml}" if model_toml else "")
+        + (f"[vote_instances]\n{vote_toml}" if vote_toml else "")
+        + f"[training]\nmax_iterations = {ALL_STEPS}\n"
+        f"checkpoints = {ALL_CHECKPOINTS}\n"
+        f"[optimizer.optimizer]\nwarmup_steps = {ALL_WARMUP}\n")
+    exps = os.path.join(work, "exps_" + phase)
+    weights.write_checkpoint(weights.load_npz() if tree is None else tree,
                              os.path.join(exps, "all", "train"), 0)
     calls = []
     real_tasks = {n: getattr(cli, n) for n in (
@@ -2009,8 +2140,9 @@ def run_train_all(dev_args, kernels, work):
                               time.perf_counter() - t0))
         return run
 
-    argv = ["-c", CLI_CONFIG, "-c", override, "--root", exps,
+    argv = ["-c", config, "-c", override, "--root", exps,
             "-id", "all"] + dev_args
+    wall_resume = None
     try:
         for name, fn in real_tasks.items():
             setattr(cli, name, timed(name, fn))
@@ -2019,11 +2151,13 @@ def run_train_all(dev_args, kernels, work):
         t0 = time.perf_counter()
         paths = cli.main(argv + ["-d", "all"])
         wall_all = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels}
-        t0 = time.perf_counter()
-        cli.main(argv + ["--set", f"training.max_iterations={RESUME_STEPS}",
-                         "-d", "train"])
-        wall_resume = time.perf_counter() - t0
+        launches = count_launches(phase, kernels)
+        if resume:
+            t0 = time.perf_counter()
+            cli.main(argv + ["--set",
+                             f"training.max_iterations={RESUME_STEPS}",
+                             "-d", "train"])
+            wall_resume = time.perf_counter() - t0
     finally:
         for name, fn in real_tasks.items():
             setattr(cli, name, fn)
@@ -2052,7 +2186,7 @@ def run_train_all(dev_args, kernels, work):
     with open(os.path.join(paths["base"], "run.log")) as f:
         log = f.read()
     resumed = log[log.rfind("=== task train ==="):]
-    res = {"phase": "train_all", "launches": launches,
+    res = {"phase": phase, "launches": launches,
            "log_steps": [r["step"] for r in first_run],
            "losses": [r["loss"] for r in first_run],
            "checkpoints": [cp for cp in counts if cp <= ALL_STEPS],
@@ -2083,10 +2217,11 @@ def run_train_all(dev_args, kernels, work):
     if any(n != len(want_cps) + 1 for n in launches.values()):
         raise AssertionError(f"K1 / K2 launches in all: {launches}, not "
                              "one per checkpoint + the final label")
-    if counts.get(ALL_STEPS) != ALL_STEPS or \
-            counts.get(RESUME_STEPS) != RESUME_STEPS or \
-            "resuming from" not in resumed or \
-            "reinitializing optimizer moments" in resumed:
+    if counts.get(ALL_STEPS) != ALL_STEPS:
+        raise AssertionError(f"update counts {counts}")
+    if resume and (counts.get(RESUME_STEPS) != RESUME_STEPS
+                   or "resuming from" not in resumed
+                   or "reinitializing optimizer moments" in resumed):
         raise AssertionError(f"resume to {RESUME_STEPS}: counts {counts}")
     return res
 
@@ -2141,6 +2276,501 @@ def run_train(dev, kernels):
               "phase_wall_s": time.perf_counter() - t_phase})
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+SWIN_TIMED = 3          # timed forwards / steps after one warm-up
+SWIN_FULL_BATCH = (2, 140)   # (d): batch 2 of 140^3, configs/flylight.toml
+# (c)'s checkpoint 0: the seeded crop Swin with the numinst head's class-1
+# bias raised, so that the seeded checkpoint has foreground to label; the
+# run labels by the numinst argmax (numinst_threshs = []): 400 steps from
+# a seeded Swin leave class 1 below the config's 0.9 everywhere (on an
+# H100: no foreground at checkpoints 200 and 400, so nothing to label)
+SWIN_ALL_SHIFT = {"params/head_fgbg_numinst/bias": (0.0, 4.0, 0.0)}
+
+
+def rel_l2(got, want) -> float:
+    import numpy as np
+
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+def timed_calls(fn, dev, n=SWIN_TIMED):
+    """(median ms of ``n`` calls after one warm-up, extra peak GB, the
+    last result)."""
+    import numpy as np
+    import torch
+
+    fn()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3, extra_peak_gb(dev, base), out
+
+
+def swin_forward(dev, ref, meta):
+    """(a) configs/flylight.toml's Swin at full width on the 156^3 window
+    in f32 (TF32 off): each head's seeded entries within 1e-4 relative L2
+    of the JAX run; f32 and bf16 forward ms and peak memory; then the 2D
+    Swin at the BBBC010 widths (code, numinst, decoded patches at the
+    model2d positions, 1e-4 + 1e-4 |x|)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch import models
+    from patchperpix_tpu_torch.infer.fused import (decode_volume_device,
+                                                   predict_volume_device)
+    from patchperpix_tpu_torch.models.init import flax_leaves
+    from patchperpix_tpu_torch.utils.device import exact_f32
+    from patchperpix_tpu_torch.weights import build_model, seeded_tree
+
+    fwd = meta["forward"]
+    cfg = swin_model_config(models)
+    if dict(flax_leaves(cfg)) != {k: tuple(v) for k, v in fwd["leaves"]}:
+        raise AssertionError("the Swin leaves differ from the JAX model's")
+    tree = seeded_tree(fwd["leaves"], fwd["seed"])
+    x = torch.as_tensor(swin_window(), device=dev)
+    res = {"phase": "swin_forward", "window": fwd["window"],
+           "n_parameters": fwd["n_parameters"]}
+    model = build_model(cfg, tree, device=dev)
+    with exact_f32(), torch.no_grad():
+        ms, peak, heads = timed_calls(lambda: model(x), dev)
+    res["f32_ms"], res["f32_extra_peak_gb"] = ms, peak
+    ok = True
+    for name, h in zip(("head_code_affs", "head_fgbg_numinst"), heads):
+        ch, vox = swin_positions(tuple(h.shape[1:]))
+        got = h[0].reshape(h.shape[1], -1)[
+            torch.as_tensor(ch, device=dev),
+            torch.as_tensor(vox, device=dev)].cpu().numpy()
+        err = rel_l2(got, ref[f"fwd/{name}"])
+        res[f"{name}_rel_l2"] = err
+        ok &= bool(np.isfinite(got).all() and err <= 1e-4)
+    del heads, model
+    torch.cuda.empty_cache()
+    model = build_model(dataclasses.replace(cfg, dtype="bfloat16"), tree,
+                        device=dev)
+    with torch.no_grad():
+        ms, peak, _ = timed_calls(lambda: model(x), dev)
+    res["bf16_ms"], res["bf16_extra_peak_gb"] = ms, peak
+    del model
+    torch.cuda.empty_cache()
+
+    m2 = meta["model2d"]
+    cfg2 = models.PPPConfig(**SWIN_MODEL2D)
+    model = build_model(cfg2, seeded_tree(m2["leaves"], m2["seed"]),
+                        device=dev)
+    raw, pos = model2d_sample(m2["n_positions"])
+    with exact_f32():
+        code, prob = predict_volume_device(model, raw, cfg2, MODEL2D_WINDOW,
+                                           MODEL2D_WINDOW, device=dev)
+        fg = np.zeros(MODEL2D_WINDOW, bool)
+        fg.reshape(-1)[pos] = True
+        dec = decode_volume_device(model, code, fg, cfg2, device=dev)
+    pos_t = torch.as_tensor(pos, device=dev)
+    got = {"code": code.reshape(cfg2.code_units, -1)[:, pos_t].T,
+           "prob": prob.reshape(3, -1)[:, pos_t].T,
+           "patches": dec.reshape(625, -1)[:, pos_t].T.reshape(-1, 25, 25)}
+    for key, val in got.items():
+        val, want = val.cpu().numpy(), ref[f"model2d/{key}"]
+        d = np.abs(val - want)
+        res[f"model2d_{key}_max_abs_err"] = float(d.max())
+        ok &= bool(np.isfinite(val).all()
+                   and np.all(d <= 1e-4 + 1e-4 * np.abs(want)))
+    del model, code, prob, dec
+    torch.cuda.empty_cache()
+    emit(res)
+    if not ok:
+        raise AssertionError("the Swin forward disagrees with the JAX run")
+
+
+def swin_full_step(dev):
+    """(d) information: the bf16 step of configs/flylight.toml's Swin at
+    full width (batch 2 of 140^3 crops of the reflected window, labels the
+    crop's reflected likewise), Adam."""
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch import models, weights
+    from patchperpix_tpu_torch.models.init import init_tree
+    from patchperpix_tpu_torch.train.trainer import (TrainConfig,
+                                                     make_optimizer,
+                                                     make_train_step)
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    b, w = SWIN_FULL_BATCH
+    cfg = swin_model_config(models, dtype="bfloat16")
+    model = models.PPPModel(cfg)
+    model.load_state_dict(weights.to_state_dict(init_tree(
+        cfg, torch.Generator().manual_seed(SWIN_SEED))))
+    model.to(dev).train()
+    win = swin_window()[0]
+    off = (win.shape[1] - w) // 2
+    raw = np.stack([win[:, off:off + w, off:off + w, off:off + w]] * b)
+    gt = IoZarr(FIXTURE).read(key="volumes/gt_instances").astype(np.int32)
+    r = (w + 6 - gt.shape[1]) // 2
+    lab = np.pad(gt, [(0, 0)] + [(r, w + 6 - gt.shape[1] - r)] * 3,
+                 mode="reflect")
+    labels = np.stack([lab] * b)
+    tcfg = TrainConfig(lr=1e-4)
+    opt, sched = make_optimizer(tcfg, model.parameters())
+    step, _ = make_train_step(model, cfg, tcfg, opt, sched)
+    raw_t = torch.as_tensor(raw, device=dev)
+    lab_t = torch.as_tensor(labels, device=dev)
+    ms, peak, mets = timed_calls(lambda: step(raw_t, lab_t), dev)
+    res = {"phase": "swin_full_step", "batch": [b, w], "bf16_step_ms": ms,
+           "crops_per_s": b / ms * 1e3, "extra_peak_gb": peak,
+           "loss": float(mets["loss"]),
+           "note": "configs/flylight.toml as a Swin, init_tree, Adam"}
+    del model, opt, raw_t, lab_t
+    torch.cuda.empty_cache()
+    emit(res)
+
+
+def run_swin(dev, kernels):
+    """Phase swin: (a) ``swin_forward``; (b) the crop config's Swin step
+    in f32 against the JAX fixture under phase 12(a)'s limits, then its
+    bf16 step ms on device batches; (c) ``-d all`` with
+    configs/flylight_crop.toml as a Swin (bf16, the device sampler,
+    ALL_STEPS steps, checkpoints every ALL_CHECKPOINTS) from the seeded
+    tree as checkpoint 0: every checkpoint scored, K1 / K2 once per
+    validated checkpoint plus the final label (foreground by the numinst
+    argmax); (d) ``swin_full_step``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch import models
+    from patchperpix_tpu_torch.models.init import flax_leaves
+    from patchperpix_tpu_torch.train import data as td
+    from patchperpix_tpu_torch.train.device_data import DeviceSampler
+    from patchperpix_tpu_torch.weights import seeded_tree
+
+    t_phase = time.perf_counter()
+    ref = np.load(SWIN_REF_NPZ)
+    meta = json.load(open(SWIN_REF_JSON))
+    swin_forward(dev, ref, meta)
+
+    train_ref = np.load(TRAIN_REF_NPZ)
+    raw, labels, _, sample = train_batch(td, train_ref["centres"])
+    want = meta["branches"]["swin"]
+    if int(labels.astype(np.int64).sum()) != want["batch"]["labels_sum"]:
+        raise AssertionError("the Swin step's batch differs from the JAX's")
+    cfg = swin_model_config(models, TRAIN_DENSE_CONFIG)
+    tree = seeded_tree(flax_leaves(cfg), TRAIN_SEED)
+    step = step_errors(dev, "swin", cfg, tree, raw, labels, want, ref,
+                       named=("rel_pos_bias", "WindowAttention_0/Dense_0"))
+    emit({"phase": "swin_step_vs_jax_f32", **step})
+    gate_step({"swin": step})
+    ds = DeviceSampler([sample], train_sampler_config(td),
+                       max_gt_channels=labels.shape[1], device=dev)
+    emit({"phase": "swin_step_times", "bfloat16": train_step_times(
+        dataclasses.replace(cfg, dtype="bfloat16"), ds, dev, tree=tree),
+        "note": "configs/flylight_crop.toml as a Swin, seeded, batch 3 of "
+                "40^3, device sampler, Adam; median step after 20 of 40"})
+    torch.cuda.empty_cache()
+
+    out_root = os.path.join(REPO, "experiments_out")
+    os.makedirs(out_root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="ppp_swin_", dir=out_root)
+    try:
+        seeded = dict(tree)
+        for name, shift in SWIN_ALL_SHIFT.items():
+            seeded[name] = seeded[name] + np.asarray(shift, np.float32)
+        run_train_all([], kernels, work, phase="swin_all",
+                      config=TRAIN_DENSE_CONFIG,
+                      model_toml='network_style = "swinunetr"\n',
+                      vote_toml="numinst_threshs = []\n",
+                      tree=seeded, resume=False)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    swin_full_step(dev)
+    emit({"phase": "swin_wall", "phase_wall_s": time.perf_counter()
+          - t_phase})
+
+
+# the multidevice phase: meshes of n shards, all on the one card through
+# parallel/sharded.py's local_devices hook (the tests lay them on the CPU)
+MD_SHARDS_50, MD_SHARDS_100, MD_SHARDS_BLOCKS, MD_SHARDS_STEP = 2, 4, 2, 3
+MD_TRAIN_STEPS, MD_TRAIN_DEVICES, MD_TRAIN_BATCH = 20, 2, 4
+
+
+class on_mesh:
+    """Within the block, ``local_devices`` lists ``devices`` (n shards of
+    one card, or several cards)."""
+
+    def __init__(self, devices):
+        self.devices = list(devices)
+
+    def __enter__(self):
+        from patchperpix_tpu_torch.parallel import sharded
+
+        self.saved = sharded.local_devices
+        sharded.local_devices = lambda kind="cuda": list(self.devices)
+        return self.devices
+
+    def __exit__(self, *exc):
+        from patchperpix_tpu_torch.parallel import sharded
+
+        sharded.local_devices = self.saved
+
+
+def md_consensus(phase, affs, cfg, mesh, dev, kernels, overlap=None):
+    """(a) ``sharded_consensus_and_rank`` over ``mesh`` against the
+    whole-volume K1 + K2 on ``dev``: half within 1e-4, scores within 1e-3
+    absolute / 1e-4 relative (phase 3's tolerances); K1 / K2 launched once
+    per shard; whether the results are equal bit for bit; both timed."""
+    import torch
+
+    from patchperpix_tpu_torch.ops.consensus_kernels import (
+        consensus_half, consensus_operands, rank_scores)
+    from patchperpix_tpu_torch.parallel import sharded
+
+    def whole():
+        ops = consensus_operands(affs, cfg, overlap)
+        half = consensus_half(affs, ops, cfg)
+        return half, rank_scores(affs, half, ops, cfg)
+
+    ms1, _, (half1, sc1) = timed_calls(whole, dev, 1)
+    for k in kernels:
+        k.launches = 0
+    half, sc = sharded.sharded_consensus_and_rank(affs, cfg, mesh, overlap)
+    torch.cuda.synchronize(dev)
+    launches = count_launches(phase, kernels)
+    ms, _, _ = timed_calls(lambda: sharded.sharded_consensus_and_rank(
+        affs, cfg, mesh, overlap), dev, 1)
+    d_half = (half.float() - half1.float()).abs()
+    d_sc = (sc - sc1).abs()
+    res = {"volume": list(affs.shape[1:]), "shards": len(mesh),
+           "devices": sorted({str(d) for d in mesh}),
+           "launches": launches, "whole_ms": ms1, "sharded_ms": ms,
+           "half_max_abs_err": float(d_half.max()),
+           "scores_max_abs_err": float(d_sc.max()),
+           "half_bit_equal": bool(torch.equal(half, half1)),
+           "scores_bit_equal": bool(torch.equal(sc, sc1))}
+    ok = bool((d_half <= 1e-4 + 1e-4 * half1.float().abs()).all()
+              and (d_sc <= 1e-3 + 1e-4 * sc1.abs()).all()
+              and all(n == len(mesh) for n in launches.values()))
+    return res, ok
+
+
+def md_step(dev, mesh, ref, meta, raw, labels):
+    """(d) the data-parallel f32 step over ``mesh`` on phase 12(a)'s batch,
+    both branches: within phase 12(a)'s limits of the JAX fixture; loss
+    parts and gradient leaves within 1e-6 relative of the port's
+    one-device step when both run the same convolution algorithms (cuDNN
+    off: PyTorch's own convolutions take one sample at a time), and, for
+    information, the same distance with cuDNN, which picks other
+    algorithms for a shard of one crop than for the batch of three."""
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch import models, weights
+    from patchperpix_tpu_torch.models.init import flax_leaves
+
+    res, ok = {}, True
+    for branch, path in (("code", CLI_CONFIG), ("dense", TRAIN_DENSE_CONFIG)):
+        cfg = train_model_config(models, path)
+        tree = (weights.load_npz() if branch == "code" else
+                weights.seeded_tree(flax_leaves(cfg), TRAIN_SEED))
+        corners = (torch.from_numpy(ref["corners"].astype(np.int64))
+                   if branch == "code" else None)
+        out = {}
+        for cudnn in (True, False):
+            one, dp = {}, {}
+            saved = torch.backends.cudnn.enabled
+            torch.backends.cudnn.enabled = cudnn
+            try:
+                step_errors(dev, branch, cfg, tree, raw, labels,
+                            meta["branches"][branch], ref, corners=corners,
+                            grads_out=one)
+                r = step_errors(dev, branch, cfg, tree, raw, labels,
+                                meta["branches"][branch], ref,
+                                corners=corners, mesh=mesh, grads_out=dp)
+            finally:
+                torch.backends.cudnn.enabled = saved
+            if cudnn:
+                gate_step({branch: r})
+                out.update({
+                    "vs_jax_grad_worst_rel_err": r["grad_worst_rel_err"],
+                    "vs_jax_grad_worst_limit": r["grad_worst_limit"],
+                    "loss_rel_err_vs_jax": r["loss_rel_err"]})
+            errs = {k: (abs(dp[k] - one[k]) / max(abs(one[k]), 1e-30)
+                        if np.isscalar(one[k]) else rel_l2(dp[k], one[k]))
+                    for k in one}
+            worst = max(errs, key=errs.get)
+            tag = "cudnn" if cudnn else "same_algorithms"
+            out[f"vs_one_device_{tag}"] = [worst, errs[worst]]
+        res[branch] = out
+        ok &= out["vs_one_device_same_algorithms"][1] <= 1e-6
+    return res, ok
+
+
+def md_train_cli(dev, work):
+    """(d) ``-d train`` through the port's CLI with training.num_devices =
+    MD_TRAIN_DEVICES (the host sampler: the CLI falls back from the device
+    sampler) for MD_TRAIN_STEPS steps, batch MD_TRAIN_BATCH (a batch of 3
+    does not split over 2 devices); the log rows must be finite."""
+    import numpy as np
+
+    from patchperpix_tpu_torch import cli
+
+    override = crop_override(
+        work, "md_train.toml",
+        f"[training]\nmax_iterations = {MD_TRAIN_STEPS}\n"
+        f"checkpoints = {MD_TRAIN_STEPS}\nbatch_size = {MD_TRAIN_BATCH}\n"
+        f"num_devices = {MD_TRAIN_DEVICES}\n"
+        f"[optimizer.optimizer]\nwarmup_steps = {MD_TRAIN_STEPS // 2}\n")
+    t0 = time.perf_counter()
+    paths = cli.main(["-c", CLI_CONFIG, "-c", override, "--root",
+                      os.path.join(work, "md_exps"), "-id", "dp", "-d",
+                      "train"])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(paths["train"], "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f if '"loss"' in line]
+    with open(os.path.join(paths["base"], "run.log")) as f:
+        fell_back = "falling back to the host prefetcher" in f.read()
+    res = {"steps": MD_TRAIN_STEPS, "devices": MD_TRAIN_DEVICES,
+           "batch": MD_TRAIN_BATCH, "wall_s": wall,
+           "log_steps": [r["step"] for r in rows],
+           "losses": [r["loss"] for r in rows],
+           "host_sampler": fell_back,
+           "checkpoints": cli.get_checkpoint_list(paths["train"])}
+    ok = bool(rows and all(np.isfinite(r["loss"]) for r in rows)
+              and fell_back and res["checkpoints"] == [MD_TRAIN_STEPS])
+    return res, ok
+
+
+def run_multidevice(ctx, dev, kernels):
+    """Phase multidevice, from inside the blockwise phase (``ctx``: its
+    store, parameters and maps, and phase 3's run), with meshes of n
+    shards on ``dev``: (a) ``md_consensus`` on phase 3's 50^3 decoded
+    affinities (MD_SHARDS_50 shards) and on the 100^3 stand-in
+    (MD_SHARDS_100); (b) ``to_instance_seg(sharded_devices =
+    MD_SHARDS_100)`` on the stand-in: the map identical up to relabelling
+    to the one-device map, the cover's selected set equal, the graph
+    weights within 1e-5; (c) ``block_devices = MD_SHARDS_BLOCKS`` on the
+    stand-in's dense store equals the ``block_devices = 0`` map; (d)
+    ``md_step`` with MD_SHARDS_STEP shards and ``md_train_cli``; (e) (a)
+    and (d) across real cards where there are two."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from patchperpix_tpu_torch.assembly import to_instance_seg
+    from patchperpix_tpu_torch.assembly.blockwise import (
+        BlockStats, blockwise_vote_instances_zarr)
+    from patchperpix_tpu_torch.train import data as td
+    from patchperpix_tpu_torch.utils.postprocess import relabel
+
+    t_phase = time.perf_counter()
+    run = ctx["run"]
+    ccfg = vote_params().consensus_config()
+    ok = True
+    out = {"phase": "multidevice"}
+    # (a)
+    a50, ok50 = md_consensus(
+        "multidevice_a50", run["dec"], ccfg, [dev] * MD_SHARDS_50, dev,
+        kernels, torch.as_tensor(run["numinst"] > 1, device=dev))
+    affs = torch.as_tensor(ctx["affs16"], device=dev).float()
+    overlap = torch.as_tensor(ctx["numinst"] > 1, device=dev)
+    a100, ok100 = md_consensus("multidevice_a100", affs, ccfg,
+                               [dev] * MD_SHARDS_100, dev, kernels, overlap)
+    out["a"] = {"50": a50, "100": a100}
+    ok &= ok50 and ok100
+    torch.cuda.empty_cache()
+    # (b)
+    vp = dataclasses.replace(vote_params(), sharded_devices=MD_SHARDS_100)
+    inter = {}
+    with on_mesh([dev] * MD_SHARDS_100):
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        inst, _ = to_instance_seg(affs, ctx["fg"], ctx["mask"],
+                                  ctx["numinst"], vp, device=dev,
+                                  intermediates=inter)
+        torch.cuda.synchronize(dev)
+        t_b = time.perf_counter() - t0
+        launches_b = count_launches("multidevice_b", kernels)
+    del affs
+    torch.cuda.empty_cache()
+    one = ctx["inter_w"]
+    same_map = bool(np.array_equal(relabel(inst), relabel(ctx["inst_w"])))
+    same_sel = bool(np.array_equal(inter["cover_centers"],
+                                   one["cover_centers"]))
+    same_pairs = bool(np.array_equal(inter["pairs"], one["pairs"]))
+    w_err = (float(np.abs(inter["weights"] - one["weights"]).max())
+             if same_pairs else None)
+    out["b"] = {"shards": MD_SHARDS_100, "seconds": t_b,
+                "one_device_seconds": ctx["t_whole"],
+                "launches": launches_b, "map_identical": same_map,
+                "cover_equal": same_sel, "pairs_equal": same_pairs,
+                "weights_max_abs_err": w_err}
+    ok &= same_map and same_sel and same_pairs and w_err <= 1e-5 \
+        and all(n == MD_SHARDS_100 for n in launches_b.values())
+    # (c)
+    stats = BlockStats()
+    with on_mesh([dev] * MD_SHARDS_BLOCKS):
+        t0 = time.perf_counter()
+        inst_c, _ = blockwise_vote_instances_zarr(
+            ctx["store"], dataclasses.replace(
+                ctx["vp"], block_devices=MD_SHARDS_BLOCKS),
+            SAMPLE_CHUNK, os.path.join(ctx["work"], "block_devices"),
+            device=dev, stats=stats)
+        torch.cuda.synchronize(dev)
+    same_c = bool(np.array_equal(relabel(inst_c), relabel(ctx["inst_s"])))
+    out["c"] = {"block_devices": MD_SHARDS_BLOCKS,
+                "seconds": time.perf_counter() - t0,
+                "one_device_seconds": ctx["t_staged"],
+                "blocks_consensus": stats.blocks_consensus,
+                "equal_to_block_devices_0": same_c}
+    ok &= same_c
+    torch.cuda.empty_cache()
+    # (d)
+    ref = np.load(TRAIN_REF_NPZ)
+    meta = json.load(open(TRAIN_REF_JSON))
+    raw, labels, _, _ = train_batch(td, ref["centres"])
+    out["d"], ok_d = md_step(dev, [dev] * MD_SHARDS_STEP, ref, meta, raw,
+                             labels)
+    with on_mesh([dev] * MD_TRAIN_DEVICES):
+        out["d"]["cli_train"], ok_cli = md_train_cli(dev, ctx["work"])
+    ok &= ok_d and ok_cli
+    torch.cuda.empty_cache()
+    # (e)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        e50, ok_e = md_consensus("multidevice_e", run["dec"], ccfg,
+                                 cards[:2], dev, kernels,
+                                 torch.as_tensor(run["numinst"] > 1,
+                                                 device=dev))
+        out["e"] = {"a": e50}
+        out["e"]["d"], ok_ed = md_step(
+            dev, [cards[i % n_cards] for i in range(MD_SHARDS_STEP)], ref,
+            meta, raw, labels)
+        ok &= ok_e and ok_ed
+    else:
+        out["e"] = {"skipped": f"{n_cards} card: copies between cards need "
+                               "two; (a) and (d) ran with every shard on "
+                               f"{dev}"}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if not ok:
+        raise AssertionError("a multidevice gate failed")
 
 
 def same_json(a, b) -> bool:
@@ -2239,7 +2869,7 @@ def isbi_assembly(dev, kernels, ref, meta):
                                        device=dev, timings=t,
                                        intermediates=inter)
         t["total"] = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels}
+        launches = count_launches("isbi_assembly", kernels)
         inst[fg_out == 0] = 0
         metrics = evaluate_labels(inst, gt, **isbi_eval_kwargs())
         want = meta["assembly"][sample]
@@ -2337,7 +2967,7 @@ def isbi_cli(dev_args, kernels, ref, meta, work):
     paths = cli.main(isbi_cli_argv(exps, override, "port") + dev_args + [
         "-d", "mknet", "predict", "label", "evaluate", "cross_validate"])
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = count_launches("isbi_cli", kernels)
     want = meta["cli"]
     maps, scores = {}, {}
     for key in sorted(k for k in ref.files if k.startswith("c/")
@@ -2563,7 +3193,7 @@ def isbi_all(dev_args, kernels, work, seeded):
         paths = cli.main(["-c", ISBI_CONFIG, "-c", override, "--root", exps,
                           "-id", "all", "-d", "all"] + dev_args)
         wall = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels}
+        launches = count_launches("isbi_all", kernels)
     finally:
         for name, fn in real.items():
             setattr(cli, name, fn)
@@ -2700,6 +3330,7 @@ def tpu_figures():
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2709,7 +3340,8 @@ def main() -> int:
             and all(os.path.exists(f) for f in (REF_NPZ, REF2D_NPZ,
                                                 MODEL2D_NPZ, BW_REF_NPZ,
                                                 CLI_REF_NPZ, TRAIN_REF_NPZ,
-                                                ISBI_REF_NPZ, ISBI_DATA))):
+                                                ISBI_REF_NPZ, ISBI_DATA,
+                                                SWIN_REF_NPZ))):
         print("chip_smoke: the repository is not beside this script",
               file=sys.stderr)
         return 2
@@ -2760,7 +3392,7 @@ def main() -> int:
     for k in KERNELS:
         k.launches = 0
     run = run_path(model, cfg, raw, dev)
-    launches = {k.name: k.launches for k in (K.CONSENSUS, K.RANK)}
+    launches = count_launches("f32_path", (K.CONSENSUS, K.RANK))
     emit({"phase": "f32_path", "launches": launches,
           "warmup_s": warm["times"], "steady_s": run["times"],
           "fg_vox": int(run["fg"].sum()),
@@ -2793,7 +3425,9 @@ def main() -> int:
                 "AP_0.5_cldice_greedy": cl["confusion_matrix"]["th_0_5"][
                     "AP"]}
     scores32 = scores(run["inst"])
-    run_blockwise(model, cfg, raw, run, dev, (K.CONSENSUS, K.RANK))
+    run_blockwise(model, cfg, raw, run, dev, (K.CONSENSUS, K.RANK),
+                  then=lambda ctx: run_multidevice(ctx, dev,
+                                                   (K.CONSENSUS, K.RANK)))
     del run
     torch.cuda.empty_cache()
 
@@ -2815,6 +3449,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_train(dev, (K.CONSENSUS, K.RANK))
     torch.cuda.empty_cache()
+    run_swin(dev, (K.CONSENSUS, K.RANK))
+    torch.cuda.empty_cache()
     run_isbi(dev, (K.CONSENSUS2D, K.RANK2D))
     torch.cuda.empty_cache()
 
@@ -2833,8 +3469,13 @@ def main() -> int:
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
+    for k in kernels:
+        k["launches_by_phase"] = {ph: n[k["name"]] for ph, n in
+                                  LAUNCHES.items() if k["name"] in n}
+    emit({"phase": "script_wall", "wall_s": time.perf_counter() - t_script})
     print(smi, flush=True)
-    emit({"kernels": [{key: k[key] for key in order} for k in kernels]})
+    emit({"kernels": [{key: k[key] for key in order + ("launches_by_phase",)}
+                      for k in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -26,7 +26,12 @@ components are painted from the nodes' patch columns only.
 - ``skeletonize_foreground`` thins the whole sample's mask to cover once,
   before the blocks; block and stitch windows never skeletonize their own
   window (their params force it off).
-- ``block_devices`` > 1 belongs to the multi-device port and raises.
+- ``block_devices`` > 1 (-1: every device) spreads the blocks over the
+  devices of ``parallel/sharded.py``'s ``local_devices``: worker thread i
+  runs its blocks on device i (its launches with that device current),
+  with at least one worker per device.  Blocks then never shard
+  themselves (``sharded_devices`` is forced to 0 inside a block); without
+  ``block_devices`` a block window z-shards like a whole volume.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch.nn.functional as F
 
 from ..ops import np_reference as ref
 from ..ops.graph_device import graph_components_device
+from ..parallel import sharded
 from ..utils import io as vio
 from ..utils.device import resolve_device
 from ..utils.postprocess import clean_mask
@@ -316,11 +322,14 @@ def _load_block(store: str | None, key):
         return False, None
 
 
-def _check_block_devices(block_devices):
-    if block_devices not in (0, 1, None):
-        raise NotImplementedError(
-            f"block_devices={block_devices}: blocks over several devices "
-            "belong to the multi-device port; use 0 or 1")
+def _block_devices(block_devices, kind: str):
+    """The devices blocks spread over, or None for one device."""
+    if not block_devices or block_devices == 1:
+        return None
+    devices = list(sharded.local_devices(kind))
+    if block_devices > 0:
+        devices = devices[:block_devices]
+    return devices if len(devices) > 1 else None
 
 
 class BlockStats:
@@ -373,8 +382,9 @@ def compute_blocks(reader, fg: np.ndarray, mask_to_cover: np.ndarray,
                    stats: BlockStats | None = None) -> dict:
     """Per-block intermediates: {offset key: (pairs_global, weights, key)
     or None}.  Resumes from ``block_results`` and / or the on-disk
-    ``store``."""
-    _check_block_devices(block_devices)
+    ``store``.  ``block_devices`` > 1 (-1: all) runs blocks concurrently
+    on that many devices of ``device``'s kind (JAX blockwise.py:437-467)."""
+    dev = resolve_device(device)
     ps = np.asarray(params.patchshape, dtype=np.int64)
     rad = ps // 2
     vol_shape = np.array(fg.shape)
@@ -386,10 +396,14 @@ def compute_blocks(reader, fg: np.ndarray, mask_to_cover: np.ndarray,
     offsets = get_offsets(bb_stop - bb_start, chunksize)
     block_results = {} if block_results is None else block_results
     # the whole sample's mask was skeletonized once (_masks_to_cover); no
-    # block thins its own window
-    block_params = dataclasses.replace(params, blockwise=True,
-                                       return_intermediates=True,
-                                       skeletonize_foreground=False)
+    # block thins its own window.  Blocks over devices and z-sharding
+    # inside a block exclude each other: blocks over devices win
+    devices = _block_devices(block_devices, dev.type)
+    block_params = dataclasses.replace(
+        params, blockwise=True, return_intermediates=True,
+        skeletonize_foreground=False, block_devices=0,
+        sharded_devices=0 if devices else params.sharded_devices)
+    worker = threading.local()
 
     def run_block(off):
         key = tuple(int(o) for o in off)
@@ -431,8 +445,8 @@ def compute_blocks(reader, fg: np.ndarray, mask_to_cover: np.ndarray,
         inter: dict = {}
         timings_read = time.perf_counter() - t0
         res = to_instance_seg(affs_b, fg_b, mask_b, ni_b, bparams,
-                              device=device, timings=timings,
-                              intermediates=inter)
+                              device=getattr(worker, "device", dev),
+                              timings=timings, intermediates=inter)
         del affs_b
         if stats is not None:
             timings["read"] = timings_read
@@ -460,7 +474,24 @@ def compute_blocks(reader, fg: np.ndarray, mask_to_cover: np.ndarray,
         # phase order: concurrent workers drain same-phase blocks first
         todo = sorted(todo, key=lambda o: (_phase(o, chunksize),)
                       + tuple(int(x) for x in o))
-    if num_parallel_blocks > 1 and len(todo) > 1:
+    if devices is not None and len(todo) > 1:
+        # worker thread i runs its blocks on device i (round-robin when
+        # there are more workers than devices), with that device current
+        n_workers = max(num_parallel_blocks, len(devices))
+        lock = threading.Lock()
+        started = iter(range(n_workers))
+
+        def pin():
+            with lock:
+                worker.device = devices[next(started) % len(devices)]
+            if worker.device.type == "cuda":
+                torch.cuda.set_device(worker.device)
+
+        with ThreadPoolExecutor(max_workers=n_workers,
+                                initializer=pin) as ex:
+            for key, res in ex.map(run_block, todo):
+                block_results[key] = res
+    elif num_parallel_blocks > 1 and len(todo) > 1:
         with ThreadPoolExecutor(max_workers=num_parallel_blocks) as ex:
             for key, res in ex.map(run_block, todo):
                 block_results[key] = res
@@ -496,7 +527,6 @@ def blockwise_vote_instances(pred_affs, foreground: np.ndarray,
     tensor whose windows stay on its device).  Returns (instances
     uint16, fg uint8).  ``block_results`` (partially filled) and / or a
     ``store`` directory resume an earlier run."""
-    _check_block_devices(params.block_devices)
     dev = resolve_device(device)
     fg, mask_to_cover = _masks_to_cover(foreground, numinst, params)
     if not fg.any():
@@ -530,7 +560,6 @@ def blockwise_vote_instances_zarr(aff_file: str,
     (``CodeAffReader``): the dense (P, *vol) stack is never produced."""
     from ..infer.decode import CodeAffReader
 
-    _check_block_devices(params.block_devices)
     dev = resolve_device(device)
     base = os.path.splitext(os.path.basename(aff_file.rstrip("/")))[0]
     store = (_block_store_path(result_folder, base, params, chunksize)

@@ -29,9 +29,17 @@ from a prediction store, ``to_instance_seg`` (or blockwise assembly), and
 of the port's ``utils/io.py``; the JAX package writes ``.hdf``, and the
 GPU machine has no h5py) under the JAX package's keys.
 ``VoteInstancesParams.from_config`` reads a [vote_instances] section; a
-key of the JAX package that the port does not implement yet (multi-device,
-visualization) raises when it is set to anything but its default, naming
+key of the JAX package that the port does not implement yet
+(visualization) raises when it is set to anything but its default, naming
 the ROADMAP.md item that ports it.
+
+``sharded_devices`` > 1 (-1: every device) z-shards the consensus and
+rank over a mesh of devices (``parallel/sharded.py``), and passes the
+mesh on to the cover (the sharded closed form) and the graph weights
+(first-patch groups round-robin over the devices).  The JAX package's
+rule picks the mesh size (``_sharded_mesh_size``): one device when Z does
+not divide or a slab would be thinner than the 3*rad halo, which is
+logged.
 
 The options of the JAX package's ``to_instance_seg`` follow its branches:
 ``pad_with_ps``, the ISBI hacks (``assembly/isbi_hacks.py``), ``sample``
@@ -56,6 +64,7 @@ over.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from dataclasses import dataclass, fields
@@ -73,17 +82,19 @@ from ..ops.consensus_kernels import (consensus_half, consensus_operands,
                                      rank_scores)
 from ..ops.cover import greedy_cover_device, thin_out_cover_device
 from ..ops.graph_device import graph_components_device
+from ..parallel import sharded
 from ..utils import io as vio
 from ..utils.device import resolve_device
 from ..utils.postprocess import remove_small_components
 from ..utils.skeleton import skeletonize
 from . import isbi_hacks
 
+logger = logging.getLogger(__name__)
+
 # [vote_instances] keys of the JAX package's VoteInstancesParams that the
 # port does not implement yet: {key: (the JAX default, the ROADMAP.md item
 # that ports it)}.  from_config raises on any other value.
 _NOT_PORTED = {
-    "sharded_devices": (0, "ROADMAP.md §1 item 3 (multi-device)"),
     "save_mip": (False, "ROADMAP.md §1 item 5 (visualization)"),
     "save_tif": (False, "ROADMAP.md §1 item 5 (visualization)"),
     "vote_debug": (False, "ROADMAP.md §1 item 5 (visualization)"),
@@ -129,7 +140,9 @@ class VoteInstancesParams:
     chunksize: tuple = (92, 92, 92)
     num_parallel_blocks: int = 1
     chessboard: bool = False
-    block_devices: int = 0           # > 1: the multi-device slice, raises
+    block_devices: int = 0           # > 1 (-1 = all): blocks over devices
+    sharded_devices: int = 0         # > 1 (-1 = all): z-shard consensus +
+                                     # rank, cover and graph over devices
     aff_key: str = "volumes/pred_affs"
     code_key: str = "volumes/pred_code"
     numinst_key: str | None = None
@@ -232,6 +245,33 @@ class VoteInstancesParams:
             norm_graph=self.patch_graph_norm_aff,
             overlapping_inst=self.overlapping_inst,
             cons_bf16=self.consensus_bf16)
+
+
+def _sharded_mesh_size(params, vol_shape, ccfg, kind: str = "cuda") -> int:
+    """Usable mesh size for z-sharded consensus + rank, or 1 (one device),
+    by the JAX package's rule (vote_instances.py:53-73): the largest n up
+    to ``sharded_devices`` (-1: every device of ``kind``) that divides Z
+    into slabs of at least 3*rad slices.  A request that cannot be met in
+    full is logged with the reason."""
+    want = int(params.sharded_devices or 0)
+    if want in (0, 1):
+        return 1
+    avail = len(sharded.local_devices(kind))
+    n_max = avail if want < 0 else min(want, avail)
+    halo = 3 * int(ccfg.rad[0])
+    if n_max > 1 and len(vol_shape) == 3:
+        Z = int(vol_shape[0])
+        for n in range(n_max, 1, -1):
+            if Z % n == 0 and Z // n >= max(halo, 1):
+                if n < want:
+                    logger.info("sharded_devices=%d: %d shards (%d %s "
+                                "devices; z extent %d, halo %d)", want, n,
+                                avail, kind, Z, halo)
+                return n
+    logger.info("sharded_devices=%d: one device (%d %s devices; volume %s "
+                "splits into no equal z-slabs of at least %d slices)", want,
+                avail, kind, tuple(vol_shape), max(halo, 1))
+    return 1
 
 
 def numinst_from_probs(prob: np.ndarray,
@@ -482,9 +522,17 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
         injected or params.selected_patches is not None)
 
     # (1) consensus: operands in PyTorch (2D: one gated stack and a target
-    # plane; 3D: the mask stacks), the canonical half from the kernel
-    operands = consensus_operands(affs, ccfg, overlap, cv)
-    cons = consensus_half(affs, operands, ccfg)
+    # plane; 3D: the mask stacks), the canonical half from the kernel; with
+    # sharded_devices, z-sharded over a mesh with the rank beside it
+    n_sh = _sharded_mesh_size(params, vol_shape, ccfg, dev.type)
+    mesh = sharded.make_spatial_mesh(n_sh, dev.type) if n_sh > 1 else None
+    if mesh is not None:
+        operands = None
+        cons, sharded_scores = sharded.sharded_consensus_and_rank(
+            affs, ccfg, mesh, overlap, cv)
+    else:
+        operands = consensus_operands(affs, ccfg, overlap, cv)
+        cons = consensus_half(affs, operands, ccfg)
     inter["consensus"] = True
     stages.mark("consensus")
 
@@ -499,7 +547,8 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
             raise ValueError(f"oracle scores {tuple(scores.shape)} != "
                              f"volume {vol_shape}")
     elif not skip_rank:
-        scores = rank_scores(affs, cons, operands, ccfg, cv)
+        scores = sharded_scores if mesh is not None \
+            else rank_scores(affs, cons, operands, ccfg, cv)
     del operands
     cand = np.argwhere(foreground & inner)
     if params.isbi_hack:
@@ -567,7 +616,8 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
             selected, _ = greedy_cover_device(
                 cover_affs, mask_to_cover, ranked, ps,
                 fc_threshold=params.fc_threshold, overlap=overlap_mask,
-                sparse_data=params.select_patches_for_sparse_data)
+                sparse_data=params.select_patches_for_sparse_data,
+                mesh=mesh)
         inter["cover_centers"] = np.array([c for c, _ in selected])
         stages.mark("cover")
         if thin and selected:
@@ -589,7 +639,8 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
     sym = symmetrize_half(cons, ccfg)
     del cons
     weights = patch_graph_weights(affs, sym, pairs, ccfg,
-                                  drop_intersection=params.removeIntersection)
+                                  drop_intersection=params.removeIntersection,
+                                  mesh=mesh)
     del sym
     inter["pairs"], inter["weights"] = pairs, weights
     stages.mark("graph")

@@ -24,9 +24,13 @@ What differs from the JAX CLI:
   ``postprocess`` and ``cleanup`` look for them.
 - ``[evaluation] num_workers > 1`` evaluates samples in processes started
   with ``spawn`` (a forked child of a process that has used CUDA breaks).
-- Samples are not sharded over hosts, ``training.num_devices > 1`` raises
-  (multi-device is ROADMAP.md §1 item 3), and no git diff of the source
-  is stored with the config.
+- ``predict``, ``label``, ``infer_fused`` and ``evaluate`` handle the
+  samples this process owns (``parallel/multihost.py``: round-robin over
+  the ``torch.distributed`` world or ``PPP_PROCESS_INDEX`` /
+  ``PPP_PROCESS_COUNT``); ``training.num_devices > 1`` trains
+  data-parallel over that many devices of ``--device``'s kind, with the
+  host sampler (``device_sampler`` falls back to it with a warning, as in
+  the JAX CLI).  No git diff of the source is stored with the config.
 - ``visualize`` raises NotImplementedError naming the ROADMAP.md item
   that ports it.
 
@@ -62,6 +66,7 @@ from .assembly.vote_instances import (VoteInstancesParams, do_all,
                                       finalize_and_write,
                                       numinst_from_probs, to_instance_seg)
 from .models import PPPConfig, PPPModel
+from .parallel.multihost import shard_samples
 from .utils import io as vio
 from .utils.device import resolve_device
 from .weights import build_model, checkpoint_path, load_checkpoint
@@ -319,10 +324,7 @@ def train(args, config, paths):
 
     data = config.get("data", {})
     tr = config.get("training", {})
-    if int(tr.get("num_devices", 1)) > 1:
-        raise NotImplementedError(
-            "training.num_devices > 1 (data-parallel training) is not "
-            "ported yet: ROADMAP.md §1 item 3 (multi-device)")
+    num_devices = int(tr.get("num_devices", 1))
     train_dir = args.train_data or data.get("train_data")
     fmt = data.get("input_format", "zarr")
     clipmax = config.get("preprocessing", {}).get("clipmax")
@@ -400,6 +402,10 @@ def train(args, config, paths):
     if tr.get("device_sampler", False):
         # where the batches are drawn; training runs on args.device
         reason = device_sampler_supported(scfg)
+        if num_devices > 1:
+            # the device loop is single-device; data-parallel runs keep
+            # the host prefetcher (train_until raises otherwise)
+            reason = reason or "num_devices > 1 (data-parallel mesh)"
         if reason is None:
             pf = DeviceSampler(samples, scfg, max_gt_channels=max_gt,
                                device=args.device)
@@ -450,9 +456,16 @@ def train(args, config, paths):
             logger.warning("val_log_step=%d but no val_data dir (%s); "
                            "interleaved validation disabled",
                            tcfg.val_log_step, val_dir)
+    mesh = None
+    if num_devices > 1:
+        from .train.trainer import make_data_mesh
+
+        mesh = make_data_mesh(num_devices,
+                              kind=resolve_device(args.device).type)
     try:
         state = train_until(PPPModel(mcfg), mcfg, tcfg, pf,
-                            val_batch_fn=val_batch_fn, device=args.device)
+                            val_batch_fn=val_batch_fn, device=args.device,
+                            mesh=mesh)
     finally:
         pf.stop()
         if val_pf is not None:
@@ -478,7 +491,7 @@ def predict(args, config, paths, mode=None, checkpoint=None):
                                    "use_swa", False))
     key = "volumes/pred_code" if mcfg.train_code else "volumes/pred_affs"
     done = []
-    for s in _samples(args, config, data_dir):
+    for s in shard_samples(_samples(args, config, data_dir)):
         out_path = os.path.join(out_dir, s + ".zarr")
         if vio.check_file(out_path, keys=[key], remove_on_error=True):
             logger.info("skipping %s (exists)", s)
@@ -554,6 +567,7 @@ def label(args, config, paths, mode=None, checkpoint=None,
             logger.info("skipping %s (labelled)", s)
             continue
         todo.append((s, path))
+    todo = shard_samples(todo)  # multi-process fan-out (no-op alone)
 
     def one(item):
         return do_all(item[1], params, result_folder=out_dir,
@@ -592,7 +606,7 @@ def infer_fused(args, config, paths, mode=None, checkpoint=None,
     vparams = _vote_params(config, out_dir, param_overrides, label=False)
     fg_thresh = config.get("prediction", {}).get("fg_thresh", 0.5)
     done = []
-    for s in _samples(args, config, data_dir):
+    for s in shard_samples(_samples(args, config, data_dir)):
         if vio.check_file(os.path.join(out_dir, s + ".zarr"),
                           keys=[vparams.res_key], remove_on_error=True):
             logger.info("skipping %s (labelled)", s)
@@ -662,6 +676,7 @@ def evaluate(args, config, paths, mode=None, checkpoint=None,
             if partly_gt != gt_file and os.path.exists(partly_gt):
                 gt_file, partly = partly_gt, True
         jobs.append((s, path, gt_file, partly))
+    jobs = shard_samples(jobs)  # multi-process fan-out (no-op alone)
 
     complete = {s: not partly for s, _p, _g, partly in jobs}
     n_workers = int(ev.get("num_workers", 1))

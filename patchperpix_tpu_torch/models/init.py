@@ -6,7 +6,12 @@ decoder's), every transposed conv and ``head_fgbg_numinst`` draw
 ``kaiming_normal``, ``head_code_affs`` draws ``xavier_uniform``, the
 resize-conv's 1x1 conv (the decoder's ``Upsample`` with ``upsampling =
 "resize_conv"``) keeps Flax's default ``lecun_normal``, and every bias is
-zero.
+zero.  The Swin backbone's: the attention's qkv and output ``Dense``
+draw ``xavier_uniform``, its ``rel_pos_bias`` ``truncated_normal(0.02)``
+(cut at +-2, not rescaled), the ``_ConvBlock`` convs ``kaiming_normal``;
+the MLP and ``PatchMerging`` ``Dense``, the patch embed and the decoder's
+transposed convs keep ``lecun_normal``; ``LayerNorm`` scales are one and
+its biases zero.
 
 Flax's normal initialisers are *truncated*: cut at +-2 standard deviations
 of a unit normal and rescaled by 1 / 0.87962566 so that the variance is
@@ -30,24 +35,35 @@ from .ppp import PPPConfig, PPPModel
 _TRUNC_STD = 0.87962566103423978
 
 
-def flax_leaves(cfg: PPPConfig) -> list[tuple[str, tuple]]:
+def flax_leaves(cfg: PPPConfig, input_shape=None) -> list[tuple[str, tuple]]:
     """('params/...' Flax leaf name, Flax-layout shape) of every parameter
-    of the model, in module order."""
+    of the model, in module order (``input_shape``: see ``PPPModel``)."""
     from ..weights import from_state_dict
 
     with torch.device("meta"):
-        sd = PPPModel(cfg).state_dict()
+        sd = PPPModel(cfg, input_shape).state_dict()
     return [(k, tuple(v.shape)) for k, v in from_state_dict(sd).items()]
 
 
 def initializer(name: str) -> str:
-    """The Flax initialiser of one leaf: 'zeros', 'kaiming_normal',
-    'lecun_normal' or 'xavier_uniform'."""
+    """The Flax initialiser of one leaf: 'zeros', 'ones',
+    'kaiming_normal', 'lecun_normal', 'xavier_uniform' or
+    'truncated_normal' (stddev 0.02)."""
     parts = name.split("/")
     if parts[-1] == "bias":
         return "zeros"
-    if parts[-2] == "head_code_affs":
+    if parts[-1] == "scale":
+        return "ones"
+    if parts[-1] == "rel_pos_bias":
+        return "truncated_normal"
+    if parts[-2] == "head_code_affs" \
+            or parts[-3].startswith("WindowAttention"):
         return "xavier_uniform"
+    if parts[-2].startswith("Dense") or parts[-3] == "unet":
+        # Swin: the MLP / PatchMerging Dense, the patch embed and the
+        # decoder's transposed convs (the U-Net's convs sit one level
+        # deeper, under ConvPass_* / Upsample_*)
+        return "lecun_normal"
     if parts[-2] == "Conv_0" and parts[-3].startswith("Upsample"):
         return "lecun_normal"   # the resize-conv's 1x1 conv: Flax's default
     return "kaiming_normal"
@@ -65,6 +81,12 @@ def draw(name: str, shape, generator: torch.Generator) -> torch.Tensor:
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if kind == "zeros":
         return out.zero_()
+    if kind == "ones":
+        return out.fill_(1.0)
+    if kind == "truncated_normal":
+        torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        return out.mul_(0.02)
     fan_in, fan_out = _fans(shape)
     if kind == "xavier_uniform":
         limit = math.sqrt(3.0 * 1.0 / ((fan_in + fan_out) / 2.0))
@@ -76,10 +98,11 @@ def draw(name: str, shape, generator: torch.Generator) -> torch.Tensor:
     return out.mul_(std)
 
 
-def init_tree(cfg: PPPConfig, generator: torch.Generator) -> dict:
+def init_tree(cfg: PPPConfig, generator: torch.Generator,
+              input_shape=None) -> dict:
     """A fresh parameter tree for ``cfg``: flat {'params/...': float32
     numpy array} in the Flax layout, with the leaf names and shapes of the
     JAX package's ``full_init`` (the decoder included when ``train_code``),
     drawn from ``generator`` leaf by leaf in module order."""
     return {name: draw(name, shape, generator).cpu().numpy()
-            for name, shape in flax_leaves(cfg)}
+            for name, shape in flax_leaves(cfg, input_shape)}

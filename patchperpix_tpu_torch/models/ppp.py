@@ -1,7 +1,11 @@
-"""PatchPerPix model: U-Net backbone + code head + numinst head + decoder.
+"""PatchPerPix model: backbone + code head + numinst head + decoder.
 
-Counterpart of ``patchperpix_tpu/models/ppp.py`` for the ``unet`` network
-style, in 3D and in 2D (``patchshape`` (1, p, p): ``spatial_dims`` 2, the
+Counterpart of ``patchperpix_tpu/models/ppp.py``: the ``unet`` network
+style (``models/unet.py``) and the ``swinunetr`` style
+(``models/swin.py``: ``feature_size = num_fmaps``, two blocks per stage,
+one stage per downsample factor, ``max(1, num_fmaps * 2**i // 8)`` heads
+at stage i; same-size output, the heads on ``feature_size`` channels),
+in 3D and in 2D (``patchshape`` (1, p, p): ``spatial_dims`` 2, the
 leading size-1 axis squeezed out of the per-level factors, ``Conv2d``
 modules, raw (N, C, H, W)).  The API boundary is channels-first
 (C, *spatial), like the JAX package's.
@@ -29,7 +33,7 @@ from .unet import UNet
 class PPPConfig:
     patchshape: tuple = (7, 7, 7)
     num_channels: int = 1
-    # "unet" | "swinunetr"; the port has the unet style only
+    # "unet" | "swinunetr"
     network_style: str = "unet"
     num_fmaps: int = 20
     fmap_inc_factors: tuple = (3, 3, 3)
@@ -117,11 +121,13 @@ class PPPConfig:
 
 
 class PPPModel(nn.Module):
-    def __init__(self, cfg: PPPConfig):
+    """``input_shape`` (spatial) matters to the swinunetr style only, and
+    only for inputs whose later stages are narrower than the window: the
+    relative-position tables are then built for the clipped windows, as
+    Flax builds them at ``init`` (``models/swin.py``)."""
+
+    def __init__(self, cfg: PPPConfig, input_shape=None):
         super().__init__()
-        if cfg.network_style != "unet":
-            raise NotImplementedError(
-                f"network style {cfg.network_style!r} is not ported")
         nd = cfg.spatial_dims
         if nd not in (2, 3):
             raise ValueError(f"patchshape {cfg.patchshape}: 2 or 3 extents "
@@ -131,14 +137,31 @@ class PPPModel(nn.Module):
         ds = tuple(tuple(f[-nd:]) for f in cfg.downsample_factors)
         ae_ds = tuple(tuple(f[-nd:]) for f in cfg.ae_downsample_factors)
         conv = nn.Conv2d if nd == 2 else nn.Conv3d
-        self.unet = UNet(
-            cfg.num_channels, num_fmaps=cfg.num_fmaps,
-            fmap_inc_factors=cfg.fmap_inc_factors,
-            fmap_dec_factors=cfg.fmap_dec_factors,
-            downsample_factors=ds,
-            kernel_size=cfg.kernel_size,
-            num_repetitions=cfg.num_repetitions, padding=cfg.padding,
-            upsampling=cfg.upsampling, activation=cfg.activation)
+        if cfg.network_style == "swinunetr":
+            from .swin import SwinUNETR
+
+            n_stages = len(ds)
+            self.unet = SwinUNETR(
+                cfg.num_channels, feature_size=cfg.num_fmaps,
+                depths=(2,) * n_stages,
+                num_heads=tuple(max(1, cfg.num_fmaps * (2 ** i) // 8)
+                                for i in range(n_stages)),
+                spatial_dims=nd,
+                input_shape=(None if input_shape is None
+                             else tuple(input_shape)[-nd:]))
+        elif cfg.network_style == "unet":
+            self.unet = UNet(
+                cfg.num_channels, num_fmaps=cfg.num_fmaps,
+                fmap_inc_factors=cfg.fmap_inc_factors,
+                fmap_dec_factors=cfg.fmap_dec_factors,
+                downsample_factors=ds,
+                kernel_size=cfg.kernel_size,
+                num_repetitions=cfg.num_repetitions, padding=cfg.padding,
+                upsampling=cfg.upsampling, activation=cfg.activation)
+        else:
+            raise ValueError(
+                f"invalid network style: {cfg.network_style!r} "
+                "(expected 'unet' or 'swinunetr')")
         feats = self.unet.out_channels
         self.head_code_affs = conv(feats, cfg.out_channels_head1, 1)
         self.head_fgbg_numinst = conv(feats, cfg.out_channels_head2, 1)

@@ -14,6 +14,10 @@ file name carries a hash of the source, of every header ``csrc/*.cuh``
 The library is loaded once per process.  ``CudaKernel`` is one entry
 point of such a library with its launch count; loads and counts are
 guarded by locks, since blockwise assembly launches from several threads.
+A launch names its device and runs with that device current: the C entry
+points set kernel attributes and launch on the *current* device, and the
+stream they are given belongs to the tensors' device, which need not be
+the current one (blocks and shards on several cards).
 """
 
 from __future__ import annotations
@@ -110,21 +114,25 @@ class CudaKernel:
         self.launches = 0
         self._count_lock = threading.Lock()
 
-    def launch(self, *args):
-        """Run the kernel's entry point and count the launch."""
-        self.call(self.symbol, self.argtypes, *args)
+    def launch(self, device, *args):
+        """Run the kernel's entry point on ``device`` (the tensors'
+        CUDA device) and count the launch."""
+        self.call(device, self.symbol, self.argtypes, *args)
         with self._count_lock:
             self.launches += 1
 
-    def call(self, symbol: str, argtypes, *args):
+    def call(self, device, symbol: str, argtypes, *args):
         """Run another entry point of the same library (a step that sizes
-        the kernel's scratch), not counted as a launch; raises on a CUDA
-        error."""
+        the kernel's scratch) on ``device``, not counted as a launch;
+        raises on a CUDA error."""
+        import torch
+
         lib = load(self.name)
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        err = fn(*args)
+        with torch.cuda.device(device):
+            err = fn(*args)
         if err != 0:
             msg = getattr(lib, f"ppp_{self.name}_error_string")
             msg.argtypes = [ctypes.c_int]

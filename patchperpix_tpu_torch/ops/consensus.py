@@ -509,7 +509,7 @@ def _in_box(coords: torch.Tensor, lo, hi) -> torch.Tensor:
 def patch_graph_weights(affs: torch.Tensor, cons_sym: torch.Tensor,
                         pairs: np.ndarray, cfg: ConsensusConfig,
                         drop_intersection: bool = True,
-                        budget: int = 1 << 25) -> np.ndarray:
+                        budget: int = 1 << 25, mesh=None) -> np.ndarray:
     """Affinity weight per candidate patch pair (computePatchGraph.cu), in
     the JAX package's expectation form (consensus_jax.py:913-958).
 
@@ -540,7 +540,17 @@ def patch_graph_weights(affs: torch.Tensor, cons_sym: torch.Tensor,
     direct sum over the two intersection boxes.  Every sum is a gather and
     a reduction in a fixed order: the result does not depend on the run.
     ``budget`` bounds the elements of one batch of intersection terms.
+
+    With a ``mesh`` (a list of devices, ``parallel/sharded.py``), the
+    groups of pairs that share a first patch go round-robin over the
+    devices, each with its own copy of the affinities and the consensus
+    (consensus_jax.py:998-1056 sends its segments round-robin the same
+    way; the JAX package pads the segment count to 8 * n_dev so that its
+    compiled shapes split evenly, which eager PyTorch does not need).
     """
+    if mesh is not None and len(mesh) > 1 and len(pairs) > 0:
+        return _graph_weights_mesh(affs, cons_sym, pairs, cfg,
+                                   drop_intersection, budget, mesh)
     dev = affs.device
     ps_np = cfg.ps
     pairs = np.asarray(pairs).astype(np.int64)
@@ -663,4 +673,24 @@ def patch_graph_weights(affs: torch.Tensor, cons_sym: torch.Tensor,
         fg_cnt[close] = fg_cnt[close] - 0.8 * (na * nb)
     w = acc / torch.clamp(fg_cnt, min=1.0) if cfg.norm_graph else acc
     out[near] = w.cpu().numpy()
+    return out
+
+
+def _graph_weights_mesh(affs, cons_sym, pairs, cfg, drop_intersection,
+                        budget, mesh) -> np.ndarray:
+    """``patch_graph_weights`` with the first-patch groups round-robin over
+    ``mesh``: every pair's weight reads its own group's fields only, so
+    each device weighs its share of the pairs on its own.  The devices
+    take their shares in turn: the weighing reads batch sizes back to the
+    host, so shares on several cards overlap only in part."""
+    pairs = np.asarray(pairs).astype(np.int64)
+    _, group = np.unique(pairs[:, :3], axis=0, return_inverse=True)
+    group = group.reshape(-1) % len(mesh)
+    out = np.zeros(len(pairs), np.float32)
+    for k, dev in enumerate(mesh):
+        sel = np.nonzero(group == k)[0]
+        if len(sel):
+            out[sel] = patch_graph_weights(
+                affs.to(dev), cons_sym.to(dev), pairs[sel], cfg,
+                drop_intersection, budget)
     return out

@@ -29,12 +29,13 @@ slabs, pre-padded margins) is not carried over either: the 2D kernels
 read and write the standard layout.
 
 Each wrapper allocates its output, checks device, dtype, shape and
-contiguity, launches on PyTorch's current stream and raises if the launch
-fails.  ``consensus_operands`` / ``consensus_half`` / ``rank_scores`` pick
-the 2D kernels where ``is_2d`` holds (flat-z volume, square odd patch) and
-the 3D kernels otherwise; they take the plain PyTorch version
-(``ops/consensus.py``) only for tensors on the CPU; any other device
-raises.  Each kernel counts its launches in ``.launches``.
+contiguity, launches on PyTorch's current stream of the tensors' device,
+with that device current (``CudaKernel.launch``), and raises if the
+launch fails.  ``consensus_operands`` / ``consensus_half`` /
+``rank_scores`` pick the 2D kernels where ``is_2d`` holds (flat-z volume,
+square odd patch) and the 3D kernels otherwise; they take the plain
+PyTorch version (``ops/consensus.py``) only for tensors on the CPU; any
+other device raises.  Each kernel counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -246,7 +247,7 @@ def _consensus_launch(a, b, hi, lo, cfg: ConsensusConfig) -> tuple:
     vals = torch.empty((2,) + vol + (cfg.P,), dtype=torch.float32,
                        device=dev)
     CONSENSUS.launch(
-        a.data_ptr(), b.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+        dev, a.data_ptr(), b.data_ptr(), hi.data_ptr(), lo.data_ptr(),
         out.data_ptr(), int(cfg.cons_bf16), *vol, psz, psy, psx,
         _WEIGHT_MODES[cfg.weight_mode], float(cfg.patch_threshold),
         int(cfg.norm_aff), codes.data_ptr(), targets.data_ptr(),
@@ -279,7 +280,7 @@ def rank_acc_cuda(hi, lo, cons_half, cfg: ConsensusConfig) -> torch.Tensor:
     acc = torch.empty(vol, dtype=torch.float32, device=dev)
     psz, psy, psx = (int(p) for p in cfg.ps)
     codes, elig = _pack_scratch(cfg, vol, dev, targets=False)
-    RANK.launch(hi.data_ptr(), lo.data_ptr(), cons_half.data_ptr(),
+    RANK.launch(dev, hi.data_ptr(), lo.data_ptr(), cons_half.data_ptr(),
                 int(s_dtype == torch.bfloat16), acc.data_ptr(), *vol,
                 psz, psy, psx, int(cfg.rank_int_counter), codes.data_ptr(),
                 elig.data_ptr(), _stream(dev))
@@ -314,14 +315,14 @@ def _consensus2d_launch(ag, tgt, cfg: ConsensusConfig) -> tuple:
                       else torch.float32)
     row_off = torch.empty(H + 1, dtype=torch.int32, device=dev)
     stream = _stream(dev)
-    CONSENSUS2D.call(*CONSENSUS2D_COUNT, tgt.data_ptr(), H, W,
+    CONSENSUS2D.call(dev, *CONSENSUS2D_COUNT, tgt.data_ptr(), H, W,
                      row_off.data_ptr(), stream)
     n = int(row_off[H])
     idx = torch.empty((H, W), dtype=torch.int32, device=dev)
     pix = torch.empty(n, dtype=torch.int32, device=dev)
     G = torch.empty((_n_words(cfg), n, 2), dtype=torch.int32, device=dev)
     CONSENSUS2D.launch(
-        ag.data_ptr(), tgt.data_ptr(), out.data_ptr(), int(cfg.cons_bf16),
+        dev, ag.data_ptr(), tgt.data_ptr(), out.data_ptr(), int(cfg.cons_bf16),
         H, W, p, _WEIGHT_MODES[cfg.weight_mode], float(cfg.patch_threshold),
         float(cfg.bg_th), int(cfg.norm_aff), row_off.data_ptr(), n,
         idx.data_ptr(), pix.data_ptr(), G.data_ptr(), stream)
@@ -345,7 +346,7 @@ def rank_acc_2d_cuda(ag, tgt, cons_half, cfg: ConsensusConfig
     _check("rank2d kernel consensus half", cons_half, (p, 2 * p - 1, H, W),
            s_dtype, dev)
     acc = torch.empty((H, W), dtype=torch.float32, device=dev)
-    RANK2D.launch(ag.data_ptr(), tgt.data_ptr(), cons_half.data_ptr(),
+    RANK2D.launch(dev, ag.data_ptr(), tgt.data_ptr(), cons_half.data_ptr(),
                   int(s_dtype == torch.bfloat16), acc.data_ptr(), H, W, p,
                   float(cfg.patch_threshold), float(cfg.bg_th),
                   int(cfg.rank_int_counter), _stream(dev))

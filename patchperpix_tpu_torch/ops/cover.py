@@ -5,7 +5,8 @@ Counterpart of ``patchperpix_tpu/ops/cover.py`` for the main path:
 - ``greedy_cover_device``: the ranked-list greedy cover.  For the
   sparse-data threshold (pix_th 0) its exact closed form, one
   min-reduction of rank volumes on the device
-  (``_greedy_cover_min_scatter``, cover.py:84-140).  For dense data the
+  (``_greedy_cover_min_scatter``, cover.py:84-140), z-sharded over a
+  mesh where one is given (cover.py:293-343).  For dense data the
   cascade of ranked-order sweeps, one per pix_th in 500/100/50/10/0 below
   P // 2 (``_greedy_cover_volume``, cover.py:30-81): the candidates'
   fc-thresholded columns are gathered once on the device, and the sweep,
@@ -37,10 +38,14 @@ def greedy_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
                         ranked_patches: list, patchshape,
                         fc_threshold: float = 0.5,
                         overlap: np.ndarray | None = None,
-                        sparse_data: bool = True):
+                        sparse_data: bool = True, mesh=None):
     """Greedy foreground cover over the ranked patch list, on
     ``affs.device``.  Returns (selected list of (center, score),
-    still-uncovered bool volume).
+    still-uncovered bool volume).  With a ``mesh`` (a list of devices,
+    ``parallel/sharded.py``) the closed form runs z-sharded over it
+    (``sharded_cover_min_scatter``) when Z divides by the mesh size into
+    slabs of at least rad slices, as in the JAX package; the dense-data
+    cascade stays on one device.
 
     Closed form (pix_th 0): with m(x) the minimum rank over candidates
     whose fc-thresholded window contains x, candidate m(x) is always
@@ -77,29 +82,20 @@ def greedy_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
     c_t = torch.as_tensor(centers, device=dev)
     rankvol[c_t[:, 0], c_t[:, 1], c_t[:, 2]] = torch.as_tensor(
         ranks, dtype=torch.int32, device=dev)
-
-    # m(x) = min over q of gated_q[x - (off(q) - rad)]; padded by rad
-    # with INF, that read is gp[q][x + 2 rad - off(q)], whose element
-    # offset off(q) . (pixel strides - spatial strides) + x . spatial
-    # strides + 2 rad . spatial strides is affine in (off(q), x): one
-    # strided view of all q, reduced at once
-    pad = []
-    for r in reversed(rad):
-        pad += [int(r), int(r)]
-    gated = torch.where(affs > fc_threshold, rankvol[None],
-                        torch.full_like(rankvol, _INF)[None])
-    gp = F.pad(gated.reshape(tuple(int(p) for p in ps) + gated.shape[1:]),
-               pad, value=_INF)
-    st = gp.stride()
-    view = gp.as_strided(
-        tuple(int(p) for p in ps) + vol_shape,
-        tuple(st[a] - st[a + 3] for a in range(3)) + st[3:],
-        sum(2 * int(r) * st[a + 3] for a, r in enumerate(rad)))
-    m_all = view.amin(dim=(0, 1, 2))
     mask = torch.as_tensor(np.asarray(mask_to_cover, bool), device=dev)
+    inner = torch.as_tensor(interior(vol_shape, rad), device=dev)
+    if mesh is not None and len(mesh) > 1 and vol_shape[0] % len(mesh) \
+            == 0 and vol_shape[0] // len(mesh) >= int(rad[0]):
+        from ..parallel.sharded import sharded_cover_min_scatter
+
+        selected, running = sharded_cover_min_scatter(
+            affs, rankvol, mask, inner, n, ps, fc_threshold, mesh)
+        return [rp for i, rp in enumerate(ranked_patches) if selected[i]], \
+            running
+
+    m_all = min_rank_field(affs, rankvol, ps, fc_threshold)
     m_all = torch.where(mask, m_all, torch.full_like(m_all, _INF))
-    int_mask = torch.as_tensor(interior(vol_shape, rad), device=dev) & mask
-    r_star = torch.max(torch.where(int_mask, m_all,
+    r_star = torch.max(torch.where(inner & mask, m_all,
                                    torch.full_like(m_all, -1)))
     covered = (m_all <= r_star) & (m_all < _INF)
     idx = torch.where(covered, m_all, torch.full_like(m_all, n))
@@ -109,6 +105,31 @@ def greedy_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
     running = (mask & ~covered).cpu().numpy()
     return [rp for i, rp in enumerate(ranked_patches) if selected[i]], \
         running
+
+
+def min_rank_field(affs: torch.Tensor, rankvol: torch.Tensor, ps,
+                   fc_threshold: float) -> torch.Tensor:
+    """m(x) = min over q of the rank volume, gated by affs[q] >
+    fc_threshold, read at x - (off(q) - rad); INF outside the volume.
+
+    Padded by rad with INF, that read is gp[q][x + 2 rad - off(q)], whose
+    element offset off(q) . (pixel strides - spatial strides) + x .
+    spatial strides + 2 rad . spatial strides is affine in (off(q), x):
+    one strided view of all q, reduced at once."""
+    ps = tuple(int(p) for p in ps)
+    rad = [p // 2 for p in ps]
+    vol_shape = tuple(int(s) for s in rankvol.shape)
+    pad = []
+    for r in reversed(rad):
+        pad += [r, r]
+    gated = torch.where(affs > fc_threshold, rankvol[None],
+                        torch.full_like(rankvol, _INF)[None])
+    gp = F.pad(gated.reshape(ps + gated.shape[1:]), pad, value=_INF)
+    st = gp.stride()
+    view = gp.as_strided(
+        ps + vol_shape, tuple(st[a] - st[a + 3] for a in range(3)) + st[3:],
+        sum(2 * r * st[a + 3] for a, r in enumerate(rad)))
+    return view.amin(dim=(0, 1, 2))
 
 
 def _patch_masks(affs: torch.Tensor, centers: np.ndarray,

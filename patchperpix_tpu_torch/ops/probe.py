@@ -63,7 +63,7 @@ def probe_window_cuda(x: torch.Tensor, n_slab: int,
     ZS, _, W = x.shape
     out = torch.empty((ZS - n_slab + 1, V, W), dtype=torch.float32,
                       device=x.device)
-    PROBE.launch(x.data_ptr(), out.data_ptr(), ZS, W, int(n_slab),
+    PROBE.launch(x.device, x.data_ptr(), out.data_ptr(), ZS, W, int(n_slab),
                  MODES[mode],
                  ctypes.c_void_p(
                      torch.cuda.current_stream(x.device).cuda_stream))

@@ -23,10 +23,19 @@ AMP / SWA / checkpointing, train.py:498-572):
   average and its count; resume from the latest, natural-sorted;
 - ``train_until``: the host loop over a ``Prefetcher`` and the device loop
   over a ``DeviceSampler``, which runs chunks of K = gcd(intervals) steps
-  with no host synchronisation inside a chunk.
-
-Data-parallel training (the JAX package's mesh path) is ROADMAP.md §1
-item 3; the CLI raises for ``num_devices > 1``.
+  with no host synchronisation inside a chunk;
+- data-parallel training over a mesh (``make_data_mesh``, a list of
+  devices; the CLI's ``training.num_devices``): the parameters and the
+  optimizer state stay on the first device, the batch is split over the
+  mesh and each share's forward runs on its device with copies of the
+  parameters (``torch.func.functional_call``); the heads are gathered on
+  the first device and the losses computed there once, so they are the
+  masked means over the whole batch, as the JAX package's GSPMD step
+  computes them (the mean of per-device means would be another number),
+  and the gradients flow back through the copies and add up on the
+  parameters.  DDP, which averages per-process losses, does not fit.
+  The device sampler runs on one device: with a mesh it raises, as in
+  the JAX package.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from ..models.losses import (masked_bce_logits, masked_ce, sampled_bce,
 from ..models.ppp import PPPConfig, PPPModel
 from ..ops.affinities import (gather_at, gt_affinities_dense,
                               gt_affinities_sampled, sample_fg_corners)
+from ..parallel import sharded
 from ..utils.device import resolve_device
 from .. import weights
 
@@ -209,16 +219,51 @@ def _autocast(mcfg: PPPConfig, device: torch.device):
     return contextlib.nullcontext()
 
 
+def make_data_mesh(num_devices: int | None = None,
+                   kind: str = "cuda") -> list:
+    """Data-parallel mesh: the first ``num_devices`` devices of ``kind``
+    (``parallel/sharded.py``'s ``local_devices``)."""
+    return sharded.make_spatial_mesh(num_devices, kind)
+
+
+def forward_heads(model: PPPModel, mcfg: PPPConfig, raw: torch.Tensor,
+                  mesh=None):
+    """Both heads of ``model`` on raw (B, C, *S), under the config's
+    autocast.  With a mesh of n > 1 devices, B must divide by n: share k
+    of the batch runs on mesh[k] with copies of the parameters, and the
+    heads are gathered onto ``raw.device`` (the parameters' device)."""
+    if mesh is None or len(mesh) <= 1:
+        with _autocast(mcfg, raw.device):
+            return model(raw)
+    n = len(mesh)
+    if raw.shape[0] % n:
+        raise ValueError(f"batch {raw.shape[0]} does not split over a "
+                         f"mesh of {n} devices")
+    home = raw.device
+    tensors = {**dict(model.named_parameters()),
+               **dict(model.named_buffers())}
+    h1, h2 = [], []
+    for dev, x in zip(mesh, torch.chunk(raw, n)):
+        local = {k: v.to(dev) for k, v in tensors.items()}
+        with _autocast(mcfg, dev):
+            a, b = torch.func.functional_call(model, local, (x.to(dev),))
+        h1.append(a.to(home))
+        h2.append(b.to(home))
+    return torch.cat(h1), torch.cat(h2)
+
+
 def compute_losses(model: PPPModel, mcfg: PPPConfig, tcfg: TrainConfig,
-                   raw, labels, generator=None, partly=None, corners=None):
+                   raw, labels, generator=None, partly=None, corners=None,
+                   mesh=None):
     """(loss, metrics) of one batch: raw (B, C, *S) float32, labels (B, G,
     *S_out + 2 * (ps // 2)) integers, both on the model's device.
     ``corners`` (the code branch's sampled windows, (N, 1 + ndim)) are
-    drawn from ``generator`` unless given."""
+    drawn from ``generator`` unless given.  ``mesh``: see
+    ``forward_heads``; the losses are computed once, on the model's
+    device."""
     ps = tuple(mcfg.patchshape_squeezed)
     max_ni = mcfg.max_num_inst
-    with _autocast(mcfg, raw.device):
-        h1, h2 = model(raw)
+    h1, h2 = forward_heads(model, mcfg, raw, mesh)
     # convs run in the model's dtype, losses accumulate in float32
     h1, h2 = h1.float(), h2.float()
     out_sp = h1.shape[2:]
@@ -286,15 +331,16 @@ def compute_losses(model: PPPModel, mcfg: PPPConfig, tcfg: TrainConfig,
 
 
 def make_train_step(model: PPPModel, mcfg: PPPConfig, tcfg: TrainConfig,
-                    optimizer, scheduler=None):
+                    optimizer, scheduler=None, mesh=None):
     """(step, eval_step), each ``(raw, labels, generator=None,
     partly=None, corners=None) -> metrics`` (0-dim tensors on the
     device).  ``step`` updates the model's parameters in place and
-    advances the schedule; neither synchronises with the host."""
+    advances the schedule; neither synchronises with the host.  With a
+    ``mesh`` both run data-parallel (``forward_heads``)."""
     def step(raw, labels, generator=None, partly=None, corners=None):
         optimizer.zero_grad(set_to_none=True)
         loss, mets = compute_losses(model, mcfg, tcfg, raw, labels,
-                                    generator, partly, corners)
+                                    generator, partly, corners, mesh)
         loss.backward()
         optimizer.step()
         if scheduler is not None:
@@ -304,7 +350,7 @@ def make_train_step(model: PPPModel, mcfg: PPPConfig, tcfg: TrainConfig,
     @torch.no_grad()
     def eval_step(raw, labels, generator=None, partly=None, corners=None):
         return compute_losses(model, mcfg, tcfg, raw, labels, generator,
-                              partly, corners)[1]
+                              partly, corners, mesh)[1]
 
     return step, eval_step
 
@@ -325,7 +371,7 @@ class _Run:
     """State and host-side bookkeeping shared by both loops: the model,
     optimizer, SWA average, log file and TensorBoard writer."""
 
-    def __init__(self, model, mcfg, tcfg, rng_seed, device):
+    def __init__(self, model, mcfg, tcfg, rng_seed, device, mesh=None):
         self.dev = resolve_device(device)
         self.mcfg, self.tcfg = mcfg, tcfg
         os.makedirs(tcfg.output_folder, exist_ok=True)
@@ -360,7 +406,7 @@ class _Run:
         # or not, as in the JAX package
         self.gen = torch.Generator(device=self.dev).manual_seed(rng_seed)
         self.step_fn, self.eval_fn = make_train_step(
-            model, mcfg, tcfg, self.opt, self.sched)
+            model, mcfg, tcfg, self.opt, self.sched, mesh)
 
         self.log_f = open(os.path.join(tcfg.output_folder,
                                        "train_log.jsonl"), "a")
@@ -466,7 +512,7 @@ class _Run:
 
 def train_until(model: PPPModel, mcfg: PPPConfig, tcfg: TrainConfig,
                 prefetcher, val_batch_fn=None, rng_seed: int = 42,
-                device="cuda") -> dict:
+                device="cuda", mesh=None) -> dict:
     """Train ``model`` to ``max_iterations`` on ``device``, resuming from
     the latest checkpoint in ``tcfg.output_folder``.  The parameters start
     from ``init_tree(mcfg, Generator().manual_seed(rng_seed))`` (Flax's
@@ -477,10 +523,17 @@ def train_until(model: PPPModel, mcfg: PPPConfig, tcfg: TrainConfig,
     trees as the checkpoint holds them.
 
     ``prefetcher`` is a host ``Prefetcher`` (the host loop) or a
-    ``DeviceSampler`` (the device loop)."""
+    ``DeviceSampler`` (the device loop).  ``mesh`` (``make_data_mesh``)
+    trains data-parallel over its devices, the parameters on ``device``;
+    the device loop has no mesh path and raises."""
     from .device_data import DeviceSampler
 
-    run = _Run(model, mcfg, tcfg, rng_seed, device)
+    if isinstance(prefetcher, DeviceSampler) and mesh is not None:
+        raise ValueError(
+            "device_sampler does not support a data-parallel mesh yet "
+            "(the fused loop is single-device); set "
+            "training.num_devices=1 or use the host prefetcher")
+    run = _Run(model, mcfg, tcfg, rng_seed, device, mesh)
     try:
         if isinstance(prefetcher, DeviceSampler):
             _device_loop(run, prefetcher, val_batch_fn)

@@ -13,7 +13,10 @@ three changes of layout:
   ``y[s*i + t] = x[i] * W[t]`` with ``W`` laid out ``(in, out, k...)``:
   the kernel is permuted to that layout and flipped along each spatial axis
   (two in 2D, three in 3D);
-- biases are unchanged.
+- a ``Dense`` kernel ``(in, out)`` becomes ``nn.Linear``'s ``(out, in)``
+  weight (the Swin backbone's; conv kernels have at least three axes);
+- a ``LayerNorm`` ``scale`` becomes its ``weight``;
+- biases and the Swin attention's ``rel_pos_bias`` tables are unchanged.
 
 ``parity/bench_ckpt_params.npz`` holds the trained crop checkpoint's tree
 flattened with '/'-joined keys (``scripts/export_torch_fixtures.py``
@@ -96,8 +99,12 @@ def to_state_dict(tree: dict) -> dict:
         name = ".".join(parts[:-1])
         t = (val.detach().float() if torch.is_tensor(val) else
              torch.tensor(np.asarray(val, np.float32)))
-        if leaf == "bias":
-            sd[name + ".bias"] = t
+        if leaf in ("bias", "rel_pos_bias"):
+            sd[f"{name}.{leaf}" if name else leaf] = t
+        elif leaf == "scale":
+            sd[name + ".weight"] = t
+        elif leaf == "kernel" and t.ndim == 2:
+            sd[name + ".weight"] = t.T.contiguous()
         elif leaf == "kernel":
             nd = t.ndim - 2
             sp = tuple(range(nd))
@@ -118,14 +125,20 @@ def from_state_dict(sd) -> dict:
     on the tensors' own device and dtype."""
     out = {}
     for key, t in sd.items():
-        name, leaf = key.rsplit(".", 1)
-        parts = name.split(".")
+        name, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        parts = name.split(".") if name else []
         flax = "params/" + "/".join(parts)
-        if leaf == "bias":
-            out[flax + "/bias"] = t
+        if leaf in ("bias", "rel_pos_bias"):
+            out[f"{flax}/{leaf}"] = t
             continue
         if leaf != "weight":
             raise KeyError(f"unexpected state_dict entry {key!r}")
+        if parts[-1].startswith("LayerNorm"):
+            out[flax + "/scale"] = t
+            continue
+        if t.ndim == 2:
+            out[flax + "/kernel"] = t.T.contiguous()
+            continue
         nd = t.ndim - 2
         if parts[-1].startswith("ConvTranspose"):
             w = t.flip(tuple(range(2, 2 + nd))).permute(

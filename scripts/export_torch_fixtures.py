@@ -94,10 +94,19 @@ Writes, from the repository's own files (nothing is downloaded):
   subprocess ``--isbi-f64``, the same step in float64 by the JAX package.
   Each part is merged into the stored files, the others kept.
 
+- ``parity/torch_port_swin_ref_f32.npz`` / ``.json`` (``--swin``): the
+  SwinUNETR backbone (``network_style = "swinunetr"``) with seeded
+  weights: configs/flylight.toml's model at full width on one 156^3 test
+  window of the crop reflected to that size (both heads at seeded
+  entries), one float32 train step of configs/flylight_crop.toml's model
+  as a Swin on the train phase's batch (as ``--train`` stores a branch,
+  then ``--swin-f64``, the same step in float64), and the 2D Swin at
+  configs/bbbc010.toml's widths on the model2d window.
+
 Usage: JAX_PLATFORMS=cpu python scripts/export_torch_fixtures.py
        [--params-only | --2d [H W] | --model2d | --blockwise [S] | --cli
         | --bf16 | --train | --train-step | --train-f64
-        | --isbi [a b c d e] | --isbi-f64]
+        | --isbi [a b c d e] | --isbi-f64 | --swin | --swin-f64]
 """
 
 import json
@@ -943,6 +952,155 @@ def export_train(with_runs=True):
     print(f"written {TRAIN_NPZ} ({os.path.getsize(TRAIN_NPZ)} bytes)")
 
 
+def export_swin():
+    """The Swin backbone's fixtures: (a) configs/flylight.toml's Swin at
+    full width, seeded, on the 156^3 test window (the heads at seeded
+    entries; the backbone's features through the 1x1 heads at those
+    entries only, so that the (343, 156^3) head is never held in memory);
+    (b) one f32 train step of configs/flylight_crop.toml's model with
+    network_style "swinunetr", seeded, on the train phase's batch (loss
+    parts, gradient norms and samples; then ``--swin-f64``, the same step
+    in float64, in a subprocess); (c) the 2D Swin at configs/bbbc010.toml's
+    widths, seeded, on the model2d window (code, numinst and decoded
+    patches at the model2d positions)."""
+    import subprocess
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.infer.fused import predict_volume_device
+    from patchperpix_tpu.train import data as jd
+    from patchperpix_tpu.train import trainer as jt
+    from patchperpix_tpu_torch.weights import seeded_tree
+
+    out, meta = {}, {"source": "scripts/export_torch_fixtures.py --swin: "
+                               "JAX package, CPU, float32"}
+    # (a) the full-width forward
+    cfg = cs.swin_model_config(jm)
+    model = jm.PPPModel(cfg)
+    x = cs.swin_window()
+    leaves = _leaves(model, x.shape)
+    params = _nest(seeded_tree(leaves, cs.SWIN_SEED))
+    t0 = time.perf_counter()
+    feats = jax.jit(lambda p, r: model.apply(
+        p, r, method=lambda m, v: m.unet(jnp.moveaxis(v, 1, -1))))(
+            params, jnp.asarray(x))
+    feats = np.asarray(feats, np.float32)[0]          # (*S, F)
+    sec = time.perf_counter() - t0
+    flat = feats.reshape(-1, feats.shape[-1])
+    heads = {}
+    for name, n_out in (("head_code_affs", cfg.out_channels_head1),
+                        ("head_fgbg_numinst", cfg.out_channels_head2)):
+        k = np.asarray(params["params"][name]["kernel"], np.float32)
+        b = np.asarray(params["params"][name]["bias"], np.float32)
+        ch, vox = cs.swin_positions((n_out,) + x.shape[2:])
+        out[f"fwd/{name}"] = (np.einsum("nf,fn->n", flat[vox],
+                                        k.reshape(-1, n_out)[:, ch])
+                              + b[ch]).astype(np.float32)
+        heads[name] = n_out
+    out["fwd/feature_mean"] = feats.mean(axis=(0, 1, 2))
+    meta["forward"] = {
+        "config": os.path.relpath(cs.SWIN_CONFIG, ROOT),
+        "window": list(x.shape), "seed": cs.SWIN_SEED, "heads": heads,
+        "n_parameters": int(sum(int(np.prod(s)) for _, s in leaves)),
+        "leaves": leaves, "cpu_seconds_with_compile": round(sec, 1)}
+    print("swin forward", round(sec, 1), "s", flush=True)
+    del feats, flat
+
+    # (b) the crop config's train step
+    with np.load(TRAIN_NPZ) as z:
+        centres = z["centres"].astype(np.int64)
+    raw, labels, _, _ = cs.train_batch(jd, centres)
+    cfg = cs.swin_model_config(jm, cs.TRAIN_DENSE_CONFIG)
+    model = jm.PPPModel(cfg)
+    tree = seeded_tree(_leaves(model, raw.shape), cs.TRAIN_SEED)
+    step, _ = jt.make_train_step(model, cfg, jt.TrainConfig(),
+                                 _grads_as_state())
+    t0 = time.perf_counter()
+    _, grads, mets = step(_nest(tree), _nest(tree), jnp.asarray(raw),
+                          jnp.asarray(labels),
+                          jax.random.PRNGKey(cs.TRAIN_CORNER_KEY))
+    sec = time.perf_counter() - t0
+    norms = {}
+    for name, g in sorted(flatten(grads).items()):
+        g = np.asarray(g, np.float32)
+        out[f"swin/{name}"] = g.reshape(-1)[cs.grad_sample_index(name,
+                                                                 g.size)]
+        norms[name] = float(np.linalg.norm(g.astype(np.float64)))
+    meta["branches"] = {"swin": {
+        "config": os.path.relpath(cs.TRAIN_DENSE_CONFIG, ROOT)
+        + ' with network_style = "swinunetr"',
+        "weights": f"weights.seeded_tree(leaves, {cs.TRAIN_SEED})",
+        "batch": {"raw_sum": float(raw.astype(np.float64).sum()),
+                  "labels_sum": int(labels.astype(np.int64).sum())},
+        "metrics": {k: float(v) for k, v in mets.items()},
+        "grad_norms": norms, "step_s_with_compile": round(sec, 1)}}
+    print("swin step", json.dumps(meta["branches"]["swin"]["metrics"]),
+          flush=True)
+
+    # (c) the 2D Swin at the BBBC010 widths
+    cfg = jm.PPPConfig(**cs.SWIN_MODEL2D)
+    model = jm.PPPModel(cfg)
+    raw2, pos = cs.model2d_sample()
+    win = cs.MODEL2D_WINDOW
+    leaves2 = _leaves(model, (1, 1) + win)
+    params = _nest(seeded_tree(leaves2, cs.SWIN_SEED))
+    t0 = time.perf_counter()
+    code, prob = predict_volume_device(model, params, raw2, cfg, win, win)
+    code = np.asarray(code, np.float32).reshape(cfg.code_units, -1)[:, pos]
+    prob = np.asarray(prob, np.float32).reshape(3, -1)[:, pos]
+    logits = model.apply(params, jnp.asarray(code.T),
+                         method=jm.PPPModel.decode)
+    out["model2d/code"] = code.T
+    out["model2d/prob"] = prob.T
+    out["model2d/patches"] = np.asarray(jax.nn.sigmoid(logits), np.float32)
+    meta["model2d"] = {"widths": "configs/bbbc010.toml",
+                       "window": list(win), "seed": cs.SWIN_SEED,
+                       "n_positions": int(len(pos)), "leaves": leaves2,
+                       "cpu_seconds": round(time.perf_counter() - t0, 1)}
+    np.savez_compressed(cs.SWIN_REF_NPZ, **out)
+    with open(cs.SWIN_REF_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+    # float64 is process-wide in JAX: the witness runs on its own
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--swin-f64"], check=True)
+
+
+def export_swin_f64():
+    """The stored Swin step in float64 by the JAX package (as
+    ``--train-f64`` for the crop's branches)."""
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.train import data as jd
+    from patchperpix_tpu_torch.weights import seeded_tree
+
+    with open(cs.SWIN_REF_JSON) as f:
+        meta = json.load(f)
+    with np.load(cs.SWIN_REF_NPZ) as z:
+        out = dict(z)
+    with np.load(TRAIN_NPZ) as z:
+        centres = z["centres"].astype(np.int64)
+    raw, labels, _, _ = cs.train_batch(jd, centres)
+    cfg = cs.swin_model_config(jm, cs.TRAIN_DENSE_CONFIG)
+    grads, mets = _step_f64(cfg, seeded_tree(
+        _leaves(jm.PPPModel(cfg), raw.shape), cs.TRAIN_SEED), raw, labels,
+        jax.random.PRNGKey(cs.TRAIN_CORNER_KEY))
+    _f64_record(meta["branches"]["swin"], out, "swin", grads, mets,
+                "the JAX package in float64 on the CPU (jax_enable_x64, "
+                "scripts/export_torch_fixtures.py --swin-f64)")
+    np.savez_compressed(cs.SWIN_REF_NPZ, **out)
+    with open(cs.SWIN_REF_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+
+
 def export_isbi_zlib():
     """A zlib copy of every array of data/synth_isbi (blosc, read by the
     JAX package's tensorstore reader) under the same keys, chunks and
@@ -1270,6 +1428,12 @@ def main():
         return
     if "--isbi-f64" in sys.argv:
         export_isbi_f64()
+        return
+    if "--swin-f64" in sys.argv:
+        export_swin_f64()
+        return
+    if "--swin" in sys.argv:
+        export_swin()
         return
     if "--isbi" in sys.argv:
         export_isbi([a for a in sys.argv[sys.argv.index("--isbi") + 1:]

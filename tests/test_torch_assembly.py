@@ -394,6 +394,35 @@ assert color_labels(labels5).shape == labels5.shape + (3,)
 assert crop_to_shape(labels5, (5, 5)).shape == (3, 5, 5)
 assert cli.NOT_PORTED.keys() == {"visualize"}
 assert tref.foreground_cover_reference
+# the multi-device and Swin slice: a Swin model, sharded assembly, blocks
+# over devices, the data-parallel step, the sample fan-out
+from patchperpix_tpu_torch.parallel import multihost, sharded
+from patchperpix_tpu_torch.train.trainer import compute_losses
+cfg6 = PPPConfig(patchshape=(3, 3, 3), num_channels=1, num_fmaps=8,
+                 network_style="swinunetr", padding="same",
+                 downsample_factors=((2, 2, 2),) * 2)
+model6 = PPPModel(cfg6)
+model6.load_state_dict(__import__("patchperpix_tpu_torch.weights").weights
+                       .to_state_dict(init_tree(cfg6, torch.Generator())))
+h6, _ = model6(torch.rand(2, 1, 27, 28, 29))
+assert h6.shape == (2, 27, 27, 28, 29)
+sharded.local_devices = lambda kind="cuda": [torch.device("cpu")] * 2
+loss6, _ = compute_losses(model6, cfg6, TrainConfig(),
+                          torch.rand(2, 1, 28, 28, 28),
+                          torch.ones(2, 1, 30, 30, 30, dtype=torch.int32),
+                          mesh=sharded.make_spatial_mesh(2, "cpu"))
+assert torch.isfinite(loss6)
+inst6, _ = to_instance_seg(affs3, fgs, fgs.copy(), fgs.astype(np.uint8),
+                           VoteInstancesParams(patchshape=(3, 3, 3),
+                                               sharded_devices=2),
+                           device="cpu")
+assert np.array_equal(inst6 > 0, inst4 > 0)
+inst7, _ = blockwise_vote_instances(
+    affs3, fgs, fgs.astype(np.uint8),
+    VoteInstancesParams(patchshape=(3, 3, 3), block_devices=2),
+    (12, 12, 12), device="cpu")
+assert np.array_equal(inst7, inst4)
+assert multihost.shard_samples(list("abcde"), 1, 2) == ["b", "d"]
 bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "flax", "optax", "orbax", "patchperpix_tpu")]
 assert not bad, bad

@@ -192,11 +192,21 @@ def test_blockwise_resume_empty_and_block_devices():
         np.full((27, 10, 10, 10), 0.05, np.float32), empty,
         empty.astype(np.uint8), p, chunksize=(8, 8, 8), device="cpu")
     assert inst.shape == (10, 10, 10) and inst.sum() == 0
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        blockwise.blockwise_vote_instances(
+    # blocks over two devices (two CPU devices through the mesh hook):
+    # the same map as one device
+    from patchperpix_tpu_torch.parallel import sharded
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(sharded, "local_devices",
+               lambda kind="cuda": [torch.device("cpu")] * 2)
+    try:
+        b3, _ = blockwise.blockwise_vote_instances(
             affs, fg, fg.astype(np.uint8),
             dataclasses.replace(p, block_devices=2), chunksize=(14,) * 3,
             device="cpu")
+    finally:
+        mp.undo()
+    np.testing.assert_array_equal(b3, b1)
 
 
 def _write_jax_store(path, affs):

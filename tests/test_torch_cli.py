@@ -100,22 +100,30 @@ def test_from_config_equals_jax(name):
 @pytest.mark.parametrize("key,value,item", [
     ("vote_debug", True, "item 5"), ("save_mip", True, "item 5"),
     ("save_tif", True, "item 5"),
-    ("sharded_devices", 2, "item 3"), ("engine", "numpy", "one engine")])
+    ("sharded_devices", 2, None), ("engine", "numpy", "one engine")])
 def test_from_config_raises_on_what_is_not_ported(key, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        VoteInstancesParams.from_config({key: value})
+    """item None: the key is ported and accepted as given."""
+    if item is None:
+        assert getattr(VoteInstancesParams.from_config({key: value}),
+                       key) == value
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            VoteInstancesParams.from_config({key: value})
     VoteInstancesParams.from_config({"isbi_hack": True, "engine": "pallas",
                                      "only_bb": True, "sharded_devices": 0})
 
 
 def test_isbi_config_raises():
-    """The ISBI configs are accepted; one raises only with a key that
-    waits for a later slice set on top."""
+    """The ISBI configs are accepted, with sharded_devices set on top too;
+    one raises only with a key that waits for a later slice (save_mip)."""
     cfg = config.load_config(os.path.join(REPO, "configs", "isbi2012.toml"))
     assert VoteInstancesParams.from_config(cfg["vote_instances"]).isbi_hack
-    with pytest.raises(NotImplementedError, match="sharded_devices"):
+    assert VoteInstancesParams.from_config(
+        {**cfg["vote_instances"], "sharded_devices": -1}).sharded_devices \
+        == -1
+    with pytest.raises(NotImplementedError, match="save_mip"):
         VoteInstancesParams.from_config({**cfg["vote_instances"],
-                                         "sharded_devices": -1})
+                                         "save_mip": True})
 
 
 # -- the CLI end to end ------------------------------------------------------

@@ -637,3 +637,105 @@ def test_device_sampler_2d_on_the_card_equals_the_host(dev):
                        max_gt_channels=1, device=dev)
     seen = cs.check_sampler_alignment(ds, samples, td, draws=6)
     assert seen["flip"] and seen["transpose"]
+
+
+# -- several devices ---------------------------------------------------------
+
+def test_kernels_launch_on_the_tensors_card_not_the_current_one(dev):
+    """K1-K4 on cuda:1 while cuda:0 is current: each launch runs with the
+    tensors' card current, and the results equal the plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    d1 = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        assert torch.cuda.current_device() == 0
+        cfg = C.ConsensusConfig(patchshape=(3, 3, 3))
+        affs = _affs((8, 9, 10), cfg.P, 3, d1)
+        ops = K.consensus_operands(affs, cfg)
+        half = K.consensus_half(affs, ops, cfg)
+        torch.testing.assert_close(
+            half, C.consensus_half_plain(affs, ops[0], ops[1], cfg),
+            atol=1e-4, rtol=1e-4)
+        acc = K.rank_acc_cuda(ops[0], ops[1], half, cfg)
+        torch.testing.assert_close(
+            acc, C.rank_acc_plain(ops[0], ops[1], half, cfg), atol=1e-3,
+            rtol=1e-4)
+        cfg2 = C.ConsensusConfig(patchshape=(1, 5, 5))
+        a2 = _affs((1, 11, 15), cfg2.P, 3, d1)
+        ag, tgt = K.consensus_operands(a2, cfg2)
+        h2 = K.consensus_half(a2, (ag, tgt), cfg2)
+        torch.testing.assert_close(
+            h2, C.consensus_half_2d_plain(ag, tgt, cfg2), atol=1e-4,
+            rtol=1e-4)
+        torch.testing.assert_close(
+            K.rank_acc_2d_cuda(ag, tgt, h2, cfg2),
+            C.rank_acc_2d_plain(ag, tgt, h2, cfg2), atol=1e-3, rtol=1e-4)
+        assert torch.cuda.current_device() == 0
+        assert half.device == acc.device == h2.device == d1
+
+
+def test_sharded_path_and_mesh_step_on_one_card(dev):
+    """Meshes of shards all on cuda:0: the sharded consensus and rank equal
+    the whole-volume K1 + K2 (phase 3's tolerances, one launch per shard),
+    the sharded to_instance_seg gives the one-device map, and the
+    data-parallel step over 2 shards equals the one-device step within
+    1e-5 relative."""
+    from patchperpix_tpu_torch import weights
+    from patchperpix_tpu_torch.assembly import (VoteInstancesParams,
+                                                to_instance_seg)
+    from patchperpix_tpu_torch.models import PPPModel
+    from patchperpix_tpu_torch.models.init import init_tree
+    from patchperpix_tpu_torch.ops import synthetic
+    from patchperpix_tpu_torch.parallel import sharded
+    from patchperpix_tpu_torch.train.trainer import (TrainConfig,
+                                                     compute_losses)
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    cfg = C.ConsensusConfig(patchshape=(3, 3, 3))
+    affs = _affs((24, 9, 10), cfg.P, 3, dev)
+    ops = K.consensus_operands(affs, cfg)
+    half1 = K.consensus_half(affs, ops, cfg)
+    sc1 = K.rank_scores(affs, half1, ops, cfg)
+    n1, n2 = K.CONSENSUS.launches, K.RANK.launches
+    half, sc = sharded.sharded_consensus_and_rank(affs, cfg, [dev] * 4)
+    assert (K.CONSENSUS.launches - n1, K.RANK.launches - n2) == (4, 4)
+    torch.testing.assert_close(half, half1, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(sc, sc1, atol=1e-3, rtol=1e-4)
+
+    labels = synthetic.synth_labels(24)
+    a = synthetic.labels_to_affinities(labels, (3, 3, 3))
+    fg = a[13] > 0.5
+    vp = dict(patchshape=(3, 3, 3))
+    one, _ = to_instance_seg(a, fg, fg.copy(), fg.astype(np.uint8),
+                             VoteInstancesParams(**vp), device=dev)
+    saved = sharded.local_devices
+    sharded.local_devices = lambda kind="cuda": [dev] * 2
+    try:
+        two, _ = to_instance_seg(a, fg, fg.copy(), fg.astype(np.uint8),
+                                 VoteInstancesParams(sharded_devices=2,
+                                                     **vp), device=dev)
+    finally:
+        sharded.local_devices = saved
+    np.testing.assert_array_equal(two, one)
+
+    mcfg, raw, lab = _small_train()
+    res = []
+    for mesh in (None, [dev] * 2):
+        model = PPPModel(mcfg)
+        model.load_state_dict(weights.to_state_dict(init_tree(
+            mcfg, torch.Generator().manual_seed(0))))
+        model.to(dev)
+        with exact_f32():
+            loss, _ = compute_losses(
+                model, mcfg, TrainConfig(), torch.from_numpy(raw).to(dev),
+                torch.from_numpy(lab).to(dev),
+                corners=torch.tensor([[0, 2, 3, 4], [1, 5, 5, 5]],
+                                     device=dev), mesh=mesh)
+            loss.backward()
+        res.append((float(loss), {n: p.grad.double().cpu() for n, p in
+                                  model.named_parameters()}))
+    (l1, g1), (l2, g2) = res
+    assert abs(l2 - l1) <= 1e-5 * abs(l1)
+    for n in g1:
+        assert float((g2[n] - g1[n]).norm()) <= 1e-5 * max(
+            float(g1[n].norm()), 1e-30), n

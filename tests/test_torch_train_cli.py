@@ -13,7 +13,8 @@ zlib zarr stores (which both packages read), through both CLIs:
 - ``mknet train validate_checkpoints`` in the port, resumed from the
   latest checkpoint by a second ``train``;
 - a config the device sampler cannot reproduce goes to the host sampler
-  with a warning; ``num_devices > 1`` raises; without ``--device cpu``
+  with a warning; ``num_devices = 2`` trains data-parallel over two CPU
+  devices (``parallel/sharded.py``'s mesh hook); without ``--device cpu``
   and without a card the CLI raises.
 """
 
@@ -249,11 +250,22 @@ def test_unsupported_config_goes_to_host_sampler(config_file, tmp_path):
         assert "device-resident sampler" in f.read()
 
 
-def test_refusals(config_file, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        cli.main(["--config", config_file, "--root", str(tmp_path),
-                  "--device", "cpu", "--set", "training.num_devices=2",
-                  "-d", "train"])
+def test_refusals(config_file, tmp_path, monkeypatch):
+    """``num_devices = 2`` is accepted (two CPU shards); a card asked for
+    without one and ``visualize`` still raise."""
+    from patchperpix_tpu_torch.parallel import sharded
+
+    monkeypatch.setattr(sharded, "local_devices",
+                        lambda kind="cuda": [torch.device("cpu")] * 2)
+    paths = cli.main(["--config", config_file, "--root", str(tmp_path),
+                      "-id", "dp", "--device", "cpu",
+                      "--set", "training.num_devices=2",
+                      "--set", "training.max_iterations=2",
+                      "--set", "training.checkpoints=2", "-d", "train"])
+    assert cli.get_checkpoint_list(paths["train"]) == [2]
+    with open(os.path.join(paths["train"], "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert rows and all(np.isfinite(r["loss"]) for r in rows)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--config", config_file, "--root", str(tmp_path),

@@ -315,12 +315,13 @@ def test_components_to_instances_multichannel(multi):
 
 
 def test_from_config_refuses_only_what_waits():
-    assert set(tvi._NOT_PORTED) == {"sharded_devices", "save_mip",
-                                    "save_tif", "vote_debug"}
-    for key, value in (("sharded_devices", 2), ("save_mip", True),
-                       ("save_tif", True), ("vote_debug", True)):
+    assert set(tvi._NOT_PORTED) == {"save_mip", "save_tif", "vote_debug"}
+    for key, value in (("save_mip", True), ("save_tif", True),
+                       ("vote_debug", True)):
         with pytest.raises(NotImplementedError, match="item"):
             tvi.VoteInstancesParams.from_config({key: value})
+    assert tvi.VoteInstancesParams.from_config(
+        {"sharded_devices": 2}).sharded_devices == 2
     jf = {f.name for f in dataclasses.fields(jvi.VoteInstancesParams)}
     tf = {f.name for f in dataclasses.fields(tvi.VoteInstancesParams)}
     assert jf - tf == set(tvi._NOT_PORTED) | {"engine"}
