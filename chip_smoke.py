@@ -30,9 +30,15 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    avg_f1_cov (bench.py's recipe: rm 400, clDice, greedy, keep_gt_shape)
    beside the TPU's figures in BENCH_r05.json and the JAX package's bf16
    CPU run in parity/torch_port_ref_bf16.json (information only: bf16
-   convolutions add in another order on each);
-6. probe: the row-window probe's twelve cases (``ops/probe.py``), kernel
-   against plain version, max error < 1e-4;
+   convolutions add in another order on each); after each of phases 3
+   and 5 a roofline line (information, no gate; ``utils/roofline.py`` at
+   the card's published peaks): bench.py's consensus + rank cost against
+   the assembly's wall, ``assembly_mfu_summary`` by stage, ``unet_cost``
+   against the predict stage;
+6. probe: the row-window probe's twelve cases and one that stages past
+   48 KB (``ops/probe.py``), kernel against plain version, max error <
+   1e-4; the case W = 768, n_slab = 3 timed against the plain version and
+   against ``F.conv2d`` along the rows;
 7. path2d: the 2D assembly at full width, the worm image (16 worms, seed
    0) at 520x696 with 25x25 patches through ``to_instance_seg`` in f32
    under settings (A) (the 2D bench's: pt 0.5, mws, sparse-data cover) and
@@ -94,6 +100,18 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    bit for bit (the port's thinning of the stored foreground always; the
    run's own when its foreground equals the stored one), |avg_f1_cov -
    the JAX run's| <= 0.01; K1 and K2 launched within the CLI run.  Then
+   phase visualize on that f32 experiment (``run_visualize``): (a) ``-d
+   visualize`` with show_patches, each PNG read back with the port's
+   reader equal to the port's render of the stored arrays; (b) the port's
+   renders on the card (``render_instances`` plain, over the raw,
+   outlined; ``patch_mosaic`` twice; ``render_patch_tiles``;
+   ``render_graph_edges``) of ``viz_inputs()`` equal bit for bit to the
+   JAX package's in parity/torch_port_viz_ref.npz; (c) ``label`` plain
+   and with vote_debug, save_mip and save_tif: K1 / K2 once per label, the
+   two maps and phase cli's equal, (7 * 50)^2 canvases, the MIPs and the
+   relabelled uint16 TIF; (d) 2D vote_debug through ``do_all`` on a 128^2
+   crop of the worm image, setting (A): K3 / K4 once, (25 * 128)^2
+   canvases, the map equal to ``to_instance_seg``'s.  Then
    ``-d infer_fused evaluate`` with the config as it stands (bf16), for
    information beside the TPU's and the JAX bf16 CPU figures (those are
    bench.py's pipeline).  Stage seconds per task, the skeleton seconds in
@@ -226,10 +244,15 @@ SAMPLE_CHUNK = (64, 64, 64)
 DECODE_RAM_MB = 1024.0
 DECODE_BATCH = 4096
 SYNTH_EXTENT = 120
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the
-# float32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+# the visualize phase: the JAX package's renders of viz_inputs()
+# (scripts/export_torch_fixtures.py --viz), the 7^3 patches of the crop,
+# the volume plane of the second mosaic, and the 2D vote_debug crop: 128^2
+# of the worm image at (104, 168), its four worms
+VIZ_REF_NPZ = os.path.join(REPO, "parity", "torch_port_viz_ref.npz")
+VIZ_REF_JSON = os.path.join(REPO, "parity", "torch_port_viz_ref.json")
+VIZ_PS = (7, 7, 7)
+VIZ_Z = 25
+VIZ_CROP2D = (104, 168, 128)
 CONS_OPS_PER_TERM = 15   # pp, sc, cnt: 4 ops each + 3 accumulations
 RANK_OPS_PER_TERM = 7    # w_hh, w_hl (3), difference, product, sum
 
@@ -865,16 +888,21 @@ def kernel_row(kernel, err, ms, plain_ms, bound, library_ms=None):
 
 def bound_ms(nbytes, ops):
     """Least time for the work: bytes over the memory rate or operations
-    over the f32 rate, whichever is larger."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    over the f32 rate (outside the tensor cores), whichever is larger, at
+    the H100 SXM5's published peaks (``utils/roofline.H100_SXM5``)."""
+    from patchperpix_tpu_torch.utils.roofline import H100_SXM5
+
+    tb = nbytes / (H100_SXM5.hbm_gbps * 1e9) * 1e3
+    to = ops / (H100_SXM5.fp32_tflops * 1e12) * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
 def run_probe(dev):
-    """Phase probe: the twelve cases through the probe's entry point, then
-    the largest case timed against its plain version and against the one
-    PyTorch call that computes the same sums (a convolution along the row
-    axis with the weights s + 1)."""
+    """Phase probe: the twelve cases and the one staging past 48 KB through
+    the probe's entry point, then the case W = 768, n_slab = 3 timed
+    against its plain version and against the one PyTorch call that
+    computes the same sums (a convolution along the row axis with the
+    weights s + 1)."""
     import torch
     import torch.nn.functional as F
 
@@ -884,7 +912,7 @@ def run_probe(dev):
     cases = PR.run_cases(dev)
     launches = count_launches("probe", (PR.PROBE,))[PR.PROBE.name]
     emit({"phase": "probe", "launches": launches, "cases": cases})
-    if not all(c["ok"] for c in cases) or launches != len(PR.CASES):
+    if not all(c["ok"] for c in cases) or launches != len(PR.CASES) + 1:
         raise AssertionError("the row-window probe failed")
     n_slab, W = 3, 768
     x = torch.rand((8, PR.V, W), device=dev)
@@ -900,10 +928,11 @@ def run_probe(dev):
     err = float((PR.probe_window_cuda(x, n_slab, "smem") - want).abs().max())
     if not float((library() - want).abs().max()) < 1e-3:
         raise AssertionError("the probe's library yardstick disagrees")
+    # tens of microseconds a call, most of it host work: medians of 100
     ms, plain = time_pair(lambda: PR.probe_window_plain(x, n_slab),
                           lambda: PR.probe_window_cuda(x, n_slab, "smem"),
-                          dev)
-    lib_ms, _ = time_pair(lambda: None, library, dev)
+                          dev, rounds=25)
+    lib_ms, _ = time_pair(lambda: None, library, dev, rounds=25)
     nbytes = 4 * (x.numel() + want.numel())
     row = kernel_row(PR.PROBE, err, ms, plain,
                      bound_ms(nbytes, 2 * n_start * want.numel()), lib_ms)
@@ -1643,10 +1672,213 @@ def run_blockwise(model, cfg, raw, run, dev, kernels, then=None):
     return launches
 
 
-def run_cli(dev, kernels):
+def viz_inputs():
+    """The arrays the visualize phase renders (numpy, all from the
+    repository): the JAX CLI's f32 map of the crop, the crop's raw, ideal
+    7^3 affinities of the map scaled by 0.5 + 0.5 x the stored decoded
+    center channel, the f32 reference run's foreground, pairs, weights
+    and thinned cover centers."""
+    import numpy as np
+
+    from patchperpix_tpu_torch.ops.synthetic import labels_to_affinities
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    ref, cli_ref = np.load(REF_NPZ), np.load(CLI_REF_NPZ)
+    inst = cli_ref["inst"]
+    scale = (0.5 + 0.5 * ref["dec_center"]).astype(np.float32)
+    affs = labels_to_affinities(inst, VIZ_PS) * scale[None]
+    return {"inst": inst,
+            "raw": IoZarr(FIXTURE).read(key="volumes/raw").astype(
+                np.float32),
+            "affs": affs.astype(np.float32), "fg": ref["fg"],
+            "pairs": ref["pairs"], "weights": ref["weights"],
+            "selected": ref["thin_centers"].astype(np.int64)}
+
+
+def viz_renders(inp, dev):
+    """The port's renders of ``viz_inputs()`` on ``dev``, under the keys of
+    parity/torch_port_viz_ref.npz."""
+    from patchperpix_tpu_torch.assembly import debug_viz as DV
+    from patchperpix_tpu_torch.visualize import instances as VI
+    from patchperpix_tpu_torch.visualize import patches as VP
+
+    return {
+        "inst_plain": VI.render_instances(inp["inst"], device=dev),
+        "inst_raw": VI.render_instances(inp["inst"], raw=inp["raw"],
+                                        device=dev),
+        "inst_outline": VI.render_instances(inp["inst"], raw=inp["raw"],
+                                            outline=True, device=dev),
+        "mosaic": VP.patch_mosaic(inp["affs"], VIZ_PS, device=dev),
+        "mosaic_z": VP.patch_mosaic(inp["affs"], VIZ_PS, z=VIZ_Z,
+                                    selected=inp["selected"], device=dev),
+        "tiles": DV.render_patch_tiles(inp["affs"], inp["fg"], VIZ_PS,
+                                       device=dev),
+        "edges": DV.render_graph_edges(inp["pairs"], inp["weights"],
+                                       inp["fg"].shape, VIZ_PS),
+    }
+
+
+def run_visualize(ctx, dev, kernels, kernels2d):
+    """Phase visualize (inside phase cli, on its f32 experiment): (a) ``-d
+    visualize`` with show_patches, each PNG read back with the port's
+    reader against the port's render of the stored arrays; (b) the port's
+    renders on the card against the JAX package's in
+    parity/torch_port_viz_ref.npz, bit for bit; (c) ``label`` twice on the
+    crop, plain and with vote_debug, save_mip and save_tif: K1 / K2 once
+    per label (vote_debug's second pass labels the given graph, with no
+    consensus or rank, as in the JAX package), the vote_debug map equal to
+    the plain one and to phase cli's, (7 * 50)^2 canvases, the MIPs and
+    the TIF; (d) 2D ``do_all`` with vote_debug on a 128^2 crop of the worm
+    image, setting (A): K3 / K4 once each, (25 * 128)^2 canvases, the map
+    equal to ``to_instance_seg``'s without vote_debug."""
+    import numpy as np
+
+    from patchperpix_tpu_torch import cli
+    from patchperpix_tpu_torch.assembly import VoteInstancesParams
+    from patchperpix_tpu_torch.assembly import vote_instances as TV
+    from patchperpix_tpu_torch.utils.io import (IoZarr, read_png,
+                                                read_tif)
+    from patchperpix_tpu_torch.visualize import instances as VI
+    from patchperpix_tpu_torch.visualize import patches as VP
+
+    t_phase = time.perf_counter()
+    t = {}
+    argv, sample = ctx["argv"] + ["-id", "f32"], ctx["sample"]
+    inst_dir = os.path.join(ctx["paths"]["test_instanced"], str(CLI_STEP))
+    proc_dir = os.path.join(ctx["paths"]["test_processed"], str(CLI_STEP))
+    res_path = os.path.join(inst_dir, sample + ".zarr")
+
+    # (a) the visualize task on the cli phase's results
+    t0 = time.perf_counter()
+    cli.main(argv + ["--set", "visualize.show_patches=true", "-d",
+                     "visualize"])
+    t["a_visualize_task"] = time.perf_counter() - t0
+    inst = IoZarr(res_path).read(key="vote_instances")
+    affs = IoZarr(os.path.join(proc_dir, sample + ".zarr")).read(
+        key="volumes/pred_affs").astype(np.float32)
+    png_inst = read_png(os.path.join(inst_dir, sample + ".png"))
+    png_mosaic = read_png(os.path.join(proc_dir, sample + "_patches.png"))
+    a = {"instance_png": list(png_inst.shape),
+         "patches_png": list(png_mosaic.shape),
+         "instance_png_equal": bool(np.array_equal(
+             png_inst, VI.render_instances(inst, device=dev))),
+         "patches_png_equal": bool(np.array_equal(png_mosaic, VP.mosaic_png(
+             VP.patch_mosaic(affs, VIZ_PS, device=dev))))}
+    del affs
+
+    # (b) the port's renders against the JAX package's
+    t0 = time.perf_counter()
+    ref = np.load(VIZ_REF_NPZ)
+    got = viz_renders(viz_inputs(), dev)
+    b = {k: bool(v.shape == ref[k].shape and v.dtype == ref[k].dtype
+                 and np.array_equal(v, ref[k])) for k, v in got.items()}
+    t["b_renders"] = time.perf_counter() - t0
+
+    # (c) label, plain and with vote_debug / save_mip / save_tif
+    t0 = time.perf_counter()
+    runs = {}
+    for key, extra in (("viz_plain", []), ("viz_debug", [
+            "--set", "vote_instances.vote_debug=true",
+            "--set", "vote_instances.save_mip=true",
+            "--set", "vote_instances.save_tif=true"])):
+        before = {k.name: k.launches for k in kernels}
+        cli.main(argv + ["--set", f"vote_instances.res_key={key}"] + extra
+                 + ["-d", "label"])
+        runs[key] = {k.name: k.launches - before[k.name] for k in kernels}
+    t["c_labels"] = time.perf_counter() - t0
+    res = IoZarr(res_path)
+    maps = {k: res.read(key=k) for k in ("vote_instances", "viz_plain",
+                                         "viz_debug")}
+    canvases = {k: res.read(key=k) for k in ("vote_debug", "vote_debug2")}
+    tif = read_tif(os.path.join(inst_dir, sample + ".tif"))
+    mips = [read_png(os.path.join(inst_dir, sample + f))
+            for f in (".png", "_cleaned.png")]
+    side = VIZ_PS[1] * inst.shape[1]
+    c = {"launches_by_run": runs,
+         "map_equal_plain": bool(np.array_equal(maps["viz_debug"],
+                                                maps["viz_plain"])),
+         "map_equal_cli": bool(np.array_equal(maps["viz_debug"],
+                                              maps["vote_instances"])),
+         "canvas_shapes": {k: list(v.shape) for k, v in canvases.items()},
+         "canvas_nonzero": {k: int(np.count_nonzero(v))
+                            for k, v in canvases.items()},
+         "canvases_finite": bool(all(np.isfinite(v).all()
+                                     for v in canvases.values())),
+         "tif": [list(tif.shape), str(tif.dtype), int(tif.max())],
+         "mips": [list(m.shape) for m in mips]}
+    c_ok = (c["map_equal_plain"] and c["map_equal_cli"]
+            and c["canvases_finite"]
+            and all(v == [side, side] for v in c["canvas_shapes"].values())
+            and all(n > 0 for n in c["canvas_nonzero"].values())
+            and tif.shape == inst.shape and tif.dtype == np.uint16
+            and int(tif.max()) == n_instances(maps["viz_debug"])
+            and all(m.shape == inst.shape[1:] + (3,) for m in mips)
+            and all(n == {k.name: 1 for k in kernels} for n in runs.values()))
+
+    # (d) 2D vote_debug through do_all on a crop of the worm image
+    t0 = time.perf_counter()
+    y0, x0, n = VIZ_CROP2D
+    inp = path2d_inputs("A")
+    labels = inp["labels"][:, y0:y0 + n, x0:x0 + n]
+    fg = labels > 0
+    from patchperpix_tpu_torch.ops.synthetic import labels_to_affinities
+    affs2 = labels_to_affinities(labels, np.array(PS2D))
+    store = os.path.join(ctx["work"], "viz2d", "worms.zarr")
+    out = IoZarr(store, mode="w")
+    for key, arr in (("volumes/pred_affs", affs2),
+                     ("volumes/pred_fgbg", fg.astype(np.float32))):
+        out.create(key, arr.shape, np.float32)
+        out.write(arr, key=key)
+    out.close()
+    vp = VoteInstancesParams(**PATH2D["A"], fg_key="volumes/pred_fgbg",
+                             vote_debug=True)
+    for k in kernels2d:
+        k.launches = 0
+    res2 = TV.do_all(store, vp, os.path.join(ctx["work"], "viz2d", "inst"),
+                     device=dev)
+    launches2d = count_launches("visualize_2d", kernels2d)
+    res2 = IoZarr(res2)
+    plain2, _ = TV.to_instance_seg(affs2, fg, fg.copy(), fg.astype(np.uint8),
+                                   VoteInstancesParams(**PATH2D["A"]),
+                                   device=dev)
+    plain2[~fg] = 0
+    canv2 = {k: res2.read(key=k) for k in ("vote_debug", "vote_debug2")}
+    d = {"launches": launches2d, "fg_px": int(fg.sum()),
+         "n_instances": n_instances(res2.read(key="vote_instances")),
+         "map_equal": bool(np.array_equal(res2.read(key="vote_instances"),
+                                          plain2)),
+         "canvas_shapes": {k: list(v.shape) for k, v in canv2.items()},
+         "canvas_nonzero": {k: int(np.count_nonzero(v))
+                            for k, v in canv2.items()}}
+    side2 = PS2D[1] * n
+    d_ok = (d["map_equal"] and d["n_instances"] >= 2
+            and all(v == [side2, side2] for v in d["canvas_shapes"].values())
+            and all(v > 0 for v in d["canvas_nonzero"].values())
+            and all(v == 1 for v in launches2d.values()))
+    t["d_2d"] = time.perf_counter() - t0
+    launches = {k.name: sum(r[k.name] for r in runs.values())
+                for k in kernels}
+    LAUNCHES["visualize"] = launches
+    emit({"phase": "visualize", "launches": launches, "a": a, "b": b,
+          "c": c, "d": d, "seconds": t,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    if not (a["instance_png_equal"] and a["patches_png_equal"]):
+        raise AssertionError(f"visualize (a): a PNG differs from the render "
+                             f"of its arrays: {a}")
+    if not all(b.values()):
+        raise AssertionError(f"visualize (b): a render differs from the JAX "
+                             f"package's: {b}")
+    if not c_ok:
+        raise AssertionError(f"visualize (c) failed: {c}")
+    if not d_ok:
+        raise AssertionError(f"visualize (d) failed: {d}")
+
+
+def run_cli(dev, kernels, then=None):
     """Phase cli: the reference CLI's predict -> decode -> label ->
     evaluate through the port's CLI on the crop, gated against the JAX
-    package's run of the same chain; then infer_fused in bf16."""
+    package's run of the same chain; ``then(ctx)`` (phase visualize) on
+    its f32 experiment; then infer_fused in bf16."""
     import shutil
     import tempfile
 
@@ -1784,6 +2016,13 @@ def run_cli(dev, kernels):
                                  f"{meta['avg_f1_cov_score']}")
         f32_tasks, f32_skel = dict(task_s), {
             k: [sum(t for t, _ in v), len(v)] for k, v in skel.items()}
+        if then is not None:
+            for name, fn in real_tasks.items():
+                setattr(cli, name, fn)
+            then({"argv": argv, "paths": paths, "sample": sample,
+                  "work": work})
+            for name, fn in real_tasks.items():
+                setattr(cli, name, timed(name, fn))
 
         # bf16, the config as it stands, through infer_fused
         task_s.clear()
@@ -3319,6 +3558,41 @@ def compare_reference(run):
     return res
 
 
+# to_instance_seg's stages: their sum is bench.py's "assemble" wall
+ASSEMBLY_STAGES = ("consensus", "rank", "cover", "thin_cover", "pairs",
+                   "graph", "mws_paint")
+
+
+def emit_roofline(tag, run, cfg, dev):
+    """Information, no gate: bench.py's roofline line for the port
+    (bench.py:360-373: the consensus + rank cost charged to the whole
+    assembly's wall), ``assembly_mfu_summary`` of the consensus, rank and
+    graph stages, and ``unet_cost``'s share of the predict stage (the f32
+    path's convolutions run without TF32, so against the f32 peak; bf16
+    against the tensor cores'), at the card's published peaks."""
+    from patchperpix_tpu_torch.utils import roofline as R
+
+    peaks = R.chip_peaks(dev)
+    t = run["times"]
+    vol = run["fg"].shape
+    cc, rc = R.consensus_cost(vol, VIZ_PS), R.rank_cost(vol, VIZ_PS)
+    assemble = sum(t[k] for k in ASSEMBLY_STAGES if k in t)
+    unet = R.unet_cost(WIN, cfg.num_fmaps, cfg.fmap_inc_factors[0],
+                       len(cfg.downsample_factors) + 1, cfg.num_channels)
+    if cfg.dtype == "float32":
+        unet = R.KernelCost(unet.flops, unet.hbm_bytes, "fp32")
+    emit({"phase": "roofline", "path": tag, "peaks": vars(peaks),
+          "assemble_s": assemble,
+          "roofline_consensus_rank_vs_assemble": R.analyze(
+              R.KernelCost(cc.flops + rc.flops, cc.hbm_bytes + rc.hbm_bytes,
+                           "fp32"), assemble, peaks),
+          "assembly_mfu_summary": R.assembly_mfu_summary(
+              vol, VIZ_PS, len(run["inter"]["pairs"]),
+              {k: t[k] for k in ("consensus", "rank", "graph")},
+              peaks=peaks),
+          "unet_forward_vs_predict": R.analyze(unet, t["predict"], peaks)})
+
+
 def tpu_figures():
     """The TPU bf16 bench figures recorded in BENCH_r05.json."""
     metric = json.load(open(BENCH_TPU))["parsed"]["metric"]
@@ -3341,7 +3615,7 @@ def main() -> int:
                                                 MODEL2D_NPZ, BW_REF_NPZ,
                                                 CLI_REF_NPZ, TRAIN_REF_NPZ,
                                                 ISBI_REF_NPZ, ISBI_DATA,
-                                                SWIN_REF_NPZ))):
+                                                SWIN_REF_NPZ, VIZ_REF_NPZ))):
         print("chip_smoke: the repository is not beside this script",
               file=sys.stderr)
         return 2
@@ -3425,6 +3699,7 @@ def main() -> int:
                 "AP_0.5_cldice_greedy": cl["confusion_matrix"]["th_0_5"][
                     "AP"]}
     scores32 = scores(run["inst"])
+    emit_roofline("f32", run, cfg, dev)
     run_blockwise(model, cfg, raw, run, dev, (K.CONSENSUS, K.RANK),
                   then=lambda ctx: run_multidevice(ctx, dev,
                                                    (K.CONSENSUS, K.RANK)))
@@ -3442,10 +3717,13 @@ def main() -> int:
                   "own_fg_vox": ref["own_fg_vox"], **scores32},
           "tpu_bf16": tpu_figures(),
           "jax_bf16_cpu": json.load(open(BF16_REF_JSON))})
+    emit_roofline("bf16", run16, cfg16, dev)
     del run16, model16, model
     torch.cuda.empty_cache()
 
-    run_cli(dev, (K.CONSENSUS, K.RANK))
+    run_cli(dev, (K.CONSENSUS, K.RANK),
+            then=lambda ctx: run_visualize(ctx, dev, (K.CONSENSUS, K.RANK),
+                                           (K.CONSENSUS2D, K.RANK2D)))
     torch.cuda.empty_cache()
     run_train(dev, (K.CONSENSUS, K.RANK))
     torch.cuda.empty_cache()

@@ -27,11 +27,14 @@ The reference CLI's ``label`` task runs ``do_all``: ``load_affinities``
 from a prediction store, ``to_instance_seg`` (or blockwise assembly), and
 ``finalize_and_write``, which writes ``<sample>.zarr`` (a zarr v2 store
 of the port's ``utils/io.py``; the JAX package writes ``.hdf``, and the
-GPU machine has no h5py) under the JAX package's keys.
-``VoteInstancesParams.from_config`` reads a [vote_instances] section; a
-key of the JAX package that the port does not implement yet
-(visualization) raises when it is set to anything but its default, naming
-the ROADMAP.md item that ports it.
+GPU machine has no h5py) under the JAX package's keys.  With
+``vote_debug`` the whole-volume branch of ``do_all`` labels in two passes,
+as the JAX package does: the pairs and weights first, the debug canvases
+(``assembly/debug_viz.py``) from them, then the labelling of that given
+graph, which runs no consensus or rank.  ``save_mip`` writes colour label
+MIPs before and after the small-component removal and ``save_tif`` the
+relabelled uint16 cleaned volume (``utils/io.py``'s PNG and TIFF writers).
+``VoteInstancesParams.from_config`` reads a [vote_instances] section.
 
 ``sharded_devices`` > 1 (-1: every device) z-shards the consensus and
 rank over a mesh of devices (``parallel/sharded.py``), and passes the
@@ -85,20 +88,14 @@ from ..ops.graph_device import graph_components_device
 from ..parallel import sharded
 from ..utils import io as vio
 from ..utils.device import resolve_device
-from ..utils.postprocess import remove_small_components
+from ..utils.io import save_tif, write_png
+from ..utils.postprocess import (color_labels, relabel,
+                                 remove_small_components)
 from ..utils.skeleton import skeletonize
 from . import isbi_hacks
 
 logger = logging.getLogger(__name__)
 
-# [vote_instances] keys of the JAX package's VoteInstancesParams that the
-# port does not implement yet: {key: (the JAX default, the ROADMAP.md item
-# that ports it)}.  from_config raises on any other value.
-_NOT_PORTED = {
-    "save_mip": (False, "ROADMAP.md §1 item 5 (visualization)"),
-    "save_tif": (False, "ROADMAP.md §1 item 5 (visualization)"),
-    "vote_debug": (False, "ROADMAP.md §1 item 5 (visualization)"),
-}
 # the JAX package's engines that run the device path; the port has one
 # (the CUDA kernels on the card, their plain versions on the CPU)
 _DEVICE_ENGINES = ("jax", "pallas", "xla")
@@ -131,6 +128,11 @@ class VoteInstancesParams:
     # do_all / finalize_and_write (the CLI's label task)
     remove_small_comps: int = 0
     dilate_instances: bool = False
+    save_mip: bool = False      # colour label MIP PNGs, before and after
+                                # the small-component removal
+    save_tif: bool = False      # the relabelled cleaned volume as uint16 TIF
+    vote_debug: bool = False    # the vote_debug / vote_debug2 canvases in
+                                # the result store (whole volumes only)
     res_key: str = "vote_instances"
     result_folder: str = "."
     num_parallel_samples: int = 1
@@ -196,9 +198,9 @@ class VoteInstancesParams:
         """Typed view of a [vote_instances] section, as the JAX package's
         ``from_config``: keys that name no parameter of either package are
         dropped, ``patchshape`` becomes a tuple.  Raises
-        NotImplementedError for a JAX parameter the port lacks when it is
-        set to anything but the JAX default, and for an engine other than
-        the device engines."""
+        NotImplementedError for an engine other than the device engines
+        (the JAX package's host ``engine="numpy"`` is the port's CPU run
+        with ``device="cpu"``)."""
         kwargs = {**cfg, **overrides}
         engine = kwargs.pop("engine", "jax")
         if engine not in _DEVICE_ENGINES:
@@ -206,11 +208,6 @@ class VoteInstancesParams:
                 f"engine={engine!r}: the port has one engine, the CUDA "
                 f"kernels on the card (plain PyTorch on the CPU); use one "
                 f"of {_DEVICE_ENGINES}")
-        for key, (default, item) in _NOT_PORTED.items():
-            if key in kwargs and kwargs.pop(key) != default:
-                raise NotImplementedError(
-                    f"[vote_instances] {key} is not ported yet ({item}); "
-                    f"leave it at {default!r}")
         known = {f.name for f in fields(cls)}
         kwargs = {k: v for k, v in kwargs.items() if k in known}
         if "patchshape" in kwargs:
@@ -719,6 +716,7 @@ def _do_all_inner(aff_file, params, result_folder, device):
         params = dataclasses.replace(
             params, oracle_scores=oracle[None] if oracle.ndim == 2
             else oracle)
+    canvases = None
     if params.blockwise:
         instances, fg_out = blockwise_vote_instances_zarr(
             aff_file, params, chunksize=params.chunksize,
@@ -726,6 +724,9 @@ def _do_all_inner(aff_file, params, result_folder, device):
             device=device)
     else:
         affs, numinst, foreground = load_affinities(aff_file, params)
+        if params.vote_debug:
+            params, canvases = _vote_debug(affs, numinst, foreground,
+                                           params, device)
         if params.store_intermediates:
             # pairs and weights once, as .npy beside the result; a rerun
             # labels from them (aff_patch_graph.py:96-110)
@@ -748,7 +749,38 @@ def _do_all_inner(aff_file, params, result_folder, device):
             affs, foreground, foreground.copy(), numinst, params,
             device=device)
     return finalize_and_write(instances, fg_out, params, base,
-                              result_folder)
+                              result_folder, extra_keys=canvases)
+
+
+def _vote_debug(affs, numinst, foreground, params, device):
+    """The first pass of ``vote_debug`` (JAX vote_instances.py:948-968):
+    the pairs and weights, the two debug canvases, and the params that
+    label from that graph.  Returns (params, {key: canvas})."""
+    from .debug_viz import render_graph_edges, render_patch_tiles
+
+    pairs, weights = to_instance_seg(
+        affs, foreground, foreground.copy(), numinst,
+        dataclasses.replace(params, return_intermediates=True),
+        device=device)
+    tiles = render_patch_tiles(affs, foreground, params.patchshape,
+                               device=device)
+    if pairs is None:
+        return params, {"vote_debug": tiles,
+                        "vote_debug2": np.zeros_like(tiles)}
+    edges = render_graph_edges(pairs, weights, foreground.shape,
+                               params.patchshape)
+    params = dataclasses.replace(params, selected_patch_pairs=pairs,
+                                 aff_graph=np.asarray(weights))
+    return params, {"vote_debug": tiles, "vote_debug2": edges}
+
+
+def _save_label_mip(instances: np.ndarray, out_file: str):
+    """Colour label MIP PNG (stitch_patch_graph.py:824-829 ``color(
+    np.max(instances, axis=0))``)."""
+    mip = np.asarray(instances)
+    while mip.ndim > 2:
+        mip = mip.max(axis=0)
+    write_png(out_file, color_labels(mip.astype(np.int64)))
 
 
 def _write_label_volume(io, key: str, arr: np.ndarray):
@@ -761,22 +793,35 @@ def _write_label_volume(io, key: str, arr: np.ndarray):
 
 
 def finalize_and_write(instances, fg_out, params: VoteInstancesParams,
-                       base: str, result_folder: str) -> str:
+                       base: str, result_folder: str,
+                       extra_keys: dict | None = None) -> str:
     """Small-component removal, the crop to the foreground (with
     ``crop_to_foreground``) and the result store
     ``<result_folder>/<base>.zarr`` (vote_instances.py:521-554 and the
     stitch's post outputs, stitch_patch_graph.py:823-895): ``res_key``,
-    ``vote_foreground``, ``vote_instances_masked`` (always cropped) and,
-    with ``dilate_instances``, ``<res_key>_dil_1`` /
-    ``<res_key>_masked_dil_1``.  Multi-channel maps (C, *vol) are cropped
+    ``vote_foreground``, ``vote_instances_masked`` (always cropped),
+    with ``dilate_instances`` ``<res_key>_dil_1`` /
+    ``<res_key>_masked_dil_1``, and every array of ``extra_keys`` under
+    its key.  ``save_mip`` writes ``<base>.png`` before the small-component
+    removal and ``<base>_cleaned.png`` after it, ``save_tif`` the relabelled
+    cleaned map as ``<base>.tif`` (both only with ``remove_small_comps``,
+    as in the JAX package).  Multi-channel maps (C, *vol) are cropped
     channel by channel.  An existing store keeps its other keys.  Shared
     by ``do_all`` and the CLI's ``infer_fused``."""
     instances = np.asarray(instances)
     fg_out = np.asarray(fg_out)
     bg = (slice(None),) * (instances.ndim - fg_out.ndim) + (fg_out == 0,)
+    if params.save_mip:
+        _save_label_mip(instances, os.path.join(result_folder, base + ".png"))
     if params.remove_small_comps > 0:
         instances = remove_small_components(instances,
                                             params.remove_small_comps)
+        if params.save_tif:
+            save_tif(os.path.join(result_folder, base + ".tif"),
+                     relabel(instances).astype(np.uint16))
+        if params.save_mip:
+            _save_label_mip(instances, os.path.join(
+                result_folder, base + "_cleaned.png"))
     instances = instances.copy()
     if params.crop_to_foreground:
         instances[bg] = 0
@@ -800,5 +845,10 @@ def finalize_and_write(instances, fg_out, params: VoteInstancesParams,
         mdil = instdil.copy()
         mdil[bg] = 0
         _write_label_volume(out, params.res_key + "_masked_dil_1", mdil)
+    for key, arr in (extra_keys or {}).items():
+        arr = np.ascontiguousarray(arr)
+        out.create(key, arr.shape, arr.dtype,
+                   chunks=[min(int(s), 512) for s in arr.shape])
+        out.write(arr, key=key)
     out.close()
     return out_path

@@ -3,8 +3,8 @@
 Counterpart of ``patchperpix_tpu/cli.py`` (reference experiments/run_ppp.py):
 ``mknet``, ``train``, ``validate_checkpoints`` / ``validate``, ``predict``,
 ``decode``, ``label``, ``infer_fused``, ``evaluate``,
-``evaluate_prediction``, ``postprocess``, ``cross_validate``, ``cleanup``
-and ``all`` (``mknet train validate_checkpoints predict decode label
+``evaluate_prediction``, ``postprocess``, ``cross_validate``,
+``visualize``, ``cleanup`` and ``all`` (``mknet train validate_checkpoints predict decode label
 evaluate``), with the JAX CLI's
 experiment folders, layered TOML config with ``--set`` overrides, the
 merged config written back into the run directory, per-stage wall-time
@@ -31,8 +31,8 @@ What differs from the JAX CLI:
   data-parallel over that many devices of ``--device``'s kind, with the
   host sampler (``device_sampler`` falls back to it with a warning, as in
   the JAX CLI).  No git diff of the source is stored with the config.
-- ``visualize`` raises NotImplementedError naming the ROADMAP.md item
-  that ports it.
+- ``visualize`` reads the ``<sample>.zarr`` results and writes the PNGs
+  with the port's own writer (the GPU machine has no PIL).
 
 Usage:
   python -m patchperpix_tpu_torch.cli -c configs/flylight_crop_dec.toml \\
@@ -77,10 +77,6 @@ TASKS = ["all", "mknet", "train", "validate_checkpoints", "validate",
          "predict", "decode", "label", "infer_fused", "postprocess",
          "evaluate", "evaluate_prediction", "cross_validate", "visualize",
          "cleanup"]
-# tasks of later slices: {task: the ROADMAP.md item that ports it}
-NOT_PORTED = {
-    "visualize": "ROADMAP.md §1 item 5 (visualization)",
-}
 
 
 def time_func(fn):
@@ -925,11 +921,46 @@ def cleanup(args, config, paths):
     return removed
 
 
-def _not_ported(task):
-    def run(args, config, paths):
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet: {NOT_PORTED[task]}")
-    return run
+@time_func
+def visualize(args, config, paths):
+    """Instance PNGs of the results and, with ``[visualize]
+    show_patches``, patch mosaics of the predictions' affinities
+    (``aff_key`` of ``[prediction]``; the volume plane
+    ``patch_mosaic_z``, else the z-MIP) beside the prediction stores
+    (run_ppp.py:1539-1606).  A prediction store without the affinities
+    is passed over.  Returns the paths written."""
+    from .visualize import visualize_instances, visualize_patches
+
+    checkpoint = _resolve_checkpoint(args, config, paths)
+    inst_dir = os.path.join(paths[f"{args.mode}_instanced"], str(checkpoint))
+    viz = config.get("visualize", {})
+    out = []
+    for path in sorted(glob.glob(os.path.join(inst_dir, "*.zarr"))):
+        s = os.path.splitext(os.path.basename(path))[0]
+        io = vio.open_volume(path, mode="r")
+        inst = io.read(key="vote_instances")
+        io.close()
+        png = os.path.join(inst_dir, s + ".png")
+        visualize_instances(inst, png, device=args.device)
+        out.append(png)
+    if viz.get("show_patches"):
+        proc = os.path.join(paths[f"{args.mode}_processed"],
+                            str(checkpoint))
+        ps = tuple(config["model"]["patchshape"])
+        aff_key = config.get("prediction", {}).get("aff_key",
+                                                   "volumes/pred_affs")
+        for path in sorted(glob.glob(os.path.join(proc, "*.zarr"))):
+            if not vio.check_file(path, keys=[aff_key]):
+                continue
+            s = os.path.splitext(os.path.basename(path))[0]
+            io = vio.open_volume(path, mode="r")
+            affs = io.read(key=aff_key).astype(np.float32)
+            io.close()
+            png = os.path.join(proc, s + "_patches.png")
+            visualize_patches(affs, ps, png, z=viz.get("patch_mosaic_z"),
+                              device=args.device)
+            out.append(png)
+    return out
 
 
 def main(argv=None):
@@ -939,9 +970,6 @@ def main(argv=None):
     if "all" in tasks:
         tasks = ["mknet", "train", "validate_checkpoints", "predict",
                  "decode", "label", "evaluate"]
-    for task in tasks:
-        if task in NOT_PORTED:
-            _not_ported(task)(args, None, None)
     cfg_files = list(args.config or [])
     if args.run_from_exp and args.expid:
         stored = os.path.join(args.root, args.expid, "config.toml")
@@ -976,7 +1004,7 @@ def main(argv=None):
         "label": label, "infer_fused": infer_fused, "evaluate": evaluate,
         "evaluate_prediction": evaluate_prediction,
         "postprocess": postprocess, "cross_validate": cross_validate,
-        "cleanup": cleanup,
+        "visualize": visualize, "cleanup": cleanup,
     }
     for task in tasks:
         logger.info("=== task %s ===", task)

@@ -12,12 +12,15 @@ into ``patchperpix_tpu_torch/build/`` (listed in ``.gitignore``).  The
 file name carries a hash of the source, of every header ``csrc/*.cuh``
 (sources include them) and of the flags, so an edited source is rebuilt.
 The library is loaded once per process.  ``CudaKernel`` is one entry
-point of such a library with its launch count; loads and counts are
-guarded by locks, since blockwise assembly launches from several threads.
-A launch names its device and runs with that device current: the C entry
-points set kernel attributes and launch on the *current* device, and the
-stream they are given belongs to the tensors' device, which need not be
-the current one (blocks and shards on several cards).
+point of such a library with its launch count; each C function is bound
+(looked up, its ``argtypes`` / ``restype`` set) once, at its first call.
+Loads, bindings and counts are guarded by locks, since blockwise assembly
+launches from several threads.
+A launch names its device and runs with that device current (made
+current for the call when it is not): the C entry points set kernel
+attributes and launch on the *current* device, and the stream they are
+given belongs to the tensors' device, which need not be the current one
+(blocks and shards on several cards).
 """
 
 from __future__ import annotations
@@ -113,6 +116,7 @@ class CudaKernel:
         self.replaces = replaces
         self.launches = 0
         self._count_lock = threading.Lock()
+        self._bound: dict = {}   # symbol -> ctypes function, bound once
 
     def launch(self, device, *args):
         """Run the kernel's entry point on ``device`` (the tensors'
@@ -121,21 +125,37 @@ class CudaKernel:
         with self._count_lock:
             self.launches += 1
 
+    def bind(self, symbol: str, argtypes, restype=ctypes.c_int):
+        """The library's C function ``symbol`` with its argument and
+        result types, bound at the first call and kept."""
+        fn = self._bound.get(symbol)
+        if fn is None:
+            lib = load(self.name)
+            with _load_lock:
+                fn = self._bound.get(symbol)
+                if fn is None:
+                    # a private function object: another binding of the same
+                    # symbol cannot change these types
+                    fn = ctypes.CFUNCTYPE(restype, *argtypes)(
+                        (symbol, lib))
+                    self._bound[symbol] = fn
+        return fn
+
     def call(self, device, symbol: str, argtypes, *args):
         """Run another entry point of the same library (a step that sizes
         the kernel's scratch) on ``device``, not counted as a launch;
         raises on a CUDA error."""
         import torch
 
-        lib = load(self.name)
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        with torch.cuda.device(device):
+        fn = self.bind(symbol, argtypes)
+        idx = torch.device(device).index
+        if idx is None or idx == torch.cuda.current_device():
             err = fn(*args)
+        else:
+            with torch.cuda.device(idx):
+                err = fn(*args)
         if err != 0:
-            msg = getattr(lib, f"ppp_{self.name}_error_string")
-            msg.argtypes = [ctypes.c_int]
-            msg.restype = ctypes.c_char_p
+            msg = self.bind(f"ppp_{self.name}_error_string", [ctypes.c_int],
+                            ctypes.c_char_p)
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {err} ({msg(err).decode()})")

@@ -6,8 +6,10 @@ out of ``n_slab`` stacked 8-row slabs.  ``PROBE`` (``csrc/
 probe_window.cu``) is the same probe for an NVIDIA GPU, with the window
 staged in shared memory (``mode="smem"``) or read from global memory
 (``mode="gmem"``); ``probe_window_plain`` is its plain PyTorch version,
-the ``want`` loop of that script on tensors.
-``scripts/probe_window_cuda.py`` runs the twelve cases.
+the ``want`` loop of that script on tensors.  ``CASES`` are the script's
+twelve cases; ``OPT_IN_CASE`` adds one whose staged rows (52 KB) pass the
+48 KB a block gets without opting in.  ``scripts/probe_window_cuda.py``
+runs them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,13 @@ V = 8  # rows per slab
 MODES = {"smem": 0, "gmem": 1}
 CASES = tuple((mode, n_slab, W) for mode in MODES for n_slab in (2, 3)
               for W in (696, 720, 768))
+OPT_IN_CASE = ("smem", 13, 768)
+COLS = 128   # columns per block of the kernel (its staged tile's width)
+
+
+def staged_bytes(n_slab: int) -> int:
+    """Shared memory a block of the smem mode stages."""
+    return n_slab * V * COLS * 4
 
 PROBE = CudaKernel(
     "probe_window", "ppp_probe_window",
@@ -82,20 +91,27 @@ def probe_window(x: torch.Tensor, n_slab: int,
     raise ValueError(f"probe: no kernel for device {x.device}")
 
 
+def case_input(n_slab: int, W: int, seed: int = 0) -> torch.Tensor:
+    """The seeded input of a case: (8, 8, W), or (n_slab + 1, 8, W) where
+    n_slab passes 8."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.rand((max(8, n_slab + 1), V, W), generator=gen)
+
+
 def run_cases(device="cuda", seed: int = 0, tol: float = 1e-4) -> list:
-    """The probe: every case of ``CASES`` on a seeded (8, 8, W) array,
-    kernel against plain version.  Returns one dict per case (mode,
-    n_slab, W, max_err, ok); nothing is caught, so a kernel that does not
-    build or launch raises."""
+    """The probe: every case of ``CASES`` and ``OPT_IN_CASE``, kernel
+    against plain version.  Returns one dict per case (mode, n_slab, W,
+    staged_bytes, max_err, ok); nothing is caught, so a kernel that does
+    not build or launch raises."""
     from ..utils.device import resolve_device
 
     dev = resolve_device(device)
     out = []
-    for mode, n_slab, W in CASES:
-        gen = torch.Generator().manual_seed(seed)
-        x = torch.rand((8, V, W), generator=gen).to(dev)
+    for mode, n_slab, W in CASES + (OPT_IN_CASE,):
+        x = case_input(n_slab, W, seed).to(dev)
         got = probe_window(x, n_slab, mode)
         err = float((got - probe_window_plain(x, n_slab)).abs().max())
         out.append({"mode": mode, "n_slab": n_slab, "W": W,
-                    "max_err": err, "ok": err < tol})
+                    "staged_bytes": staged_bytes(n_slab) if mode == "smem"
+                    else 0, "max_err": err, "ok": err < tol})
     return out

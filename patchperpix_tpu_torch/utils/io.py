@@ -1,9 +1,12 @@
-"""Zarr v2 store written with numpy, json and zlib.
+"""Zarr v2 store written with numpy, json and zlib; TIFF and PNG files.
 
 Counterpart of ``patchperpix_tpu/utils/io.py`` (``IoZarr``, which goes
 through tensorstore, ``open_volume``, ``check_file``, the raw NRRD writer
-and reader) for a machine that
-has neither zarr, tensorstore nor h5py.  Arrays are C-order zarr v2
+and reader, ``save_tif`` / ``read_tif``) for a machine that
+has neither zarr, tensorstore, h5py nor PIL.  TIFF and PNG are written
+and read with numpy, zlib and struct (``save_tif`` / ``read_tif``,
+``write_png`` / ``read_png``); the readers also take the files PIL writes
+for the JAX package.  Arrays are C-order zarr v2
 arrays without filters.  Chunks are written zlib-compressed (or raw with
 ``compressor=None``) and read when they are zlib-, gzip-compressed or raw;
 a chunk that was never written reads as the array's fill value.  The JAX
@@ -27,6 +30,7 @@ import itertools
 import json
 import os
 import shutil
+import struct
 import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -390,3 +394,179 @@ def read_nrrd(path: str) -> np.ndarray:
           "float": np.float32, "double": np.float64}[fields["type"]]
     sizes = [int(s) for s in fields["sizes"].split()]
     return np.frombuffer(body, dtype=dt).reshape(tuple(reversed(sizes)))
+
+
+
+# -- TIFF and PNG --------------------------------------------------------------
+
+# TIFF field types the reader decodes: BYTE, SHORT, LONG
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I"}
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def save_tif(path: str, arr: np.ndarray) -> str:
+    """Baseline TIFF, uncompressed, little-endian, one strip per page.
+    Integer or bool input is written as uint16, anything else as float32
+    (SampleFormat 3), after a squeeze; one page in 2D, one page per z in
+    3D.  The JAX package writes the same with PIL (utils/io.py:280-301:
+    the cleaned uint16 label volume, stitch_patch_graph.py:836-841, and
+    float32 patch mosaics, visualize/patches.py:196-198)."""
+    arr = np.squeeze(np.asarray(arr))
+    if np.issubdtype(arr.dtype, np.integer) or arr.dtype == bool:
+        arr, sample_format = arr.astype("<u2"), 1
+    else:
+        arr, sample_format = arr.astype("<f4"), 3
+    if arr.ndim not in (2, 3):
+        raise ValueError(f"save_tif: unsupported ndim {arr.ndim}")
+    pages = arr.reshape((-1,) + arr.shape[-2:])
+    n, H, W = pages.shape
+    page_bytes = H * W * arr.itemsize
+    n_tags = 10
+    ifd_bytes = 2 + 12 * n_tags + 4
+    out = bytearray(b"II*\x00" + struct.pack("<I", 8))
+    for i in range(n):
+        data = len(out) + ifd_bytes
+        tags = ((256, 4, W), (257, 4, H), (258, 3, 8 * arr.itemsize),
+                (259, 3, 1),                  # no compression
+                (262, 3, 1),                  # BlackIsZero
+                (273, 4, data), (277, 3, 1), (278, 4, H),
+                (279, 4, page_bytes), (339, 3, sample_format))
+        out += struct.pack("<H", n_tags)
+        for tag, typ, value in tags:
+            out += struct.pack("<HHI" + ("H2x" if typ == 3 else "I"), tag,
+                               typ, 1, value)
+        out += struct.pack("<I", data + page_bytes if i + 1 < n else 0)
+        out += pages[i].tobytes()
+    with open(path, "wb") as f:
+        f.write(out)
+    return path
+
+
+def read_tif(path: str) -> np.ndarray:
+    """The pages of an uncompressed TIFF (either byte order, any strips,
+    8-, 16-, 32- or 64-bit unsigned, signed or float samples): a 2D array
+    for one page, else the pages stacked."""
+    with open(path, "rb") as f:
+        data = f.read()
+    end = {b"II": "<", b"MM": ">"}.get(data[:2])
+    if end is None or struct.unpack(end + "H", data[2:4])[0] != 42:
+        raise ValueError(f"{path}: not a classic TIFF file")
+    frames = []
+    off = struct.unpack(end + "I", data[4:8])[0]
+    while off:
+        (n,) = struct.unpack(end + "H", data[off:off + 2])
+        tags = {}
+        for k in range(n):
+            e = off + 2 + 12 * k
+            tag, typ, cnt = struct.unpack(end + "HHI", data[e:e + 8])
+            if typ not in _TIFF_TYPES:
+                continue
+            fmt = end + _TIFF_TYPES[typ] * cnt
+            size = struct.calcsize(fmt)
+            at = e + 8 if size <= 4 else struct.unpack(
+                end + "I", data[e + 8:e + 12])[0]
+            tags[tag] = struct.unpack(fmt, data[at:at + size])
+        off = struct.unpack(end + "I", data[off + 2 + 12 * n:
+                                            off + 6 + 12 * n])[0]
+        W, H = tags[256][0], tags[257][0]
+        bits, spp = tags.get(258, (1,))[0], tags.get(277, (1,))[0]
+        if tags.get(259, (1,))[0] != 1:
+            raise ValueError(f"{path}: compressed TIFF (compression "
+                             f"{tags[259][0]}) is not read")
+        kind = {1: "u", 2: "i", 3: "f"}[tags.get(339, (1,))[0]]
+        dt = np.dtype(f"{end}{kind}{bits // 8}")
+        buf = b"".join(data[o:o + c] for o, c in zip(tags[273], tags[279]))
+        page = np.frombuffer(buf, dtype=dt, count=H * W * spp)
+        page = page.reshape((H, W, spp) if spp > 1 else (H, W))
+        frames.append(page.astype(dt.newbyteorder("=")))
+    return frames[0] if len(frames) == 1 else np.stack(frames)
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray, level: int = 6) -> str:
+    """An 8-bit gray (H, W) or RGB (H, W, 3) uint8 image as PNG: one IDAT
+    chunk, zlib at ``level``, filter type 0 on every row."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"write_png: expected uint8 (H, W) or (H, W, 3), "
+                         f"got {img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    rows = np.zeros((H, 1 + img[0].size), np.uint8)
+    rows[:, 1:] = img.reshape(H, -1)
+    ihdr = struct.pack(">IIBBBBB", W, H, 8, 0 if img.ndim == 2 else 2,
+                       0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE + _png_chunk(b"IHDR", ihdr)
+                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+                + _png_chunk(b"IEND", b""))
+    return path
+
+
+def _png_unfilter_row(kind: int, line: np.ndarray, prev: np.ndarray,
+                      bpp: int) -> np.ndarray:
+    """One row of PNG filter types 0-4 undone (uint8 arithmetic wraps)."""
+    if kind == 0:
+        return line.copy()
+    if kind == 1:       # Sub: a running sum per byte of the pixel
+        return np.cumsum(line.reshape(-1, bpp), axis=0,
+                         dtype=np.uint8).reshape(-1)
+    if kind == 2:       # Up
+        return line + prev
+    if kind not in (3, 4):
+        raise ValueError(f"PNG filter type {kind}")
+    cur = np.zeros_like(line)
+    left = np.zeros(bpp, np.int64)
+    up_left = np.zeros(bpp, np.int64)
+    x = line.astype(np.int64)
+    up = prev.astype(np.int64)
+    for i in range(0, len(line), bpp):
+        b = up[i:i + bpp]
+        if kind == 3:   # Average
+            v = x[i:i + bpp] + (left + b) // 2
+        else:           # Paeth
+            p = left + b - up_left
+            pa, pb, pc = np.abs(p - left), np.abs(p - b), np.abs(p - up_left)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, b, up_left))
+            v = x[i:i + bpp] + pred
+        left, up_left = v & 255, b
+        cur[i:i + bpp] = left
+    return cur
+
+
+def read_png(path: str) -> np.ndarray:
+    """A non-interlaced 8-bit gray or RGB PNG as (H, W) or (H, W, 3)
+    uint8; every filter type is undone, so PIL's files read too."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, head = 8, [], None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    W, H, depth, ctype, _, _, interlace = head
+    bpp = {0: 1, 2: 3}.get(ctype)
+    if bpp is None or depth != 8 or interlace:
+        raise ValueError(f"{path}: PNG colour type {ctype}, depth {depth}, "
+                         f"interlace {interlace} is not read")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(H, 1 + W * bpp)
+    out = np.empty((H, W * bpp), np.uint8)
+    prev = np.zeros(W * bpp, np.uint8)
+    for y in range(H):
+        prev = out[y] = _png_unfilter_row(int(raw[y, 0]), raw[y, 1:], prev,
+                                          bpp)
+    return out.reshape(H, W) if bpp == 1 else out.reshape(H, W, 3)

@@ -71,13 +71,18 @@ def postprocess_fg(fg: np.ndarray, min_size: int = 0,
     return relabel(out).astype(np.uint16)
 
 
+def color_table(n: int, seed: int = 0) -> np.ndarray:
+    """(n, 3) uint8 random colours of labels 0 .. n - 1, 0 black (the
+    table ``color_labels`` indexes)."""
+    rng = np.random.RandomState(seed)
+    lut = rng.randint(64, 255, size=(n, 3), dtype=np.uint8)
+    lut[0] = 0
+    return lut
+
+
 def color_labels(labels: np.ndarray, seed: int = 0) -> np.ndarray:
     """(..., 3) uint8 random colours of a label volume, 0 black."""
-    rng = np.random.RandomState(seed)
-    lut = rng.randint(64, 255, size=(int(labels.max()) + 1, 3),
-                      dtype=np.uint8)
-    lut[0] = 0
-    return lut[labels]
+    return color_table(int(labels.max()) + 1, seed)[labels]
 
 
 def crop_to_shape(arr: np.ndarray, shape) -> np.ndarray:

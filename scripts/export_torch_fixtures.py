@@ -102,11 +102,20 @@ Writes, from the repository's own files (nothing is downloaded):
   as a Swin on the train phase's batch (as ``--train`` stores a branch,
   then ``--swin-f64``, the same step in float64), and the 2D Swin at
   configs/bbbc010.toml's widths on the model2d window.
+- ``parity/torch_port_viz_ref.npz`` / ``.json`` (``--viz``): the JAX
+  package's renders of arrays stored in the repository (``viz_inputs``):
+  the JAX CLI's f32 map (``torch_port_cli_ref_f32.npz``), the crop's raw,
+  ideal 7^3 affinities of that map scaled by the stored decoded center
+  channel, the f32 reference run's foreground, pairs, weights and thinned
+  cover (``torch_port_ref_f32.npz``): ``render_instances`` plain, over the
+  raw and outlined, ``patch_mosaic`` (z-MIP; plane 25 with the cover's
+  centers selected), ``render_patch_tiles`` and ``render_graph_edges``
+  (~1 min).
 
 Usage: JAX_PLATFORMS=cpu python scripts/export_torch_fixtures.py
        [--params-only | --2d [H W] | --model2d | --blockwise [S] | --cli
         | --bf16 | --train | --train-step | --train-f64
-        | --isbi [a b c d e] | --isbi-f64 | --swin | --swin-f64]
+        | --isbi [a b c d e] | --isbi-f64 | --swin | --swin-f64 | --viz]
 """
 
 import json
@@ -1405,6 +1414,44 @@ def export_isbi_f64():
         json.dump(meta, f, indent=1, default=float)
 
 
+def export_viz():
+    """The JAX package's renders of ``chip_smoke.viz_inputs()`` (the same
+    numpy arrays the port renders on the card)."""
+    import numpy as np
+
+    import chip_smoke
+    from patchperpix_tpu.assembly.debug_viz import (render_graph_edges,
+                                                    render_patch_tiles)
+    from patchperpix_tpu.visualize.instances import render_instances
+    from patchperpix_tpu.visualize.patches import patch_mosaic
+
+    t0 = time.perf_counter()
+    inp = chip_smoke.viz_inputs()
+    ps = chip_smoke.VIZ_PS
+    out = {
+        "inst_plain": render_instances(inp["inst"]),
+        "inst_raw": render_instances(inp["inst"], raw=inp["raw"]),
+        "inst_outline": render_instances(inp["inst"], raw=inp["raw"],
+                                         outline=True),
+        "mosaic": patch_mosaic(inp["affs"], ps),
+        "mosaic_z": patch_mosaic(inp["affs"], ps, z=chip_smoke.VIZ_Z,
+                                 selected=inp["selected"]),
+        "tiles": render_patch_tiles(inp["affs"], inp["fg"], ps),
+        "edges": render_graph_edges(inp["pairs"], inp["weights"],
+                                    inp["fg"].shape, ps),
+    }
+    np.savez_compressed(chip_smoke.VIZ_REF_NPZ, **out)
+    meta = {"source": "scripts/export_torch_fixtures.py --viz: JAX package "
+                      "renders (CPU) of chip_smoke.viz_inputs()",
+            "shapes": {k: list(v.shape) for k, v in out.items()},
+            "dtypes": {k: str(v.dtype) for k, v in out.items()},
+            "nonzero": {k: int(np.count_nonzero(v)) for k, v in out.items()},
+            "seconds": time.perf_counter() - t0}
+    with open(chip_smoke.VIZ_REF_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+    print(json.dumps(meta))
+
+
 def main():
     import jax
 
@@ -1422,6 +1469,9 @@ def main():
         return
     if "--cli" in sys.argv:
         export_cli()
+        return
+    if "--viz" in sys.argv:
+        export_viz()
         return
     if "--bf16" in sys.argv:
         export_bf16()

@@ -1,25 +1,42 @@
 """Probe of the row-window read on an NVIDIA GPU: an 8-row window read at a
 run-time start out of n_slab stacked 8-row slabs, staged in shared memory
 (smem) or read from global memory (gmem), for n_slab in {2, 3} and W in
-{696, 720, 768}; the CUDA kernel (``patchperpix_tpu_torch/csrc/
-probe_window.cu``, built with nvcc at first use) against its plain PyTorch
-version.  Prints one line per case and exits non-zero on a mismatch.
+{696, 720, 768}, and one case staging past 48 KB; the CUDA kernel
+(``patchperpix_tpu_torch/csrc/probe_window.cu``, built with nvcc at first
+use) against its plain PyTorch version.  Prints one line per case and
+exits non-zero on a mismatch.
+
+With ``--time`` it times the case W = 768, n_slab = 3 instead, in both
+modes, against the plain version and against ``F.conv2d`` along the rows
+(the one PyTorch call that computes the same sums): ``call_ms``, CUDA
+events around one call of the wrapper as ``chip_smoke.py``'s probe phase
+times it (medians of ``--rounds`` turns plain, kernel, kernel, plain), and
+``loop_ms``, events around ``--loop`` calls in a row over their count
+(the card's time per call once the host keeps ahead).  ``--root DIR``
+times the package of another checkout (an earlier commit unpacked with
+``git archive``), whose wrappers take the same arguments.  Prints the
+card's name and power limit, then one JSON line.
 
 Run: python scripts/probe_window_cuda.py [cpu]
+     python scripts/probe_window_cuda.py --time [--rounds N] [--loop N]
+                                         [--root DIR]
      (``cpu`` runs the plain version against itself, a dry run of the
      script where there is no GPU)
 """
 
+import argparse
+import json
 import os
+import statistics
+import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main() -> int:
+def check(device) -> int:
     from patchperpix_tpu_torch.ops.probe import run_cases
 
-    device = "cpu" if len(sys.argv) > 1 and sys.argv[1] == "cpu" else "cuda"
     bad = 0
     for r in run_cases(device):
         print(f"MODE={r['mode']} n_slab={r['n_slab']} W={r['W']} "
@@ -28,6 +45,78 @@ def main() -> int:
     print("PROBE DONE" if not bad else f"PROBE FAILED: {bad} cases",
           flush=True)
     return 1 if bad else 0
+
+
+def timed(rounds: int, loop: int, root: str) -> int:
+    import torch
+    import torch.nn.functional as F
+
+    from patchperpix_tpu_torch.ops import probe as PR
+
+    if not torch.cuda.is_available():
+        print("probe_window_cuda --time: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    n_slab, W = 3, 768
+    x = torch.rand((8, PR.V, W), device=dev)
+    n_out, n_start = 8 - n_slab + 1, (n_slab - 1) * PR.V
+    k = torch.arange(1, n_start + 1, dtype=torch.float32,
+                     device=dev).reshape(1, 1, n_start, 1)
+    fns = {
+        "plain": lambda: PR.probe_window_plain(x, n_slab),
+        "smem": lambda: PR.probe_window_cuda(x, n_slab, "smem"),
+        "gmem": lambda: PR.probe_window_cuda(x, n_slab, "gmem"),
+        "conv2d": lambda: F.conv2d(x.reshape(1, 1, 8 * PR.V, W), k)[
+            0, 0, :n_out * PR.V].reshape(n_out, PR.V, W),
+    }
+    want = fns["plain"]()
+    err = {m: float((fns[m]() - want).abs().max())
+           for m in ("smem", "gmem", "conv2d")}
+
+    def events(fn, n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / n
+
+    for fn in fns.values():          # warm-up: builds, cuDNN's choice
+        events(fn, 3)
+    call = {m: [] for m in fns}
+    for _ in range(rounds):
+        for m in ("plain", "smem", "gmem", "conv2d", "conv2d", "gmem",
+                  "smem", "plain"):
+            call[m].append(events(fns[m], 1))
+    loop_ms = {m: events(fns[m], loop if m != "plain" else 5) for m in fns}
+    out = {"root": os.path.relpath(os.path.abspath(root), REPO),
+           "case": {"n_slab": n_slab, "W": W}, "max_abs_err": err,
+           "call_ms": {m: statistics.median(v) for m, v in call.items()},
+           "call_ms_min": {m: min(v) for m, v in call.items()},
+           "loop_ms": loop_ms, "rounds": rounds, "loop": loop,
+           "bytes": 4 * (x.numel() + want.numel())}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("cpu", nargs="?")
+    ap.add_argument("--time", action="store_true")
+    ap.add_argument("--rounds", type=int, default=20)
+    ap.add_argument("--loop", type=int, default=200)
+    ap.add_argument("--root", default=REPO)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    if args.time:
+        return timed(args.rounds, args.loop, args.root)
+    return check("cpu" if args.cpu == "cpu" else "cuda")
 
 
 if __name__ == "__main__":

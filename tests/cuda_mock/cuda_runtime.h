@@ -54,7 +54,8 @@ typedef void* cudaStream_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
-  cudaErrorInvalidConfiguration = 9
+  cudaErrorInvalidConfiguration = 9,
+  cudaErrorInvalidDevice = 101
 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
@@ -70,11 +71,19 @@ template <typename F>
 cudaError_t cudaFuncSetAttribute(F, int, int) {
   return cudaSuccess;
 }
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
 
 using std::max;
 using std::min;
 inline int __ffs(unsigned v) { return v ? __builtin_ctz(v) + 1 : 0; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+// one rounding each (the test builds without -ffp-contract=fast on a target
+// without FMA, so a * b + c is never fused on the host)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
   return (unsigned)((((uint64_t)hi << 32) | lo) >> (shift & 31));
 }

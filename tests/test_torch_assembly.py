@@ -221,7 +221,7 @@ import importlib.abc, pkgutil, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "orbax", "patchperpix_tpu"):
+                                  "orbax", "patchperpix_tpu", "PIL"):
             raise ImportError("blocked import of " + name)
         return None
 
@@ -392,7 +392,7 @@ assert inst5.ndim == 4 and inst5.max() > 0 and not inst5[:, 0].any()
 assert postprocess_fg(labels5 > 0).max() >= 1
 assert color_labels(labels5).shape == labels5.shape + (3,)
 assert crop_to_shape(labels5, (5, 5)).shape == (3, 5, 5)
-assert cli.NOT_PORTED.keys() == {"visualize"}
+assert not hasattr(cli, "NOT_PORTED")
 assert tref.foreground_cover_reference
 # the multi-device and Swin slice: a Swin model, sharded assembly, blocks
 # over devices, the data-parallel step, the sample fan-out
@@ -423,8 +423,32 @@ inst7, _ = blockwise_vote_instances(
     (12, 12, 12), device="cpu")
 assert np.array_equal(inst7, inst4)
 assert multihost.shard_samples(list("abcde"), 1, 2) == ["b", "d"]
+# the visualization slice: renders, debug canvases, PNG and TIFF without
+# PIL, the roofline helper
+import tempfile
+from patchperpix_tpu_torch.assembly.debug_viz import (render_graph_edges,
+                                                      render_patch_tiles)
+from patchperpix_tpu_torch.utils.io import read_png, read_tif, save_tif
+from patchperpix_tpu_torch.utils.roofline import analyze, chip_peaks, \
+    consensus_cost
+from patchperpix_tpu_torch.visualize import (visualize_instances,
+                                             visualize_patches)
+viz = tempfile.mkdtemp()
+assert render_patch_tiles(affs3, fgs, (3, 3, 3), device="cpu").shape == \
+    (72, 72)
+assert render_graph_edges(np.array([[1, 2, 3, 1, 5, 6]]), np.ones(1),
+                          (24, 24, 24), (3, 3, 3)).max() == 1.0
+visualize_instances(inst4, os.path.join(viz, "i.png"), device="cpu")
+assert read_png(os.path.join(viz, "i.png")).shape == (24, 24, 3)
+visualize_patches(affs3, (3, 3, 3), os.path.join(viz, "p.tif"), device="cpu")
+assert read_tif(os.path.join(viz, "p.tif")).dtype == np.float32
+save_tif(os.path.join(viz, "l.tif"), inst4)
+assert read_tif(os.path.join(viz, "l.tif")).shape == inst4.shape
+assert analyze(consensus_cost((8, 8, 8), (3, 3, 3)), 1.0,
+               chip_peaks("cpu"))["bound"] == "compute"
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("jax", "jaxlib", "flax", "optax", "orbax", "patchperpix_tpu")]
+       ("jax", "jaxlib", "flax", "optax", "orbax", "patchperpix_tpu",
+        "PIL")]
 assert not bad, bad
 print("NO_JAX_OK")
 """

@@ -97,33 +97,44 @@ def test_from_config_equals_jax(name):
         assert getattr(got, key) == getattr(want, key), key
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("vote_debug", True, "item 5"), ("save_mip", True, "item 5"),
-    ("save_tif", True, "item 5"),
-    ("sharded_devices", 2, None), ("engine", "numpy", "one engine")])
-def test_from_config_raises_on_what_is_not_ported(key, value, item):
-    """item None: the key is ported and accepted as given."""
-    if item is None:
-        assert getattr(VoteInstancesParams.from_config({key: value}),
-                       key) == value
+@pytest.mark.parametrize("key,value,refusal", [
+    ("vote_debug", True, None), ("save_mip", True, None),
+    ("save_tif", True, None), ("sharded_devices", 2, None),
+    ("engine", "numpy", "one engine")], ids=[
+    "vote_debug-True-item 5", "save_mip-True-item 5",
+    "save_tif-True-item 5", "sharded_devices-2-None",
+    "engine-numpy-one engine"])
+def test_from_config_raises_on_what_is_not_ported(key, value, refusal):
+    """Every [vote_instances] key of the JAX package is accepted as given,
+    as the JAX package's ``from_config`` takes it; only an engine other
+    than the device engines raises (the JAX package's host engine is the
+    port's CPU run)."""
+    if refusal is None:
+        got = VoteInstancesParams.from_config({key: value})
+        assert getattr(got, key) == value == getattr(
+            JParams.from_config({key: value}), key)
     else:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(NotImplementedError, match=refusal):
             VoteInstancesParams.from_config({key: value})
     VoteInstancesParams.from_config({"isbi_hack": True, "engine": "pallas",
                                      "only_bb": True, "sharded_devices": 0})
 
 
 def test_isbi_config_raises():
-    """The ISBI configs are accepted, with sharded_devices set on top too;
-    one raises only with a key that waits for a later slice (save_mip)."""
+    """The ISBI configs are accepted, with sharded_devices or the
+    visualization keys set on top too, each as the JAX package reads it."""
     cfg = config.load_config(os.path.join(REPO, "configs", "isbi2012.toml"))
     assert VoteInstancesParams.from_config(cfg["vote_instances"]).isbi_hack
     assert VoteInstancesParams.from_config(
         {**cfg["vote_instances"], "sharded_devices": -1}).sharded_devices \
         == -1
-    with pytest.raises(NotImplementedError, match="save_mip"):
-        VoteInstancesParams.from_config({**cfg["vote_instances"],
-                                         "save_mip": True})
+    vi = {**cfg["vote_instances"], "save_mip": True, "save_tif": True,
+          "vote_debug": True}
+    got, want = VoteInstancesParams.from_config(vi), JParams.from_config(vi)
+    assert got.save_mip and got.save_tif and got.vote_debug
+    for key in ("save_mip", "save_tif", "vote_debug", "isbi_hack",
+                "remove_small_comps"):
+        assert getattr(got, key) == getattr(want, key), key
 
 
 # -- the CLI end to end ------------------------------------------------------
@@ -414,17 +425,23 @@ LATER_TASKS = ["all", "cleanup", "cross_validate", "train", "validate",
 
 @pytest.mark.parametrize("task", LATER_TASKS)
 def test_later_tasks_raise(task, tmp_path):
-    """Tasks still to port raise, naming their ROADMAP.md item.  The
-    later slices' tasks on an experiment without checkpoints: validation
-    and cross validation score none, cleanup finds no checkpoint, and
+    """The later slices' tasks on an experiment without checkpoints:
+    validation and cross validation score none, cleanup and visualize find
+    no checkpoint (as the JAX CLI's visualize does; with ``--checkpoint``
+    both write nothing for an experiment without results), and
     ``--debug_args``' 10 steps under the config's 1,000-step warmup are
     refused, as optax's schedule refuses them."""
     cfg = os.path.join(REPO, "configs", "flylight_crop_dec.toml")
     argv = ["-c", cfg, "--root", str(tmp_path), "--device", "cpu",
             "-d", task]
-    if task in cli.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            cli.main(argv)
+    if task == "visualize":
+        jargv = ["-c", cfg, "--root", str(tmp_path / "jax"), "-d", task]
+        for main, args in ((cli.main, argv), (jcli.main, jargv)):
+            with pytest.raises(RuntimeError, match="no checkpoints"):
+                main(args)
+            paths = main(args + ["-id", "cp", "--checkpoint", "1"])
+            assert not glob.glob(os.path.join(paths["base"], "**", "*.png"),
+                                 recursive=True)
     elif task.startswith("validate"):
         paths = cli.main(argv)
         with open(os.path.join(paths["base"], "results.json")) as f:

@@ -338,15 +338,21 @@ def test_wrappers_2d_check_inputs(dev):
                                  C.ConsensusConfig(patchshape=(3, 3, 3)))
 
 
-@pytest.mark.parametrize("mode,n_slab,W", PR.CASES)
+@pytest.mark.parametrize("mode,n_slab,W", PR.CASES + (PR.OPT_IN_CASE,))
 def test_probe_kernel_matches_plain(dev, mode, n_slab, W):
+    """The probe's twelve cases and the one staging past 48 KB: within
+    1e-4 of the plain version (equal bits: the kernel sums in its order),
+    two launches equal."""
     x = torch.from_numpy(np.random.RandomState(0).rand(
-        8, PR.V, W).astype(np.float32)).to(dev)
+        max(8, n_slab + 1), PR.V, W).astype(np.float32)).to(dev)
     n0 = PR.PROBE.launches
     got = PR.probe_window(x, n_slab, mode)
     assert PR.PROBE.launches == n0 + 1
-    assert tuple(got.shape) == (8 - n_slab + 1, PR.V, W)
-    assert float((got - PR.probe_window_plain(x, n_slab)).abs().max()) < 1e-4
+    assert tuple(got.shape) == (x.shape[0] - n_slab + 1, PR.V, W)
+    want = PR.probe_window_plain(x, n_slab)
+    assert float((got - want).abs().max()) < 1e-4
+    assert torch.equal(got, want)
+    assert torch.equal(got, PR.probe_window(x, n_slab, mode))
 
 
 # -- the CLI on the card -----------------------------------------------------
@@ -421,6 +427,34 @@ def test_infer_fused_writes_the_label_keys(dev, crop_cli):
     keys = [_result(p).list_keys() for p in (label, fused)]
     assert keys[0] == keys[1] and "vote_instances" in keys[0]
     assert _result(fused).read(key="vote_instances").max() > 0
+
+
+def test_visualize_on_the_card(dev, crop_cli):
+    """``-d visualize`` with show_patches on the CLI's results, rendered on
+    the card: the PNGs read back equal the port's renders of the stored
+    map and of the stored affinities."""
+    from patchperpix_tpu_torch import cli
+    from patchperpix_tpu_torch.utils.io import IoZarr, read_png
+    from patchperpix_tpu_torch.visualize.instances import render_instances
+    from patchperpix_tpu_torch.visualize.patches import (mosaic_png,
+                                                         patch_mosaic)
+
+    label, _, _ = crop_cli
+    written = cli.main(["--root", os.path.dirname(label["base"]), "-id",
+                        label["expid"], "--run_from_exp", "--checkpoint",
+                        "1", "--set", "visualize.show_patches=true", "-d",
+                        "visualize"])
+    res = _result(label)
+    png = res.path[:-len(".zarr")] + ".png"
+    assert np.array_equal(read_png(png), render_instances(
+        res.read(key="vote_instances"), device=dev))
+    store = os.path.join(written["test_processed"], "1",
+                         os.path.basename(res.path))
+    affs = IoZarr(store).read(key="volumes/pred_affs").astype(np.float32)
+    mosaic = patch_mosaic(affs, (7, 7, 7), device=dev)
+    assert mosaic.shape == (350, 350)
+    assert np.array_equal(read_png(store[:-len(".zarr")] + "_patches.png"),
+                          mosaic_png(mosaic))
 
 
 # -- training -------------------------------------------------------------------

@@ -18,9 +18,11 @@ import os
 import shutil
 import textwrap
 
+import h5py
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from patchperpix_tpu import cli as jcli
 from patchperpix_tpu.assembly import isbi_hacks as jh
@@ -443,11 +445,50 @@ def test_evaluate_num_workers_2_equals_1(toy, cross_runs):
     assert len(out[1]) >= 3 and out[1] == out[2]
 
 
-def test_only_visualize_is_refused(toy):
-    assert set(cli.NOT_PORTED) == {"visualize"}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.main(_base(toy, "port") + ["-d", "visualize", "--device",
-                                       "cpu"])
+def test_only_visualize_is_refused(toy, cross_runs):
+    """Nothing is refused any more: ``visualize`` with show_patches through
+    both CLIs on the test split of the applied checkpoint writes the same
+    PNGs bit for bit (the two CLIs' maps are equal, and the mosaics come
+    from the shared prediction stores), each instance image the port's
+    render of its map."""
+    from patchperpix_tpu_torch.visualize.instances import render_instances
+
+    assert not hasattr(cli, "NOT_PORTED")
+    pngs = {}
+    for name, main, extra, ext in (("jax", jcli.main, [], ".hdf"),
+                                   ("port", cli.main, ["--device", "cpu"],
+                                    ".zarr")):
+        paths = cross_runs[name]["paths"]
+        cp = cross_runs[name]["res"]["val_data->test_data"]["best"][
+            "checkpoint"]
+        main(_base(toy, name) + ["--checkpoint", str(cp), "--set",
+                                 "visualize.show_patches=true",
+                                 "-d", "visualize"] + extra)
+        out = {}
+        for folder in (paths["test_instanced"], paths["test_processed"]):
+            for png in glob.glob(os.path.join(folder, str(cp), "*.png")):
+                out[os.path.basename(png)] = np.asarray(Image.open(png))
+        maps = {}
+        for res in glob.glob(os.path.join(paths["test_instanced"], str(cp),
+                                          "*" + ext)):
+            if ext == ".hdf":
+                with h5py.File(res, "r") as f:
+                    maps[os.path.basename(res)[:-4]] = f["vote_instances"][()]
+            else:
+                maps[os.path.basename(res)[:-5]] = tio.IoZarr(res).read(
+                    key="vote_instances")
+        pngs[name] = (out, maps)
+    (got, tmaps), (want, jmaps) = pngs["port"], pngs["jax"]
+    assert sorted(got) == sorted(want) and tmaps.keys() == jmaps.keys()
+    assert any(f.endswith("_patches.png") for f in got) and tmaps
+    for s in tmaps:
+        assert np.array_equal(tmaps[s], jmaps[s]), s
+    for f in got:
+        s = f[:-4]
+        assert np.array_equal(got[f], want[f]), f
+        if s in tmaps:
+            assert np.array_equal(got[f], render_instances(tmaps[s],
+                                                           device="cpu"))
 
 
 def test_device_sampler_2d_equals_host_sampler():

@@ -1,7 +1,8 @@
 """Host rehearsal of the consensus and rank CUDA kernels, 3D
 (``csrc/consensus.cu``, ``csrc/rank.cu``, with ``csrc/pack_codes.cuh``) and
 2D (``csrc/consensus2d.cu``, ``csrc/rank2d.cu``), with
-``csrc/fill_zero.cuh``: compiled by g++ against the small mock of the CUDA
+``csrc/fill_zero.cuh``, and of the row-window probe
+(``csrc/probe_window.cu``): compiled by g++ against the small mock of the CUDA
 headers in ``tests/cuda_mock/`` and run on the CPU, the grid as loops and
 one host thread per CUDA thread of a block, against their plain PyTorch
 versions at tiny shapes.
@@ -14,7 +15,9 @@ takes as plain loads) is left to ``tests/test_torch_cuda.py`` and
 
 Tolerances as for the kernels on the card: consensus 1e-4 absolute and
 relative (2^-7 relative for a bf16 half), rank 1e-3 absolute / 1e-4
-relative; the pack pass's words and planes are compared exactly.
+relative, the probe 1e-4 absolute (it sums in the plain version's order,
+so it is also held to equal bits); the pack pass's words and planes are
+compared exactly.
 """
 
 import ctypes
@@ -29,6 +32,7 @@ import torch
 
 from patchperpix_tpu_torch.ops import consensus as C
 from patchperpix_tpu_torch.ops import consensus_kernels as K
+from patchperpix_tpu_torch.ops import probe as PR
 from patchperpix_tpu_torch.ops._build import CSRC
 
 torch.set_num_threads(1)
@@ -93,7 +97,8 @@ def libs(tmp_path_factory):
                              ("consensus2d", "consensus2d", []),
                              ("rank2d", "rank2d", []),
                              ("rank2d_rounds", "rank2d",
-                              ["-DPPP_RANK_ITEMS_MIN=50"])):
+                              ["-DPPP_RANK_ITEMS_MIN=50"]),
+                             ("probe_window", "probe_window", [])):
         so = out / f"lib{name}_host.so"
         subprocess.run(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", *flags,
@@ -432,3 +437,64 @@ def test_host_kernels_on_a_gated_border_window(libs, bf16):
     want_acc = C.rank_acc_plain(hi, lo, half, cfg)
     assert not want_acc[torch.from_numpy(~cv)].any()
     torch.testing.assert_close(acc, want_acc, atol=1e-3, rtol=1e-4)
+
+
+def _probe_host(lib, x, n_slab, mode):
+    ZS, _, W = x.shape
+    out = torch.full((ZS - n_slab + 1, PR.V, W), 7.0)
+    fn = lib.ppp_probe_window
+    fn.argtypes = PR.PROBE.argtypes
+    fn.restype = ctypes.c_int
+    assert fn(_ptr(x), _ptr(out), ZS, W, n_slab, PR.MODES[mode], None) == 0
+    return out
+
+
+@pytest.mark.parametrize("mode,n_slab,W", PR.CASES + (PR.OPT_IN_CASE,))
+def test_probe_source_matches_plain_on_host(libs, mode, n_slab, W):
+    """The twelve cases of the probe and the one that stages past 48 KB:
+    every block of 128 columns (the last one ragged at W = 696 and 720)
+    against the plain version, bit for bit."""
+    x = PR.case_input(n_slab, W)
+    got = _probe_host(libs["probe_window"], x, n_slab, mode)
+    want = PR.probe_window_plain(x, n_slab)
+    assert float(want.abs().max()) > 10.0
+    assert float((got - want).abs().max()) < 1e-4
+    assert torch.equal(got, want)
+
+
+def test_probe_source_rejects_bad_arguments(libs):
+    x = torch.rand(4, PR.V, 40)
+    out = torch.empty(4, PR.V, 40)
+    fn = libs["probe_window"].ppp_probe_window
+    fn.argtypes = PR.PROBE.argtypes
+    fn.restype = ctypes.c_int
+    for ZS, n_slab, mode in ((4, 5, 0), (4, 0, 0), (4, 2, 2)):
+        assert fn(_ptr(x), _ptr(out), ZS, 40, n_slab, mode, None) != 0
+    assert PR.staged_bytes(PR.OPT_IN_CASE[1]) > 48 * 1024 \
+        > PR.staged_bytes(3)
+
+
+def test_cuda_kernel_binds_each_entry_point_once(libs, monkeypatch):
+    """``CudaKernel.bind`` looks a C function up and sets its types at the
+    first call only; later calls return the same function object, and a
+    binding of the same symbol elsewhere cannot change its types."""
+    from patchperpix_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "_loaded",
+                        {"probe_window": libs["probe_window"]})
+    kern = _build.CudaKernel("probe_window", "ppp_probe_window",
+                             PR.PROBE.argtypes, PR.PROBE.replaces)
+    fn = kern.bind(kern.symbol, kern.argtypes)
+    assert kern.bind(kern.symbol, kern.argtypes) is fn
+    other = libs["probe_window"].ppp_probe_window
+    other.argtypes, other.restype = None, ctypes.c_double
+    assert fn.argtypes == tuple(PR.PROBE.argtypes)
+    assert fn.restype is ctypes.c_int
+    x = PR.case_input(2, 40)
+    out = torch.empty(7, PR.V, 40)
+    assert fn(x.data_ptr(), out.data_ptr(), 8, 40, 2, 0, None) == 0
+    assert torch.equal(out, PR.probe_window_plain(x, 2))
+    msg = kern.bind("ppp_probe_window_error_string", [ctypes.c_int],
+                    ctypes.c_char_p)
+    assert msg(0) and kern.bind("ppp_probe_window_error_string",
+                                [ctypes.c_int]) is msg

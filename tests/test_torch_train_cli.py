@@ -252,7 +252,9 @@ def test_unsupported_config_goes_to_host_sampler(config_file, tmp_path):
 
 def test_refusals(config_file, tmp_path, monkeypatch):
     """``num_devices = 2`` is accepted (two CPU shards); a card asked for
-    without one and ``visualize`` still raise."""
+    without one still raises.  ``visualize`` (with show_patches) runs on
+    the trained checkpoint's test predictions and labels: each PNG is
+    the JAX package's render of the stored arrays."""
     from patchperpix_tpu_torch.parallel import sharded
 
     monkeypatch.setattr(sharded, "local_devices",
@@ -270,6 +272,32 @@ def test_refusals(config_file, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--config", config_file, "--root", str(tmp_path),
                       "-d", "all"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--config", config_file, "--root", str(tmp_path),
-                  "--device", "cpu", "-d", "visualize"])
+    from PIL import Image
+
+    from patchperpix_tpu.visualize.instances import render_instances
+    from patchperpix_tpu.visualize.patches import patch_mosaic
+
+    cli.main(["--config", config_file, "--root", str(tmp_path), "-id", "dp",
+              "--device", "cpu", "--checkpoint", "2",
+              "--set", "visualize.show_patches=true",
+              "-d", "predict", "label", "visualize"])
+    checked = 0
+    for res in sorted(os.listdir(os.path.join(paths["test_instanced"],
+                                              "2"))):
+        if not res.endswith(".zarr"):
+            continue
+        s = res[:-5]
+        inst = tio.IoZarr(os.path.join(paths["test_instanced"], "2",
+                                       res)).read(key="vote_instances")
+        affs = tio.IoZarr(os.path.join(paths["test_processed"], "2",
+                                       res)).read(key="volumes/pred_affs")
+        mosaic = patch_mosaic(affs.astype(np.float32), (1, 5, 5))
+        for png, want in (
+                (os.path.join(paths["test_instanced"], "2", s + ".png"),
+                 render_instances(inst)),
+                (os.path.join(paths["test_processed"], "2",
+                              s + "_patches.png"),
+                 (np.clip(mosaic, 0, 1) * 255).astype(np.uint8))):
+            assert np.array_equal(np.asarray(Image.open(png)), want), png
+            checked += 1
+    assert checked == 4

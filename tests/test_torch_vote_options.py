@@ -315,13 +315,18 @@ def test_components_to_instances_multichannel(multi):
 
 
 def test_from_config_refuses_only_what_waits():
-    assert set(tvi._NOT_PORTED) == {"save_mip", "save_tif", "vote_debug"}
-    for key, value in (("save_mip", True), ("save_tif", True),
-                       ("vote_debug", True)):
-        with pytest.raises(NotImplementedError, match="item"):
-            tvi.VoteInstancesParams.from_config({key: value})
-    assert tvi.VoteInstancesParams.from_config(
-        {"sharded_devices": 2}).sharded_devices == 2
+    """Nothing waits any more: every [vote_instances] key of the JAX
+    package but ``engine`` is a parameter of the port, read as the JAX
+    package reads it; only a host engine raises."""
+    assert not hasattr(tvi, "_NOT_PORTED")
+    cfg = {"save_mip": True, "save_tif": True, "vote_debug": True,
+           "sharded_devices": 2, "remove_small_comps": 5}
+    got = tvi.VoteInstancesParams.from_config(cfg)
+    want = jvi.VoteInstancesParams.from_config(cfg)
+    for key in cfg:
+        assert getattr(got, key) == getattr(want, key) == cfg[key], key
+    with pytest.raises(NotImplementedError, match="one engine"):
+        tvi.VoteInstancesParams.from_config({"engine": "numpy"})
     jf = {f.name for f in dataclasses.fields(jvi.VoteInstancesParams)}
     tf = {f.name for f in dataclasses.fields(tvi.VoteInstancesParams)}
-    assert jf - tf == set(tvi._NOT_PORTED) | {"engine"}
+    assert jf - tf == {"engine"}
