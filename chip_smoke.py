@@ -897,15 +897,52 @@ def bound_ms(nbytes, ops):
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def run_probe(dev):
-    """Phase probe: the twelve cases and the one staging past 48 KB through
-    the probe's entry point, then the case W = 768, n_slab = 3 timed
-    against its plain version and against the one PyTorch call that
-    computes the same sums (a convolution along the row axis with the
-    weights s + 1)."""
+PROBE_CASE = (3, 768)   # n_slab, W of the probe's timed case
+PROBE_ROUNDS = 25       # tens of microseconds a call, most of it host work:
+                        # medians of 50
+
+
+def probe_timed_case(PR, dev):
+    """The probe's timed case (``PROBE_CASE``) on ``dev``: its seeded
+    input, the plain version's result, and the callables that are timed:
+    the kernel in each mode, the plain version, and the one PyTorch call
+    that computes the same sums (a convolution along the row axis with
+    the weights s + 1).  ``PR`` is a checkout's ``ops/probe`` module."""
     import torch
     import torch.nn.functional as F
 
+    n_slab, W = PROBE_CASE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((8, PR.V, W), generator=gen, device=dev)
+    n_out, n_start = 8 - n_slab + 1, (n_slab - 1) * PR.V
+    k = torch.arange(1, n_start + 1, dtype=torch.float32,
+                     device=dev).reshape(1, 1, n_start, 1)
+    fns = {"plain": lambda: PR.probe_window_plain(x, n_slab),
+           "smem": lambda: PR.probe_window_cuda(x, n_slab, "smem"),
+           "gmem": lambda: PR.probe_window_cuda(x, n_slab, "gmem"),
+           "library": lambda: F.conv2d(x.reshape(1, 1, 8 * PR.V, W), k)[
+               0, 0, :n_out * PR.V].reshape(n_out, PR.V, W)}
+    return x, fns["plain"](), fns
+
+
+def probe_times(fns, dev, rounds=PROBE_ROUNDS) -> dict:
+    """ms of one call of each of ``probe_timed_case``'s callables, as
+    ``time_pair`` times them (medians of 2 * rounds calls): each kernel
+    in turns with the library call, so that both are timed beside the
+    same work (a call timed after the plain version's many small
+    launches reads slower), and the plain version alone."""
+    ms, lib = time_pair(fns["library"], fns["smem"], dev, rounds)
+    gmem, lib2 = time_pair(fns["library"], fns["gmem"], dev, rounds)
+    _, plain = time_pair(fns["plain"], lambda: None, dev, rounds)
+    return {"ms": ms, "gmem_ms": gmem, "plain_ms": plain, "library_ms": lib,
+            "library_ms_beside_gmem": lib2}
+
+
+def run_probe(dev):
+    """Phase probe: the twelve cases and the one staging past 48 KB through
+    the probe's entry point, then the case W = 768, n_slab = 3 timed
+    against its plain version and against the library call
+    (``probe_timed_case``, ``probe_times``)."""
     from patchperpix_tpu_torch.ops import probe as PR
 
     PR.PROBE.launches = 0
@@ -914,28 +951,16 @@ def run_probe(dev):
     emit({"phase": "probe", "launches": launches, "cases": cases})
     if not all(c["ok"] for c in cases) or launches != len(PR.CASES) + 1:
         raise AssertionError("the row-window probe failed")
-    n_slab, W = 3, 768
-    x = torch.rand((8, PR.V, W), device=dev)
-    n_out, n_start = 8 - n_slab + 1, (n_slab - 1) * PR.V
-    k = torch.arange(1, n_start + 1, dtype=torch.float32,
-                     device=dev).reshape(1, 1, n_start, 1)
-
-    def library():
-        return F.conv2d(x.reshape(1, 1, 8 * PR.V, W), k)[
-            0, 0, :n_out * PR.V].reshape(n_out, PR.V, W)
-
-    want = PR.probe_window_plain(x, n_slab)
-    err = float((PR.probe_window_cuda(x, n_slab, "smem") - want).abs().max())
-    if not float((library() - want).abs().max()) < 1e-3:
+    x, want, fns = probe_timed_case(PR, dev)
+    err = float((fns["smem"]() - want).abs().max())
+    if not float((fns["library"]() - want).abs().max()) < 1e-3:
         raise AssertionError("the probe's library yardstick disagrees")
-    # tens of microseconds a call, most of it host work: medians of 100
-    ms, plain = time_pair(lambda: PR.probe_window_plain(x, n_slab),
-                          lambda: PR.probe_window_cuda(x, n_slab, "smem"),
-                          dev, rounds=25)
-    lib_ms, _ = time_pair(lambda: None, library, dev, rounds=25)
+    t = probe_times(fns, dev)
+    n_start = (PROBE_CASE[0] - 1) * PR.V
     nbytes = 4 * (x.numel() + want.numel())
-    row = kernel_row(PR.PROBE, err, ms, plain,
-                     bound_ms(nbytes, 2 * n_start * want.numel()), lib_ms)
+    row = kernel_row(PR.PROBE, err, t["ms"], t["plain_ms"],
+                     bound_ms(nbytes, 2 * n_start * want.numel()),
+                     t["library_ms"])
     row["launches"] = launches
     return row
 
@@ -1781,10 +1806,12 @@ def run_visualize(ctx, dev, kernels, kernels2d):
             "--set", "vote_instances.vote_debug=true",
             "--set", "vote_instances.save_mip=true",
             "--set", "vote_instances.save_tif=true"])):
-        before = {k.name: k.launches for k in kernels}
+        for k in kernels:
+            k.launches = 0
         cli.main(argv + ["--set", f"vote_instances.res_key={key}"] + extra
                  + ["-d", "label"])
-        runs[key] = {k.name: k.launches - before[k.name] for k in kernels}
+        phase = key.replace("viz_", "visualize_")
+        runs[phase] = count_launches(phase, kernels)
     t["c_labels"] = time.perf_counter() - t0
     res = IoZarr(res_path)
     maps = {k: res.read(key=k) for k in ("vote_instances", "viz_plain",
@@ -1794,8 +1821,7 @@ def run_visualize(ctx, dev, kernels, kernels2d):
     mips = [read_png(os.path.join(inst_dir, sample + f))
             for f in (".png", "_cleaned.png")]
     side = VIZ_PS[1] * inst.shape[1]
-    c = {"launches_by_run": runs,
-         "map_equal_plain": bool(np.array_equal(maps["viz_debug"],
+    c = {"map_equal_plain": bool(np.array_equal(maps["viz_debug"],
                                                 maps["viz_plain"])),
          "map_equal_cli": bool(np.array_equal(maps["viz_debug"],
                                               maps["vote_instances"])),
@@ -1856,10 +1882,7 @@ def run_visualize(ctx, dev, kernels, kernels2d):
             and all(v > 0 for v in d["canvas_nonzero"].values())
             and all(v == 1 for v in launches2d.values()))
     t["d_2d"] = time.perf_counter() - t0
-    launches = {k.name: sum(r[k.name] for r in runs.values())
-                for k in kernels}
-    LAUNCHES["visualize"] = launches
-    emit({"phase": "visualize", "launches": launches, "a": a, "b": b,
+    emit({"phase": "visualize", "launches": runs, "a": a, "b": b,
           "c": c, "d": d, "seconds": t,
           "phase_wall_s": time.perf_counter() - t_phase})
     if not (a["instance_png_equal"] and a["patches_png_equal"]):
@@ -3575,7 +3598,9 @@ def emit_roofline(tag, run, cfg, dev):
     peaks = R.chip_peaks(dev)
     t = run["times"]
     vol = run["fg"].shape
-    cc, rc = R.consensus_cost(vol, VIZ_PS), R.rank_cost(vol, VIZ_PS)
+    ps, cons_bf16 = tuple(cfg.patchshape), vote_params().consensus_bf16
+    cc = R.consensus_cost(vol, ps, cons_bf16)
+    rc = R.rank_cost(vol, ps, cons_bf16)
     assemble = sum(t[k] for k in ASSEMBLY_STAGES if k in t)
     unet = R.unet_cost(WIN, cfg.num_fmaps, cfg.fmap_inc_factors[0],
                        len(cfg.downsample_factors) + 1, cfg.num_channels)
@@ -3587,9 +3612,9 @@ def emit_roofline(tag, run, cfg, dev):
               R.KernelCost(cc.flops + rc.flops, cc.hbm_bytes + rc.hbm_bytes,
                            "fp32"), assemble, peaks),
           "assembly_mfu_summary": R.assembly_mfu_summary(
-              vol, VIZ_PS, len(run["inter"]["pairs"]),
+              vol, ps, len(run["inter"]["pairs"]),
               {k: t[k] for k in ("consensus", "rank", "graph")},
-              peaks=peaks),
+              cons_bf16=cons_bf16, peaks=peaks),
           "unet_forward_vs_predict": R.analyze(unet, t["predict"], peaks)})
 
 

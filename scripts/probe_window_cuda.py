@@ -6,20 +6,19 @@ run-time start out of n_slab stacked 8-row slabs, staged in shared memory
 use) against its plain PyTorch version.  Prints one line per case and
 exits non-zero on a mismatch.
 
-With ``--time`` it times the case W = 768, n_slab = 3 instead, in both
-modes, against the plain version and against ``F.conv2d`` along the rows
-(the one PyTorch call that computes the same sums): ``call_ms``, CUDA
-events around one call of the wrapper as ``chip_smoke.py``'s probe phase
-times it (medians of ``--rounds`` turns plain, kernel, kernel, plain), and
-``loop_ms``, events around ``--loop`` calls in a row over their count
-(the card's time per call once the host keeps ahead).  ``--root DIR``
-times the package of another checkout (an earlier commit unpacked with
-``git archive``), whose wrappers take the same arguments.  Prints the
-card's name and power limit, then one JSON line.
+With ``--time`` it times the case W = 768, n_slab = 3 instead, with the
+probe phase's own harness (``chip_smoke.probe_timed_case`` and
+``probe_times``: CUDA events around one call of the kernel in each mode
+in turns with ``F.conv2d`` along the rows, and of the plain version), at
+medians of 4 and of 50 calls, and takes the card's own time per call of
+each from a ``torch.profiler`` trace of 50 calls
+(``time_kernels_3d.device_ms``).  ``--root DIR`` times the package of
+another checkout (an earlier commit unpacked with ``git archive``), whose
+wrappers take the same arguments, with this checkout's harness.  Prints
+the card's name and power limit, then one JSON line.
 
 Run: python scripts/probe_window_cuda.py [cpu]
-     python scripts/probe_window_cuda.py --time [--rounds N] [--loop N]
-                                         [--root DIR]
+     python scripts/probe_window_cuda.py --time [--root DIR]
      (``cpu`` runs the plain version against itself, a dry run of the
      script where there is no GPU)
 """
@@ -27,11 +26,13 @@ Run: python scripts/probe_window_cuda.py [cpu]
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# medians of 4 calls (time_pair's default) and of 50 (the probe phase's)
+ROUNDS = (2, 25)
+TRACED = 50        # profiled calls of each
 
 
 def check(device) -> int:
@@ -47,9 +48,15 @@ def check(device) -> int:
     return 1 if bad else 0
 
 
-def timed(rounds: int, loop: int, root: str) -> int:
+def timed(root: str) -> int:
+    # this checkout's harness, whatever package is timed
+    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import chip_smoke as cs
+    import time_kernels_3d as tk
+    sys.path.insert(0, root)
+
     import torch
-    import torch.nn.functional as F
 
     from patchperpix_tpu_torch.ops import probe as PR
 
@@ -60,47 +67,17 @@ def timed(rounds: int, loop: int, root: str) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    n_slab, W = 3, 768
-    x = torch.rand((8, PR.V, W), device=dev)
-    n_out, n_start = 8 - n_slab + 1, (n_slab - 1) * PR.V
-    k = torch.arange(1, n_start + 1, dtype=torch.float32,
-                     device=dev).reshape(1, 1, n_start, 1)
-    fns = {
-        "plain": lambda: PR.probe_window_plain(x, n_slab),
-        "smem": lambda: PR.probe_window_cuda(x, n_slab, "smem"),
-        "gmem": lambda: PR.probe_window_cuda(x, n_slab, "gmem"),
-        "conv2d": lambda: F.conv2d(x.reshape(1, 1, 8 * PR.V, W), k)[
-            0, 0, :n_out * PR.V].reshape(n_out, PR.V, W),
-    }
-    want = fns["plain"]()
-    err = {m: float((fns[m]() - want).abs().max())
-           for m in ("smem", "gmem", "conv2d")}
-
-    def events(fn, n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize(dev)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize(dev)
-        return start.elapsed_time(end) / n
-
-    for fn in fns.values():          # warm-up: builds, cuDNN's choice
-        events(fn, 3)
-    call = {m: [] for m in fns}
-    for _ in range(rounds):
-        for m in ("plain", "smem", "gmem", "conv2d", "conv2d", "gmem",
-                  "smem", "plain"):
-            call[m].append(events(fns[m], 1))
-    loop_ms = {m: events(fns[m], loop if m != "plain" else 5) for m in fns}
-    out = {"root": os.path.relpath(os.path.abspath(root), REPO),
-           "case": {"n_slab": n_slab, "W": W}, "max_abs_err": err,
-           "call_ms": {m: statistics.median(v) for m, v in call.items()},
-           "call_ms_min": {m: min(v) for m, v in call.items()},
-           "loop_ms": loop_ms, "rounds": rounds, "loop": loop,
-           "bytes": 4 * (x.numel() + want.numel())}
+    x, want, fns = cs.probe_timed_case(PR, dev)
+    timed_fns = ("smem", "gmem", "library")
+    err = {m: float((fns[m]() - want).abs().max()) for m in timed_fns}
+    out = {"root": os.path.relpath(root, REPO),
+           "case": dict(zip(("n_slab", "W"), cs.PROBE_CASE)),
+           "max_abs_err": err, "bytes": 4 * (x.numel() + want.numel())}
+    for rounds in ROUNDS:
+        out[f"medians_of_{2 * rounds}"] = cs.probe_times(fns, dev, rounds)
+    traced = {m: tk.device_ms(fns[m], dev, TRACED) for m in timed_fns}
+    out["device_ms"] = {m: sum(v.values()) for m, v in traced.items()}
+    out["device_ms_by_kernel"] = traced
     print(json.dumps(out), flush=True)
     return 0
 
@@ -109,13 +86,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("cpu", nargs="?")
     ap.add_argument("--time", action="store_true")
-    ap.add_argument("--rounds", type=int, default=20)
-    ap.add_argument("--loop", type=int, default=200)
     ap.add_argument("--root", default=REPO)
     args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.root))
     if args.time:
-        return timed(args.rounds, args.loop, args.root)
+        return timed(os.path.abspath(args.root))
+    sys.path.insert(0, REPO)
     return check("cpu" if args.cpu == "cpu" else "cuda")
 
 
