@@ -12,7 +12,8 @@ assembles them (pt 0.6, fc 0.5, mws); then inst[~fg] = 0 and components
 under 400 voxels go.  Phases, each printed as one JSON line:
 
 1. device: the card, and nvidia-smi's name and power limit (also printed
-   alone on its own line);
+   alone on its own line); then the libraries the blosc decoder binds
+   (libzstd.so.1, liblz4.so.1 and their version numbers, or null);
 2. build: nvcc of every source under csrc/ (five kernels), in parallel,
    and g++ of the host thinning (native/thinning.cpp) beside them;
 3. f32 main path (TF32 off): a warm-up run, then the counted run with
@@ -99,7 +100,13 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    phase 4's limits on the map, the skeleton of the mask to cover equal
    bit for bit (the port's thinning of the stored foreground always; the
    run's own when its foreground equals the stored one), |avg_f1_cov -
-   the JAX run's| <= 0.01; K1 and K2 launched within the CLI run.  Then
+   the JAX run's| <= 0.01; K1 and K2 launched within the CLI run; then
+   ``postprocess``.  The results are ``<sample>.hdf`` (``IoHDF5``): every
+   array the run gave ``IoHDF5`` to write, read back from its file, equal
+   bit for bit, with the write and read seconds; and the JAX package's
+   own result file of the same chain (parity/torch_port_jax_result.hdf,
+   written by h5py) through the port's ``evaluate``: its metric dict
+   (|avg_f1_cov - JAX's| <= 0.01, equal instance counts).  Then
    phase visualize on that f32 experiment (``run_visualize``): (a) ``-d
    visualize`` with show_patches, each PNG read back with the port's
    reader equal to the port's render of the stored arrays; (b) the port's
@@ -145,9 +152,11 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    label), and ``train`` resumed to 600 with the Adam state read back
    (update count 400, then 600); seconds per task and per checkpoint;
 13. isbi: the ISBI 2012 protocol, configs/isbi_rehearsal.toml as users run
-   it on the stand-in data (data/synth_isbi_zlib, the zlib copy of
-   data/synth_isbi), against the JAX package's CPU runs in
-   parity/torch_port_isbi_ref_f32.*: (a) ``to_instance_seg`` on the ideal
+   it on the stand-in data data/synth_isbi as the JAX package wrote it
+   (blosc: zstd, bitshuffle), against the JAX package's CPU runs in
+   parity/torch_port_isbi_ref_f32.*: first its 20 arrays read by the port
+   equal bit for bit to the zlib copy data/synth_isbi_zlib, with the
+   decode seconds; (a) ``to_instance_seg`` on the ideal
    25x25 affinities of both test samples at 512^2 (94 % foreground):
    maps identical up to relabelling, the same candidate count, metric
    dicts equal, K3 / K4 launched once each; then K3 / K4 against their
@@ -232,6 +241,9 @@ BW_REF_JSON = os.path.join(REPO, "parity",
 CLI_CONFIG = os.path.join(REPO, "configs", "flylight_crop_dec.toml")
 CLI_REF_NPZ = os.path.join(REPO, "parity", "torch_port_cli_ref_f32.npz")
 CLI_REF_JSON = os.path.join(REPO, "parity", "torch_port_cli_ref_f32.json")
+# the JAX package's own result file of that chain (h5py) and its metric dict
+JAX_RESULT = os.path.join(REPO, "parity", "torch_port_jax_result.hdf")
+JAX_RESULT_JSON = os.path.join(REPO, "parity", "torch_port_jax_result.json")
 BF16_REF_JSON = os.path.join(REPO, "parity", "torch_port_ref_bf16.json")
 CLI_STEP = 1
 WIN = (52, 52, 52)
@@ -313,13 +325,15 @@ TRAIN_RUN_WIDTHS = {"num_fmaps": 4, "ae_num_fmaps": (8, 16)}
 TRAIN_RUN_ABOVE, TRAIN_RUN_BELOW = 0.05, 0.15
 
 # the isbi phase: the ISBI 2012 protocol (configs/isbi_rehearsal.toml, the
-# way users run it) on the stand-in data, data/synth_isbi in the zlib copy
-# the port's store reads (scripts/export_torch_fixtures.py --isbi), held
-# against the JAX package's CPU runs in parity/torch_port_isbi_ref_f32.*;
-# the full-width configs/isbi2012.toml model beside it
+# way users run it) on the stand-in data, data/synth_isbi as the JAX
+# package wrote it (blosc), first held bit for bit against its zlib copy
+# (scripts/export_torch_fixtures.py --isbi), then against the JAX
+# package's CPU runs in parity/torch_port_isbi_ref_f32.*; the full-width
+# configs/isbi2012.toml model beside it
 ISBI_CONFIG = os.path.join(REPO, "configs", "isbi_rehearsal.toml")
 ISBI2012_CONFIG = os.path.join(REPO, "configs", "isbi2012.toml")
-ISBI_DATA = os.path.join(REPO, "data", "synth_isbi_zlib")
+ISBI_DATA = os.path.join(REPO, "data", "synth_isbi")
+ISBI_ZLIB = os.path.join(REPO, "data", "synth_isbi_zlib")
 ISBI_REF_NPZ = os.path.join(REPO, "parity", "torch_port_isbi_ref_f32.npz")
 ISBI_REF_JSON = os.path.join(REPO, "parity", "torch_port_isbi_ref_f32.json")
 ISBI_REHEARSAL = os.path.join(REPO, "parity", "isbi_rehearsal")
@@ -417,7 +431,7 @@ def isbi_eval_kwargs():
 
 def isbi_gt(sample, split="test"):
     """(1, 512, 512) int32 ground truth of one stand-in sample, read from
-    the zlib copy by the port's store (numpy, json and zlib)."""
+    the blosc data by the port's store (``utils/blosc.py``)."""
     import numpy as np
 
     from patchperpix_tpu_torch.utils.io import IoZarr
@@ -521,7 +535,7 @@ def isbi_sampler_config(data_mod, path=ISBI_CONFIG):
 
 def isbi_cli_override(work):
     """An override of the rehearsal config, written into ``work``: the
-    model in float32 and the data folders on the zlib copy."""
+    model in float32 and the data folders on the stand-in data."""
     path = os.path.join(work, "override.toml")
     with open(path, "w") as f:
         f.write('[model]\ndtype = "float32"\n[data]\n' + "".join(
@@ -555,6 +569,59 @@ def isbi_forward_positions(shape):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+class HdfWrites:
+    """While entered, records the last array ``IoHDF5`` was given for each
+    (file, key), whole as it will be written, and the seconds and count of
+    the ``close()`` calls that write a file (encode and write it);
+    ``check()`` reads every recorded key back from its file."""
+
+    def __init__(self):
+        from patchperpix_tpu_torch.utils import io as tio
+
+        self.cls = tio.IoHDF5
+        self.real = (self.cls.write, self.cls.close)
+        self.arrays, self.close_s, self.closes = {}, 0.0, 0
+
+    def __enter__(self):
+        real_write, real_close = self.real
+
+        def write(io, out, bb=None, *, key, attrs=None):
+            real_write(io, out, bb, key=key, attrs=attrs)
+            self.arrays[(os.path.abspath(io.path), key.strip("/"))] = \
+                io.read(key=key)
+
+        def close(io):
+            writing = io._dirty and io.mode != "r"
+            t0 = time.perf_counter()
+            real_close(io)
+            if writing:
+                self.close_s += time.perf_counter() - t0
+                self.closes += 1
+
+        self.cls.write, self.cls.close = write, close
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.write, self.cls.close = self.real
+
+    def check(self) -> dict:
+        import numpy as np
+
+        t0 = time.perf_counter()
+        equal = {}
+        for (path, key), want in self.arrays.items():
+            io = self.cls(path)
+            got = io.read(key=key)
+            io.close()
+            equal[f"{os.path.basename(path)}:{key}"] = bool(
+                got.dtype == want.dtype and np.array_equal(got, want))
+        return {"keys_equal": equal, "write_s": self.close_s,
+                "files_written": self.closes,
+                "read_back_s": time.perf_counter() - t0,
+                "bytes": sum(os.path.getsize(p)
+                             for p in {p for p, _ in self.arrays})}
 
 
 # {phase: {kernel name: launches}} of every counted run, for the kernels line
@@ -1761,7 +1828,7 @@ def run_visualize(ctx, dev, kernels, kernels2d):
     from patchperpix_tpu_torch import cli
     from patchperpix_tpu_torch.assembly import VoteInstancesParams
     from patchperpix_tpu_torch.assembly import vote_instances as TV
-    from patchperpix_tpu_torch.utils.io import (IoZarr, read_png,
+    from patchperpix_tpu_torch.utils.io import (IoHDF5, IoZarr, read_png,
                                                 read_tif)
     from patchperpix_tpu_torch.visualize import instances as VI
     from patchperpix_tpu_torch.visualize import patches as VP
@@ -1771,14 +1838,14 @@ def run_visualize(ctx, dev, kernels, kernels2d):
     argv, sample = ctx["argv"] + ["-id", "f32"], ctx["sample"]
     inst_dir = os.path.join(ctx["paths"]["test_instanced"], str(CLI_STEP))
     proc_dir = os.path.join(ctx["paths"]["test_processed"], str(CLI_STEP))
-    res_path = os.path.join(inst_dir, sample + ".zarr")
+    res_path = os.path.join(inst_dir, sample + ".hdf")
 
     # (a) the visualize task on the cli phase's results
     t0 = time.perf_counter()
     cli.main(argv + ["--set", "visualize.show_patches=true", "-d",
                      "visualize"])
     t["a_visualize_task"] = time.perf_counter() - t0
-    inst = IoZarr(res_path).read(key="vote_instances")
+    inst = IoHDF5(res_path).read(key="vote_instances")
     affs = IoZarr(os.path.join(proc_dir, sample + ".zarr")).read(
         key="volumes/pred_affs").astype(np.float32)
     png_inst = read_png(os.path.join(inst_dir, sample + ".png"))
@@ -1813,7 +1880,7 @@ def run_visualize(ctx, dev, kernels, kernels2d):
         phase = key.replace("viz_", "visualize_")
         runs[phase] = count_launches(phase, kernels)
     t["c_labels"] = time.perf_counter() - t0
-    res = IoZarr(res_path)
+    res = IoHDF5(res_path)
     maps = {k: res.read(key=k) for k in ("vote_instances", "viz_plain",
                                          "viz_debug")}
     canvases = {k: res.read(key=k) for k in ("vote_debug", "vote_debug2")}
@@ -1863,7 +1930,7 @@ def run_visualize(ctx, dev, kernels, kernels2d):
     res2 = TV.do_all(store, vp, os.path.join(ctx["work"], "viz2d", "inst"),
                      device=dev)
     launches2d = count_launches("visualize_2d", kernels2d)
-    res2 = IoZarr(res2)
+    res2 = IoHDF5(res2)
     plain2, _ = TV.to_instance_seg(affs2, fg, fg.copy(), fg.astype(np.uint8),
                                    VoteInstancesParams(**PATH2D["A"]),
                                    device=dev)
@@ -1897,6 +1964,63 @@ def run_visualize(ctx, dev, kernels, kernels2d):
         raise AssertionError(f"visualize (d) failed: {d}")
 
 
+def cli_hdf(writes, inst, rm, attrs, argv, exps, sample, want_rm):
+    """Phase cli's HDF5 results: every array of the f32 run's result
+    file read back equal to what the run gave ``IoHDF5`` (the map, the
+    foreground, the masked and dilated maps, postprocess's
+    ``vote_instances_rm_60``), the JAX package's ``offset`` /
+    ``resolution`` attributes; then the JAX package's own result file of
+    the same chain through the port's ``evaluate``: its metric dict
+    (|avg_f1_cov - JAX's| <= 0.01, equal instance counts)."""
+    import shutil
+
+    import numpy as np
+
+    from patchperpix_tpu_torch import cli
+    from patchperpix_tpu_torch.utils.io import IoHDF5
+
+    back = writes.check()
+    jax_meta = json.load(open(JAX_RESULT_JSON))
+    inst_dir = os.path.join(cli.create_folders(exps, "jax_result")[
+        "test_instanced"], str(CLI_STEP))
+    os.makedirs(inst_dir, exist_ok=True)
+    shutil.copyfile(JAX_RESULT, os.path.join(inst_dir, sample + ".hdf"))
+    t0 = time.perf_counter()
+    paths = cli.main(argv + ["-id", "jax_result", "-d", "evaluate"])
+    eval_s = time.perf_counter() - t0
+    got = json.load(open(os.path.join(paths["test_evaluated"],
+                                      str(CLI_STEP), sample + ".json")))
+    want = jax_meta["metrics"]
+    out = {"phase": "cli_hdf", **back,
+           "rm_60_equal": bool(rm.dtype == np.uint16
+                               and np.array_equal(rm, want_rm)),
+           "attrs": {k: np.asarray(v).tolist() for k, v in attrs.items()},
+           "jax_result": {
+               "evaluate_s": eval_s,
+               "avg_f1_cov_score": got["general"]["avg_f1_cov_score"],
+               "jax_avg_f1_cov_score": want["general"]["avg_f1_cov_score"],
+               "num_pred": got["general"]["Num Pred"],
+               "jax_num_pred": want["general"]["Num Pred"],
+               "jax_n_instances": jax_meta["n_instances"],
+               "n_instances_read": n_instances(IoHDF5(JAX_RESULT).read(
+                   key=jax_meta["res_key"])),
+               "metrics_equal": got == want}}
+    emit(out)
+    j = out["jax_result"]
+    if not (back["keys_equal"] and all(back["keys_equal"].values())):
+        raise AssertionError(f"cli: an .hdf result read back differs: "
+                             f"{back['keys_equal']}")
+    if not out["rm_60_equal"] or out["attrs"] != {
+            "offset": [0, 0, 0], "resolution": [1, 1, 1]}:
+        raise AssertionError(f"cli: postprocess's key or the attributes "
+                             f"differ: {out}")
+    if abs(j["avg_f1_cov_score"] - j["jax_avg_f1_cov_score"]) > 0.01 or \
+            j["num_pred"] != j["jax_num_pred"] or \
+            j["n_instances_read"] != j["jax_n_instances"]:
+        raise AssertionError(f"cli: the JAX result through the port's "
+                             f"evaluate: {j}")
+
+
 def run_cli(dev, kernels, then=None):
     """Phase cli: the reference CLI's predict -> decode -> label ->
     evaluate through the port's CLI on the crop, gated against the JAX
@@ -1910,7 +2034,9 @@ def run_cli(dev, kernels, then=None):
     from patchperpix_tpu_torch import cli, weights
     from patchperpix_tpu_torch.assembly import vote_instances as TV
     from patchperpix_tpu_torch.evaluate import instance_metrics as TM
-    from patchperpix_tpu_torch.utils.io import IoZarr
+    from patchperpix_tpu_torch.utils.io import IoHDF5
+    from patchperpix_tpu_torch.utils.postprocess import (
+        relabel, remove_small_components)
     from patchperpix_tpu_torch.utils.skeleton import skeletonize
 
     t_phase = time.perf_counter()
@@ -1971,13 +2097,18 @@ def run_cli(dev, kernels, then=None):
                 "--checkpoint", str(CLI_STEP)]
         for k in kernels:
             k.launches = 0
-        paths = cli.main(argv + ["-id", "f32", "-d", "mknet", "predict",
-                                 "decode", "label", "evaluate"])
+        with HdfWrites() as writes:
+            paths = cli.main(argv + ["-id", "f32", "-d", "mknet", "predict",
+                                     "decode", "label", "evaluate",
+                                     "postprocess"])
         launches = count_launches("cli_f32", kernels)
-        res = IoZarr(os.path.join(paths["test_instanced"], str(CLI_STEP),
-                                  sample + ".zarr"))
+        res = IoHDF5(os.path.join(paths["test_instanced"], str(CLI_STEP),
+                                  sample + ".hdf"))
         inst = res.read(key="vote_instances")
         fg = res.read(key="vote_foreground") > 0
+        rm = res.read(key="vote_instances_rm_60")
+        attrs = res.attrs("vote_instances")
+        res.close()
         metrics = json.load(open(os.path.join(
             paths["test_evaluated"], str(CLI_STEP), sample + ".json")))
         ref = np.load(CLI_REF_NPZ)
@@ -2037,6 +2168,8 @@ def run_cli(dev, kernels, then=None):
         if abs(score - meta["avg_f1_cov_score"]) > 0.01:
             raise AssertionError(f"cli avg_f1_cov {score} vs the JAX run's "
                                  f"{meta['avg_f1_cov_score']}")
+        cli_hdf(writes, inst, rm, attrs, argv, exps, sample,
+                relabel(remove_small_components(inst, 60)))
         f32_tasks, f32_skel = dict(task_s), {
             k: [sum(t for t, _ in v), len(v)] for k, v in skel.items()}
         if then is not None:
@@ -2058,8 +2191,8 @@ def run_cli(dev, kernels, then=None):
                                  "evaluate"])
         metrics16 = json.load(open(os.path.join(
             paths["test_evaluated"], str(CLI_STEP), sample + ".json")))
-        inst16 = IoZarr(os.path.join(
-            paths["test_instanced"], str(CLI_STEP), sample + ".zarr")).read(
+        inst16 = IoHDF5(os.path.join(
+            paths["test_instanced"], str(CLI_STEP), sample + ".hdf")).read(
                 key="vote_instances")
         tpu = tpu_figures()
         emit({"phase": "cli", "run": "bf16 infer_fused evaluate",
@@ -2375,7 +2508,7 @@ def run_train_all(dev_args, kernels, work, phase="train_all",
     import numpy as np
 
     from patchperpix_tpu_torch import cli, weights
-    from patchperpix_tpu_torch.utils.io import IoZarr
+    from patchperpix_tpu_torch.utils.io import IoHDF5
 
     override = crop_override(
         work, phase + ".toml",
@@ -2434,8 +2567,8 @@ def run_train_all(dev_args, kernels, work, phase="train_all",
     with open(os.path.join(paths["test_evaluated"], str(last),
                            sample + ".json")) as f:
         final = json.load(f)
-    inst = IoZarr(os.path.join(paths["test_instanced"], str(last),
-                               sample + ".zarr")).read(key="vote_instances")
+    inst = IoHDF5(os.path.join(paths["test_instanced"], str(last),
+                               sample + ".hdf")).read(key="vote_instances")
     top, per_cp = {}, {}
     for name, mode, cp, sec in calls:
         if mode == "val":
@@ -3207,7 +3340,7 @@ def isbi_boundary(ref):
 def isbi_cli(dev_args, kernels, ref, meta, work):
     """Gate (c): the port's CLI (in-process, on the card) runs ``mknet
     predict label evaluate cross_validate`` with the rehearsal config on
-    the zlib copy, float32, from the seeded checkpoint, against the JAX
+    the stand-in data, float32, from the seeded checkpoint, against the JAX
     CLI's run: every labelled map under phase 4's limits, |rand_fscore -
     JAX's| <= 0.01 per sample, the same best checkpoint and applied
     scores within 0.01.  Returns the test samples' metrics."""
@@ -3215,7 +3348,7 @@ def isbi_cli(dev_args, kernels, ref, meta, work):
 
     from patchperpix_tpu_torch import cli, models, weights
     from patchperpix_tpu_torch.models.init import flax_leaves
-    from patchperpix_tpu_torch.utils.io import IoZarr
+    from patchperpix_tpu_torch.utils.io import IoHDF5
 
     exps = os.path.join(work, "exps")
     cfg = train_model_config(models, ISBI_CONFIG)
@@ -3235,8 +3368,8 @@ def isbi_cli(dev_args, kernels, ref, meta, work):
     for key in sorted(k for k in ref.files if k.startswith("c/")
                       and k.endswith("/inst")):
         _, mode, sample, _ = key.split("/")
-        res = IoZarr(os.path.join(paths[f"{mode}_instanced"],
-                                  str(ISBI_CLI_STEP), sample + ".zarr"))
+        res = IoHDF5(os.path.join(paths[f"{mode}_instanced"],
+                                  str(ISBI_CLI_STEP), sample + ".hdf"))
         inst = res.read(key="vote_instances")
         fg = res.read(key="vote_foreground") > 0
         ref_fg = np.unpackbits(ref[f"c/{mode}/{sample}/fg"])[
@@ -3507,8 +3640,39 @@ def isbi_all(dev_args, kernels, work, seeded):
                              f"predicted {predicted}")
 
 
+def isbi_blosc():
+    """The phase's data as the JAX package wrote it (blosc: zstd,
+    bitshuffle), read by the port: each of its 20 arrays bit for bit the
+    zlib copy's; the seconds of the blosc and of the zlib reads."""
+    import glob
+
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    equal, secs, nbytes = {}, {"blosc_s": 0.0, "zlib_s": 0.0}, 0
+    for path in sorted(glob.glob(os.path.join(ISBI_DATA, "*", "*.zarr"))):
+        rel = os.path.relpath(path, ISBI_DATA)
+        for key in IoZarr(path).list_keys():
+            got = {}
+            for name, root in (("blosc_s", ISBI_DATA), ("zlib_s", ISBI_ZLIB)):
+                t0 = time.perf_counter()
+                got[name] = IoZarr(os.path.join(root, rel)).read(key=key)
+                secs[name] += time.perf_counter() - t0
+            a, b = got["blosc_s"], got["zlib_s"]
+            equal[f"{rel}:{key}"] = bool(a.dtype == b.dtype and a.shape ==
+                                         b.shape and a.tobytes() ==
+                                         b.tobytes())
+            nbytes += a.nbytes
+    emit({"phase": "isbi_blosc", "arrays": len(equal),
+          "all_equal": all(equal.values()), "decoded_mb": nbytes / 1e6,
+          **secs})
+    if len(equal) != 20 or not all(equal.values()):
+        raise AssertionError(f"isbi: the blosc data read by the port "
+                             f"differs from the zlib copy: {equal}")
+
+
 def run_isbi(dev, kernels):
-    """Phase isbi: gates (a) to (f) of the ISBI 2012 protocol."""
+    """Phase isbi: the blosc data against its zlib copy, then gates (a)
+    to (f) of the ISBI 2012 protocol."""
     import shutil
     import tempfile
 
@@ -3517,6 +3681,7 @@ def run_isbi(dev, kernels):
 
     t_phase = time.perf_counter()
     ref, meta = np.load(ISBI_REF_NPZ), json.load(open(ISBI_REF_JSON))
+    isbi_blosc()
     isbi_assembly(dev, kernels, ref, meta)
     isbi_boundary(ref)
     out_root = os.path.join(REPO, "experiments_out")
@@ -3640,6 +3805,7 @@ def main() -> int:
                                                 MODEL2D_NPZ, BW_REF_NPZ,
                                                 CLI_REF_NPZ, TRAIN_REF_NPZ,
                                                 ISBI_REF_NPZ, ISBI_DATA,
+                                                ISBI_ZLIB, JAX_RESULT,
                                                 SWIN_REF_NPZ, VIZ_REF_NPZ))):
         print("chip_smoke: the repository is not beside this script",
               file=sys.stderr)
@@ -3664,6 +3830,8 @@ def main() -> int:
     emit({"phase": "device", "kind": kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    from patchperpix_tpu_torch.utils import blosc
+    emit({"phase": "libraries", "found": blosc.library_versions()})
 
     # the host thinning library (g++) builds beside the five nvcc processes
     t0 = time.perf_counter()

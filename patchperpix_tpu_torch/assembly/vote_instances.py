@@ -25,9 +25,9 @@ stitch window.
 
 The reference CLI's ``label`` task runs ``do_all``: ``load_affinities``
 from a prediction store, ``to_instance_seg`` (or blockwise assembly), and
-``finalize_and_write``, which writes ``<sample>.zarr`` (a zarr v2 store
-of the port's ``utils/io.py``; the JAX package writes ``.hdf``, and the
-GPU machine has no h5py) under the JAX package's keys.  With
+``finalize_and_write``, which writes ``<sample>.hdf`` under the JAX
+package's keys and attributes (``utils/io.py``'s ``IoHDF5``: numpy,
+struct and zlib, since the GPU machine has no h5py).  With
 ``vote_debug`` the whole-volume branch of ``do_all`` labels in two passes,
 as the JAX package does: the pairs and weights first, the debug canvases
 (``assembly/debug_viz.py``) from them, then the labelling of that given
@@ -783,21 +783,12 @@ def _save_label_mip(instances: np.ndarray, out_file: str):
     write_png(out_file, color_labels(mip.astype(np.int64)))
 
 
-def _write_label_volume(io, key: str, arr: np.ndarray):
-    arr = np.ascontiguousarray(arr)
-    io.create(key, arr.shape, arr.dtype,
-              chunks=[min(int(s), 128) for s in arr.shape])
-    io.write(arr, key=key)
-    io.set_attrs(key, {"offset": [0] * arr.ndim,
-                       "resolution": [1] * arr.ndim})
-
-
 def finalize_and_write(instances, fg_out, params: VoteInstancesParams,
                        base: str, result_folder: str,
                        extra_keys: dict | None = None) -> str:
     """Small-component removal, the crop to the foreground (with
-    ``crop_to_foreground``) and the result store
-    ``<result_folder>/<base>.zarr`` (vote_instances.py:521-554 and the
+    ``crop_to_foreground``) and the result file
+    ``<result_folder>/<base>.hdf`` (vote_instances.py:521-554 and the
     stitch's post outputs, stitch_patch_graph.py:823-895): ``res_key``,
     ``vote_foreground``, ``vote_instances_masked`` (always cropped),
     with ``dilate_instances`` ``<res_key>_dil_1`` /
@@ -806,8 +797,11 @@ def finalize_and_write(instances, fg_out, params: VoteInstancesParams,
     removal and ``<base>_cleaned.png`` after it, ``save_tif`` the relabelled
     cleaned map as ``<base>.tif`` (both only with ``remove_small_comps``,
     as in the JAX package).  Multi-channel maps (C, *vol) are cropped
-    channel by channel.  An existing store keeps its other keys.  Shared
-    by ``do_all`` and the CLI's ``infer_fused``."""
+    channel by channel.  ``res_key`` and ``vote_foreground`` carry the
+    JAX package's ``offset`` (0, 0, 0) and ``resolution`` (1, 1, 1)
+    attributes.  The file is appended to: its other keys stay, so each
+    parameter set of ``validate_checkpoints`` keeps its ``res_key`` in
+    one file.  Shared by ``do_all`` and the CLI's ``infer_fused``."""
     instances = np.asarray(instances)
     fg_out = np.asarray(fg_out)
     bg = (slice(None),) * (instances.ndim - fg_out.ndim) + (fg_out == 0,)
@@ -825,30 +819,31 @@ def finalize_and_write(instances, fg_out, params: VoteInstancesParams,
     instances = instances.copy()
     if params.crop_to_foreground:
         instances[bg] = 0
-    out_path = os.path.join(result_folder, base + ".zarr")
-    out = vio.IoZarr(out_path, mode="a")
-    _write_label_volume(out, params.res_key, instances)
-    _write_label_volume(out, "vote_foreground", fg_out.astype(np.uint8))
-    masked = instances.copy()
-    masked[bg] = 0
-    _write_label_volume(out, "vote_instances_masked", masked)
-    if params.dilate_instances:
-        # per-label 1-iteration binary dilation; later (higher) labels win
-        # contested voxels, as in the reference's ascending-label loop
-        instdil = instances.copy()
-        for lbl in np.unique(instances):
-            if lbl == 0:
-                continue
-            grown = ndimage.binary_dilation(instdil == lbl, iterations=1)
-            instdil[grown] = lbl
-        _write_label_volume(out, params.res_key + "_dil_1", instdil)
-        mdil = instdil.copy()
-        mdil[bg] = 0
-        _write_label_volume(out, params.res_key + "_masked_dil_1", mdil)
-    for key, arr in (extra_keys or {}).items():
-        arr = np.ascontiguousarray(arr)
-        out.create(key, arr.shape, arr.dtype,
-                   chunks=[min(int(s), 512) for s in arr.shape])
-        out.write(arr, key=key)
-    out.close()
+    os.makedirs(result_folder, exist_ok=True)
+    out_path = os.path.join(result_folder, base + ".hdf")
+    where = {"offset": (0, 0, 0), "resolution": (1, 1, 1)}
+    with vio.IoHDF5(out_path, mode="a") as out:
+        out.write(instances, key=params.res_key, attrs=where)
+        out.write(fg_out.astype(np.uint8), key="vote_foreground",
+                  attrs=where)
+        masked = instances.copy()
+        masked[bg] = 0
+        out.write(masked, key="vote_instances_masked")
+        if params.dilate_instances:
+            # per-label 1-iteration binary dilation; later (higher) labels
+            # win contested voxels, as in the reference's ascending-label
+            # loop
+            instdil = instances.copy()
+            for lbl in np.unique(instances):
+                if lbl == 0:
+                    continue
+                grown = ndimage.binary_dilation(instdil == lbl,
+                                                iterations=1)
+                instdil[grown] = lbl
+            out.write(instdil, key=params.res_key + "_dil_1")
+            mdil = instdil.copy()
+            mdil[bg] = 0
+            out.write(mdil, key=params.res_key + "_masked_dil_1")
+        for key, arr in (extra_keys or {}).items():
+            out.write(np.asarray(arr), key=key)
     return out_path

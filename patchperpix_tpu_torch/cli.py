@@ -17,11 +17,7 @@ What differs from the JAX CLI:
   ``training.device_sampler`` only decides whether the batches are drawn
   on that device or by the host sampler.
 - Checkpoints are the port's torch files ``train/train_net_checkpoint_<step>``
-  (``weights.write_checkpoint``), not orbax directories; training
-  snapshots are zarr stores, not ``.hdf``.
-- Results are ``<sample>.zarr`` stores in the instanced folder (the JAX
-  package writes ``.hdf``), under the same keys; ``evaluate``,
-  ``postprocess`` and ``cleanup`` look for them.
+  (``weights.write_checkpoint``), not orbax directories.
 - ``[evaluation] num_workers > 1`` evaluates samples in processes started
   with ``spawn`` (a forked child of a process that has used CUDA breaks).
 - ``predict``, ``label``, ``infer_fused`` and ``evaluate`` handle the
@@ -31,8 +27,12 @@ What differs from the JAX CLI:
   data-parallel over that many devices of ``--device``'s kind, with the
   host sampler (``device_sampler`` falls back to it with a warning, as in
   the JAX CLI).  No git diff of the source is stored with the config.
-- ``visualize`` reads the ``<sample>.zarr`` results and writes the PNGs
-  with the port's own writer (the GPU machine has no PIL).
+- ``visualize`` writes the PNGs with the port's own writer (the GPU
+  machine has no PIL).
+
+Experiment folders are the JAX CLI's: prediction stores are zarr, results
+``<sample>.hdf`` and training snapshots ``.hdf`` (``utils/io.py``'s
+``IoHDF5``), so either package's tasks read the other's files.
 
 Usage:
   python -m patchperpix_tpu_torch.cli -c configs/flylight_crop_dec.toml \\
@@ -551,11 +551,14 @@ def label(args, config, paths, mode=None, checkpoint=None,
             model, mcfg, batch_size=config.get("model", {}).get(
                 "decode_batch_size", 1024), device=args.device)
     todo = []
-    for path in sorted(glob.glob(os.path.join(in_dir, "*.zarr"))):
+    # zarr and hdf predictions, as the JAX CLI labels both
+    pred_paths = sorted(glob.glob(os.path.join(in_dir, "*.zarr"))
+                        + glob.glob(os.path.join(in_dir, "*.hdf")))
+    for path in pred_paths:
         s = os.path.splitext(os.path.basename(path))[0]
         if args.sample and s != args.sample:
             continue
-        out_path = os.path.join(out_dir, s + ".zarr")
+        out_path = os.path.join(out_dir, s + ".hdf")
         if os.path.abspath(out_path) == os.path.abspath(path):
             continue
         if vio.check_file(out_path, keys=[params.res_key],
@@ -585,7 +588,7 @@ def label(args, config, paths, mode=None, checkpoint=None,
 def infer_fused(args, config, paths, mode=None, checkpoint=None,
                 param_overrides=None):
     """predict -> decode -> assemble on the device per sample, with no
-    store between the stages; writes the result store ``label`` writes."""
+    store between the stages; writes the result file ``label`` writes."""
     from .infer.fused import (decode_volume_device, lift_2d,
                               predict_volume_device)
 
@@ -603,7 +606,7 @@ def infer_fused(args, config, paths, mode=None, checkpoint=None,
     fg_thresh = config.get("prediction", {}).get("fg_thresh", 0.5)
     done = []
     for s in shard_samples(_samples(args, config, data_dir)):
-        if vio.check_file(os.path.join(out_dir, s + ".zarr"),
+        if vio.check_file(os.path.join(out_dir, s + ".hdf"),
                           keys=[vparams.res_key], remove_on_error=True):
             logger.info("skipping %s (labelled)", s)
             continue
@@ -632,8 +635,8 @@ def infer_fused(args, config, paths, mode=None, checkpoint=None,
 @time_func
 def evaluate(args, config, paths, mode=None, checkpoint=None,
              res_key=None) -> dict:
-    """Instance metrics per result store + CSV summaries
-    (run_ppp.py:1446-1536)."""
+    """Instance metrics per result file (``<sample>.hdf``) + CSV
+    summaries (run_ppp.py:1446-1536)."""
     from .evaluate import evaluate_file, summarize_metric_dict
 
     mode = mode or args.mode
@@ -659,7 +662,7 @@ def evaluate(args, config, paths, mode=None, checkpoint=None,
     # against it with partly=True
     add_partly_val = bool(data.get("add_partly_val", False))
     jobs = []
-    for path in sorted(glob.glob(os.path.join(inst_dir, "*.zarr"))):
+    for path in sorted(glob.glob(os.path.join(inst_dir, "*.hdf"))):
         s = os.path.splitext(os.path.basename(path))[0]
         if args.sample and s != args.sample:
             continue
@@ -784,7 +787,7 @@ def postprocess(args, config, paths):
     rm = pp.get("remove_small_comps",
                 config.get("vote_instances", {}).get(
                     "remove_small_comps", 0))
-    for path in sorted(glob.glob(os.path.join(inst_dir, "*.zarr"))):
+    for path in sorted(glob.glob(os.path.join(inst_dir, "*.hdf"))):
         postprocess_instances(
             path, res_key=config.get("evaluation", {}).get(
                 "res_key", "vote_instances"),
@@ -902,9 +905,8 @@ def cross_validate(args, config, paths):
 @time_func
 def cleanup(args, config, paths):
     """Delete the prediction stores of the val and test splits whose
-    instance store exists (run_ppp.py:1092-1107).  The port's results are
-    ``<sample>.zarr`` (the JAX CLI tests for ``<sample>.hdf``); a result
-    store counts once it holds ``vote_instances_masked``, which
+    result ``<sample>.hdf`` exists (run_ppp.py:1092-1107).  A result
+    counts once it holds ``vote_instances_masked``, which
     ``finalize_and_write`` writes under every ``res_key``, so a prediction
     without its instances stays."""
     checkpoint = _resolve_checkpoint(args, config, paths)
@@ -914,7 +916,7 @@ def cleanup(args, config, paths):
         inst = os.path.join(paths[f"{mode}_instanced"], str(checkpoint))
         for path in sorted(glob.glob(os.path.join(proc, "*.zarr"))):
             s = os.path.splitext(os.path.basename(path))[0]
-            if vio.check_file(os.path.join(inst, s + ".zarr"),
+            if vio.check_file(os.path.join(inst, s + ".hdf"),
                               keys=["vote_instances_masked"]):
                 shutil.rmtree(path, ignore_errors=True)
                 removed.append(path)
@@ -923,9 +925,9 @@ def cleanup(args, config, paths):
 
 @time_func
 def visualize(args, config, paths):
-    """Instance PNGs of the results and, with ``[visualize]
-    show_patches``, patch mosaics of the predictions' affinities
-    (``aff_key`` of ``[prediction]``; the volume plane
+    """Instance PNGs of the results (``<sample>.hdf``) and, with
+    ``[visualize] show_patches``, patch mosaics of the predictions'
+    affinities (``aff_key`` of ``[prediction]``; the volume plane
     ``patch_mosaic_z``, else the z-MIP) beside the prediction stores
     (run_ppp.py:1539-1606).  A prediction store without the affinities
     is passed over.  Returns the paths written."""
@@ -935,7 +937,7 @@ def visualize(args, config, paths):
     inst_dir = os.path.join(paths[f"{args.mode}_instanced"], str(checkpoint))
     viz = config.get("visualize", {})
     out = []
-    for path in sorted(glob.glob(os.path.join(inst_dir, "*.zarr"))):
+    for path in sorted(glob.glob(os.path.join(inst_dir, "*.hdf"))):
         s = os.path.splitext(os.path.basename(path))[0]
         io = vio.open_volume(path, mode="r")
         inst = io.read(key="vote_instances")

@@ -349,8 +349,8 @@ def evaluate_file(
     **kwargs,
 ) -> dict:
     """File-level entry matching the external package's call signature
-    (run_ppp.py:1239-1262).  Both files are zarr v2 stores: the port writes
-    its results as ``<sample>.zarr``."""
+    (run_ppp.py:1239-1262).  Either file is an HDF5 file (the results
+    ``label`` writes) or a zarr store (``utils/io.open_volume``)."""
     rio = vio.open_volume(res_file, mode="r")
     pred = rio.read(key=res_key)
     rio.close()

@@ -6,7 +6,7 @@ with a plain numpy sampler producing fixed-shape crops.  This is numpy on
 the host in both packages; the port keeps its own copy, draw for draw the
 same under the same seed:
 
-- per-sample zarr sources (raw + multi-channel gt instances), the
+- per-sample zarr / hdf sources (raw + multi-channel gt instances), the
   partly-labeled flag and close_to_overlap CSV points;
 - three sampling pools mixed by probability: foreground-biased,
   overlap-biased (optionally point_balance_radius-weighted), uniform
@@ -63,7 +63,8 @@ def load_sample(path: str, raw_key: str, gt_key: str,
                 partly: bool | None = None,
                 overlap_csv: str | None = None) -> SampleData:
     """Raw (clipped to ``clipmax`` and scaled to [0, 1], else scaled by its
-    maximum when above 1.5) and ground-truth labels of one zarr sample,
+    maximum when above 1.5) and ground-truth labels of one sample (a zarr
+    store or an HDF5 file: ``utils/io.open_volume``),
     each with a leading channel axis; ``partly`` defaults to '"partly" in
     path', and ``overlap_csv`` (if it exists) gives the overlap pool."""
     io = vio.open_volume(path, mode="r")

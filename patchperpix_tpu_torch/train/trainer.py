@@ -463,25 +463,22 @@ class _Run:
         self.log(mets, self.step, prefix="val_")
 
     def snapshot(self, raw, labels):
-        """Raw, labels and both heads as a zlib zarr store
-        ``snapshots/snapshot_<step>.zarr`` (gp.Snapshot,
-        train.py:539-547)."""
-        from ..utils.io import IoZarr
+        """Raw, labels and both heads (float16) as the HDF5 file
+        ``snapshots/snapshot_<step>.hdf`` under the JAX package's keys
+        (gp.Snapshot, train.py:539-547)."""
+        from ..utils.io import IoHDF5
 
         with torch.no_grad(), _autocast(self.mcfg, self.dev):
             h1, h2 = self.model(raw)
         snap_dir = os.path.join(self.tcfg.output_folder, "snapshots")
         os.makedirs(snap_dir, exist_ok=True)
-        io = IoZarr(os.path.join(snap_dir, f"snapshot_{self.step}.zarr"),
-                    mode="w")
-        for key, arr in (("volumes/raw", raw.float()),
-                         ("volumes/gt_labels", labels),
-                         ("volumes/pred_head1", h1.to(torch.float16)),
-                         ("volumes/pred_head2", h2.to(torch.float16))):
-            arr = arr.cpu().numpy()
-            io.create(key, arr.shape, arr.dtype)
-            io.write(arr, key=key)
-        io.close()
+        with IoHDF5(os.path.join(snap_dir, f"snapshot_{self.step}.hdf"),
+                    mode="w") as io:
+            for key, arr in (("volumes/raw", raw.float()),
+                             ("volumes/gt_labels", labels),
+                             ("volumes/pred_head1", h1.to(torch.float16)),
+                             ("volumes/pred_head2", h2.to(torch.float16))):
+                io.write(arr.cpu().numpy(), key=key)
 
     def state(self) -> dict:
         out = {"params": {k: v.detach().cpu().numpy() for k, v in

@@ -1,17 +1,21 @@
-"""Zarr v2 store written with numpy, json and zlib; TIFF and PNG files.
+"""Zarr v2 stores and HDF5 files; TIFF and PNG files.
 
 Counterpart of ``patchperpix_tpu/utils/io.py`` (``IoZarr``, which goes
-through tensorstore, ``open_volume``, ``check_file``, the raw NRRD writer
-and reader, ``save_tif`` / ``read_tif``) for a machine that
-has neither zarr, tensorstore, h5py nor PIL.  TIFF and PNG are written
-and read with numpy, zlib and struct (``save_tif`` / ``read_tif``,
-``write_png`` / ``read_png``); the readers also take the files PIL writes
-for the JAX package.  Arrays are C-order zarr v2
-arrays without filters.  Chunks are written zlib-compressed (or raw with
-``compressor=None``) and read when they are zlib-, gzip-compressed or raw;
-a chunk that was never written reads as the array's fill value.  The JAX
-package writes blosc chunks by default, which numpy cannot decode: such an
-array raises and names its compressor.
+through tensorstore, ``IoHDF5``, which goes through h5py, ``open_volume``,
+``check_file``, the raw NRRD writer and reader, ``save_tif`` /
+``read_tif``) for a machine that has neither zarr, tensorstore, h5py nor
+PIL.  TIFF and PNG are written and read with numpy, zlib and struct
+(``save_tif`` / ``read_tif``, ``write_png`` / ``read_png``); the readers
+also take the files PIL writes for the JAX package.  HDF5 files go through
+``utils/hdf5.py`` (numpy, struct and zlib) behind ``IoHDF5``.
+
+Zarr arrays are C-order zarr v2 arrays without filters.  Chunks are
+written zlib-compressed (or raw with ``compressor=None``), which the JAX
+package reads through tensorstore, and read when they are zlib-, gzip- or
+blosc-compressed or raw: blosc (the JAX package's default, zstd with
+bitshuffle, and zarr-python's, lz4 with byte shuffle) is decoded by
+``utils/blosc.py``.  A chunk that was never written reads as the array's
+fill value.  A blosc array is read-only here.
 
 Reads and writes take any bounding box.  A write that covers only part of
 a chunk reads the chunk, updates it and writes it back.  Decoded chunks
@@ -37,6 +41,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from . import blosc, hdf5
+
 _ZLIB_LEVEL = 1
 _CACHE_BYTES = 2 ** 30
 _pool = None
@@ -50,6 +56,35 @@ def _map(fn, items):
         if _pool is None:
             _pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
     list(_pool.map(fn, items))
+
+
+def _box(bb, shape):
+    """Normalise ``bb`` to per-axis (start, stop) and the axes that an
+    integer index drops."""
+    if bb is None:
+        bb = ()
+    bb = tuple(bb) if isinstance(bb, (tuple, list)) else (bb,)
+    if any(b is Ellipsis for b in bb):
+        i = [j for j, b in enumerate(bb) if b is Ellipsis][0]
+        fill = (slice(None),) * (len(shape) - len(bb) + 1)
+        bb = bb[:i] + fill + bb[i + 1:]
+    bb = bb + (slice(None),) * (len(shape) - len(bb))
+    if len(bb) != len(shape):
+        raise IndexError(f"box {bb} for an array of shape {shape}")
+    box, drop = [], []
+    for ax, (b, s) in enumerate(zip(bb, shape)):
+        if isinstance(b, slice):
+            start, stop, step = b.indices(s)
+            if step != 1:
+                raise IndexError("strided boxes are not supported")
+            box.append((start, max(start, stop)))
+        else:
+            i = int(b) + (s if int(b) < 0 else 0)
+            if not 0 <= i < s:
+                raise IndexError(f"index {b} out of range {s}")
+            box.append((i, i + 1))
+            drop.append(ax)
+    return box, tuple(drop)
 
 
 class IoZarr:
@@ -88,11 +123,12 @@ class IoZarr:
                                      "are supported")
                 comp = meta.get("compressor")
                 if comp is not None and comp.get("id") not in ("gzip",
-                                                               "zlib"):
+                                                               "zlib",
+                                                               "blosc"):
                     raise ValueError(
                         f"{key}: compressor {comp.get('id')!r} ({comp}) "
-                        "cannot be decoded here; only zlib, gzip and raw "
-                        "chunks are read")
+                        "cannot be decoded here; only blosc, zlib, gzip "
+                        "and raw chunks are read")
                 self._meta[key] = meta
             return self._meta[key]
 
@@ -176,7 +212,10 @@ class IoZarr:
         if os.path.exists(fn):
             with open(fn, "rb") as f:
                 data = f.read()
-            if meta.get("compressor") is not None:
+            comp = meta.get("compressor")
+            if comp is not None and comp["id"] == "blosc":
+                data = blosc.decompress(data)
+            elif comp is not None:
                 # wbits 47 accepts both the gzip and the zlib container
                 data = zlib.decompress(data, 47)
             block = np.frombuffer(data, dtype=dtype).reshape(chunks)
@@ -195,8 +234,12 @@ class IoZarr:
 
     def _store_chunk(self, key, cidx, block: np.ndarray):
         meta = self.meta(key)
+        comp = meta.get("compressor")
+        if comp is not None and comp["id"] != "zlib":
+            raise ValueError(f"{key}: a {comp['id']} array is read-only "
+                             "here; chunks are written zlib or raw")
         data = np.ascontiguousarray(block).tobytes()
-        if meta.get("compressor") is not None:
+        if comp is not None:
             data = zlib.compress(data, _ZLIB_LEVEL)
         fn = self._chunk_file(key, cidx)
         tmp = f"{fn}.{os.getpid()}.{threading.get_ident()}.tmp"
@@ -205,34 +248,6 @@ class IoZarr:
         os.replace(tmp, fn)
         with self._lock:
             self._drop_cached(key, tuple(cidx))
-
-    def _box(self, bb, shape):
-        """Normalise ``bb`` to per-axis (start, stop) and the axes that an
-        integer index drops."""
-        if bb is None:
-            bb = ()
-        bb = tuple(bb) if isinstance(bb, (tuple, list)) else (bb,)
-        if any(b is Ellipsis for b in bb):
-            i = [j for j, b in enumerate(bb) if b is Ellipsis][0]
-            fill = (slice(None),) * (len(shape) - len(bb) + 1)
-            bb = bb[:i] + fill + bb[i + 1:]
-        bb = bb + (slice(None),) * (len(shape) - len(bb))
-        if len(bb) != len(shape):
-            raise IndexError(f"box {bb} for an array of shape {shape}")
-        box, drop = [], []
-        for ax, (b, s) in enumerate(zip(bb, shape)):
-            if isinstance(b, slice):
-                start, stop, step = b.indices(s)
-                if step != 1:
-                    raise IndexError("strided boxes are not supported")
-                box.append((start, max(start, stop)))
-            else:
-                i = int(b) + (s if int(b) < 0 else 0)
-                if not 0 <= i < s:
-                    raise IndexError(f"index {b} out of range {s}")
-                box.append((i, i + 1))
-                drop.append(ax)
-        return box, tuple(drop)
 
     @staticmethod
     def _chunks_of(box, chunks):
@@ -245,7 +260,7 @@ class IoZarr:
         meta = self.meta(key)
         shape = self.shape(key)
         chunks = tuple(meta["chunks"])
-        box, drop = self._box(bb, shape)
+        box, drop = _box(bb, shape)
         out = np.empty(tuple(b - a for a, b in box), dtype=self.dtype(key))
 
         def fill(cidx):
@@ -295,7 +310,7 @@ class IoZarr:
         shape = self.shape(key)
         chunks = tuple(meta["chunks"])
         dtype = self.dtype(key)
-        box, drop = self._box(bb, shape)
+        box, drop = _box(bb, shape)
         want = tuple(b - a for a, b in box)
         out = np.asarray(out)
         if drop:
@@ -322,22 +337,185 @@ class IoZarr:
         _map(put, self._chunks_of(box, chunks))
 
 
+class IoHDF5:
+    """``IoZarr``'s interface on an HDF5 file (``utils/hdf5.py``), as the
+    JAX package's ``IoHDF5`` keeps results and snapshots.
+
+    ``mode`` is ``"r"`` (the file must exist), ``"r+"`` (likewise,
+    writable), ``"a"`` (created when missing) or ``"w"`` (truncated).
+    Reads take any box, as ``IoZarr.read``, and inflate only the chunks it
+    meets.  Writes are held in memory and reach the file at ``close()``,
+    which rewrites it whole (a temporary file renamed over it): every
+    dataset not written keeps its data and attributes, and one written
+    whole replaces the old one, so a key whose shape changed is replaced
+    as ``IoHDF5.write`` of the JAX package does (it keeps the dtype of a
+    key written at the same shape, as h5py's ``ds[...] = out``).  Results
+    and snapshots are small; a dataset is held whole once written."""
+
+    def __init__(self, path: str, mode: str = "r"):
+        if mode not in ("r", "r+", "a", "w"):
+            raise ValueError(f"mode {mode!r}: one of r, r+, a, w")
+        exists = os.path.exists(path)
+        if not exists and mode in ("r", "r+"):
+            raise FileNotFoundError(path)
+        self.path = path
+        self.mode = mode
+        self._file = hdf5.File(path) if exists and mode != "w" else None
+        self._pending: dict = {}     # key -> [array, attrs, chunks]
+        self._dirty = mode == "w" or not exists
+        self._lock = threading.RLock()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _stored(self, key: str):
+        if self._file is None or key not in self._file:
+            raise KeyError(key)
+        return self._file.dataset(key)
+
+    def __contains__(self, key: str) -> bool:
+        return key.strip("/") in self._pending or (
+            self._file is not None and key in self._file)
+
+    def shape(self, key: str) -> tuple:
+        key = key.strip("/")
+        if key in self._pending:
+            return self._pending[key][0].shape
+        return tuple(self._stored(key).shape)
+
+    def dtype(self, key: str) -> np.dtype:
+        key = key.strip("/")
+        if key in self._pending:
+            return self._pending[key][0].dtype
+        return self._stored(key).dtype.newbyteorder("=")
+
+    def attrs(self, key: str) -> dict:
+        key = key.strip("/")
+        if key in self._pending:
+            return dict(self._pending[key][1])
+        return self._stored(key).attrs()
+
+    def list_keys(self, prefix: str = "") -> list[str]:
+        prefix = prefix.strip("/")
+        keys = set(self._file.keys() if self._file is not None else ())
+        keys |= set(self._pending)
+        return sorted(k for k in keys
+                      if not prefix or k == prefix
+                      or k.startswith(prefix + "/"))
+
+    def read(self, bb=None, *, key: str) -> np.ndarray:
+        key = key.strip("/")
+        shape = self.shape(key)
+        box, drop = _box(bb, shape)
+        with self._lock:
+            if key in self._pending:
+                out = self._pending[key][0][tuple(slice(a, b)
+                                                  for a, b in box)].copy()
+            else:
+                out = self._stored(key).read(box)
+        return out.reshape(tuple(n for ax, n in enumerate(out.shape)
+                                 if ax not in drop))
+
+    def _held(self, key: str) -> list:
+        """The pending entry of ``key``, loaded whole from the file when
+        it has none yet."""
+        if key not in self._pending:
+            ds = self._stored(key)
+            self._pending[key] = [ds.read(), ds.attrs(),
+                                  getattr(ds, "chunks", None)]
+        return self._pending[key]
+
+    def _writable(self):
+        if self.mode == "r":
+            raise ValueError(f"{self.path}: opened read-only")
+
+    def create(self, key: str, shape, dtype, chunks=None, fill_value=0,
+               **_):
+        """A new dataset ``key`` (an existing one is replaced) of
+        ``fill_value``, chunked as ``chunks`` (default: h5py's guess)."""
+        self._writable()
+        with self._lock:
+            self._pending[key.strip("/")] = [
+                np.full(tuple(int(s) for s in shape), fill_value, dtype), {},
+                chunks]
+            self._dirty = True
+
+    def write(self, out, bb=None, *, key: str, attrs=None):
+        """``out`` into ``key``: whole (``bb`` None; a new key, or one of
+        another shape, takes ``out``'s dtype) or into the window ``bb`` of
+        an existing key; ``attrs`` are added to the key's attributes."""
+        self._writable()
+        key = key.strip("/")
+        out = np.asarray(out)
+        with self._lock:
+            if bb is None:
+                old = key in self
+                if old and self.shape(key) == out.shape:
+                    entry = self._held(key)
+                    entry[0] = out.astype(entry[0].dtype)
+                else:
+                    self._pending[key] = [out.copy(), {}, None]
+            else:
+                if key not in self:
+                    raise ValueError(f"{key}: create the dataset before "
+                                     "writing a window of it")
+                arr = self._held(key)[0]
+                box, drop = _box(bb, arr.shape)
+                sel = tuple(slice(a, b) for a, b in box)
+                arr[sel] = np.expand_dims(out, drop) if drop else out
+            if attrs:
+                self._pending[key][1].update(attrs)
+            self._dirty = True
+
+    def set_attrs(self, key: str, attrs: dict):
+        self._writable()
+        with self._lock:
+            self._held(key.strip("/"))[1].update(attrs)
+            self._dirty = True
+
+    def close(self):
+        """Write the file if anything was written, then release it."""
+        with self._lock:
+            if self._dirty and self.mode != "r":
+                for key in self.list_keys():
+                    self._held(key)
+                hdf5.write_file(self.path, {k: tuple(v) for k, v in
+                                            self._pending.items()})
+            if self._file is not None:
+                self._file.close()
+                self._file = None
+            self._pending.clear()
+            self._dirty = False
+
+
+HDF5_SUFFIXES = (".hdf", ".h5", ".hdf5")
+
+
 def open_volume(path: str, mode: str = "r"):
-    """A store for ``path``: zarr v2 directories only (``.zarr``); HDF5
-    needs h5py, which the port does not use."""
-    if str(path).rstrip("/").endswith(".zarr"):
+    """A store for ``path``: a zarr v2 directory (``.zarr``) or an HDF5
+    file (``.hdf``, ``.h5``, ``.hdf5``), as the JAX package dispatches."""
+    path = str(path)
+    if path.rstrip("/").endswith(".zarr"):
         return IoZarr(path, mode)
-    raise ValueError(f"unsupported volume format: {path} (the port reads "
-                     "and writes zarr v2 only)")
+    if path.endswith(HDF5_SUFFIXES):
+        return IoHDF5(path, mode)
+    raise ValueError(f"unsupported volume format: {path} (zarr v2 "
+                     "directories and HDF5 files are read)")
 
 
 def check_file(path: str, keys=None, remove_on_error: bool = False) -> bool:
     """Integrity probe: the store exists, opens, and one element of each
     of the given keys reads; a readable store that lacks a key is simply
     incomplete.  With ``remove_on_error`` a store that fails to read is
-    deleted, so the stage that writes it runs again."""
+    deleted, so the stage that writes it runs again.  A store whose
+    compressor this machine cannot decode raises (``blosc.Undecodable``):
+    it is not broken."""
     if not os.path.exists(path):
         return False
+    io = None
     try:
         io = open_volume(path, mode="r")
         for k in ([keys] if isinstance(keys, str) else (keys or [])):
@@ -347,10 +525,18 @@ def check_file(path: str, keys=None, remove_on_error: bool = False) -> bool:
                 return False
             io.read(bb=tuple(slice(0, 1) for _ in shape), key=k)
         return True
-    except (ValueError, OSError, zlib.error):
+    except blosc.Undecodable:
+        raise
+    except (ValueError, OSError, IndexError, zlib.error):
         if remove_on_error:
-            shutil.rmtree(path, ignore_errors=True)
+            if os.path.isdir(path):
+                shutil.rmtree(path, ignore_errors=True)
+            else:
+                os.remove(path)
         return False
+    finally:
+        if io is not None:
+            io.close()
 
 
 def write_nrrd(path: str, arr: np.ndarray):

@@ -95,13 +95,14 @@ def crop_to_shape(arr: np.ndarray, shape) -> np.ndarray:
 def postprocess_instances(result_path: str, res_key: str = "vote_instances",
                           remove_small_comps: int = 600,
                           export_skeleton_nrrds: bool = False) -> str:
-    """Clean an instance result store in place and optionally export
+    """Clean an instance result in place and optionally export
     per-instance skeleton NRRDs (util/postprocess.py:76-119 semantics):
-    small components removed, relabeled, written back into the zarr store
-    as ``<res_key>_rm_<N>``; each surviving instance's skeleton saved as
-    ``<sample>_<id>.nrrd`` beside the store (z / x transposed like the
-    reference)."""
-    store = vio.IoZarr(result_path, mode="r+")
+    small components removed, relabeled, written back into the result
+    (the ``.hdf`` file ``label`` writes, or a zarr store) as
+    ``<res_key>_rm_<N>``, uint16 or, from 65535 labels on, uint32; each
+    surviving instance's skeleton saved as ``<sample>_<id>.nrrd`` beside
+    the result (z / x transposed like the reference)."""
+    store = vio.open_volume(result_path, mode="r+")
     inst = store.read(key=res_key)
     cleaned = relabel(remove_small_components(inst, remove_small_comps))
     cleaned = cleaned.astype(np.uint16 if cleaned.max() < 65535

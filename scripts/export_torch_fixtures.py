@@ -45,7 +45,11 @@ Writes, from the repository's own files (nothing is downloaded):
   greedy, keep_gt_shape, rm 60).  Stores the instance map, the
   foreground, the skeleton of the foreground that ``to_instance_seg``
   covered (``skeletonize``'s output, captured during ``do_all``), the
-  metric dict and the CPU seconds per stage.
+  metric dict and the CPU seconds per stage.  The same run's result file
+  itself, the JAX package's ``<sample>.hdf`` (h5py, gzip), is kept as
+  ``parity/torch_port_jax_result.hdf`` with its metric dict in
+  ``parity/torch_port_jax_result.json``: the GPU machine, which has
+  neither JAX nor h5py, reads it through the port's ``evaluate``.
 - ``parity/torch_port_ref_bf16.npz`` / ``.json`` (``--bf16``): bench.py's
   pipeline (``bench.py:141-211``) with the model in bfloat16 on the CPU
   (engine jax, pt 0.6, fc 0.5, mws, rm 400): the instance map, the
@@ -141,6 +145,8 @@ BLOCKWISE_CHUNK = (32, 32, 32)
 CLI_NPZ = os.path.join(ROOT, "parity", "torch_port_cli_ref_f32.npz")
 CLI_JSON = os.path.join(ROOT, "parity", "torch_port_cli_ref_f32.json")
 CLI_CONFIG = os.path.join(ROOT, "configs", "flylight_crop_dec.toml")
+JAX_RESULT = os.path.join(ROOT, "parity", "torch_port_jax_result.hdf")
+JAX_RESULT_JSON = os.path.join(ROOT, "parity", "torch_port_jax_result.json")
 BF16_NPZ = os.path.join(ROOT, "parity", "torch_port_ref_bf16.npz")
 BF16_JSON = os.path.join(ROOT, "parity", "torch_port_ref_bf16.json")
 TRAIN_NPZ = os.path.join(ROOT, "parity", "torch_port_train_ref_f32.npz")
@@ -588,6 +594,7 @@ def export_cli():
         inst = np.asarray(rio.read(key=vp.res_key))
         fg = np.asarray(rio.read(key="vote_foreground")) > 0
         rio.close()
+        shutil.copyfile(res_file, JAX_RESULT)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     np.savez_compressed(
@@ -608,6 +615,14 @@ def export_cli():
         "metrics": metrics}
     with open(CLI_JSON, "w") as f:
         json.dump(meta, f, indent=1, default=float)
+    with open(JAX_RESULT_JSON, "w") as f:
+        json.dump({"source": "scripts/export_torch_fixtures.py --cli: the "
+                             "JAX package's do_all result file (h5py) of "
+                             "the run above and its evaluate_file dict",
+                   "sample": sample, "res_key": vp.res_key,
+                   "n_instances": meta["n_instances"],
+                   "avg_f1_cov_score": meta["avg_f1_cov_score"],
+                   "metrics": metrics}, f, indent=1, default=float)
     print(json.dumps({k: v for k, v in meta.items() if k != "metrics"}))
 
 

@@ -221,7 +221,9 @@ import importlib.abc, pkgutil, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                  "orbax", "patchperpix_tpu", "PIL"):
+                                  "orbax", "patchperpix_tpu", "PIL",
+                                  "h5py", "tensorstore", "zarr",
+                                  "numcodecs"):
             raise ImportError("blocked import of " + name)
         return None
 
@@ -450,6 +452,16 @@ bad = [m for m in sys.modules if m.split(".")[0] in
        ("jax", "jaxlib", "flax", "optax", "orbax", "patchperpix_tpu",
         "PIL")]
 assert not bad, bad
+# the JAX package's files: a blosc store of data/synth_isbi, an HDF5
+# result written and read back
+from patchperpix_tpu_torch.utils.io import IoHDF5, open_volume
+gt = open_volume("data/synth_isbi/test/isbi_test_00.zarr").read(
+    key="volumes/gt_instances")
+assert gt.shape == (1, 512, 512) and gt.max() > 0
+hdf = tempfile.mkdtemp() + "/r.hdf"
+with IoHDF5(hdf, mode="w") as io:
+    io.write(gt, key="vote_instances", attrs={"offset": (0, 0, 0)})
+assert (IoHDF5(hdf).read(key="vote_instances") == gt).all()
 print("NO_JAX_OK")
 """
 

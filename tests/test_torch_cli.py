@@ -8,9 +8,9 @@ CLI runs ``mknet predict decode label evaluate evaluate_prediction
 postprocess`` with ``--device cpu``; the JAX package's CLI then runs
 ``label evaluate evaluate_prediction postprocess`` on a copy of the port's
 prediction store (zlib chunks, which the JAX package's tensorstore reader
-reads; the port refuses the JAX package's blosc stores by design).  The
-instance maps, metric dicts, summary CSVs, oracle IoU volumes and
-skeleton NRRDs must be equal.
+reads).  The instance maps and their attributes in both packages'
+``<sample>.hdf`` results, metric dicts, summary CSVs, oracle IoU volumes
+and skeleton NRRDs must be equal.
 
 The seeded weights are shifted so that an untrained model gives a
 usable foreground (numinst head scaled and its classes 1 / 2 swapped, the
@@ -25,6 +25,7 @@ import os
 import shutil
 import textwrap
 
+import h5py
 import jax
 import numpy as np
 import pytest
@@ -265,8 +266,8 @@ def _stage(paths, stage):
 
 
 def test_cli_maps_equal_jax(experiment):
-    port = tio.IoZarr(os.path.join(_stage(experiment["port"], "instanced"),
-                                   SAMPLE + ".zarr"))
+    port = tio.IoHDF5(os.path.join(_stage(experiment["port"], "instanced"),
+                                   SAMPLE + ".hdf"))
     jax_res = jio.open_volume(os.path.join(
         _stage(experiment["jax"], "instanced"), SAMPLE + ".hdf"), "r")
     for key in ("vote_instances", "vote_foreground", "vote_instances_masked",
@@ -274,6 +275,12 @@ def test_cli_maps_equal_jax(experiment):
         got, want = port.read(key=key), np.asarray(jax_res.read(key=key))
         assert got.dtype == want.dtype, key
         np.testing.assert_array_equal(got, want, err_msg=key)
+        want_attrs = dict(jax_res._f[key].attrs)
+        got_attrs = port.attrs(key)
+        assert set(got_attrs) == set(want_attrs), key
+        for name, value in want_attrs.items():
+            assert got_attrs[name].dtype == value.dtype
+            np.testing.assert_array_equal(got_attrs[name], value)
     inst = port.read(key="vote_instances")
     assert len(np.unique(inst[inst > 0])) >= 3
     assert port.read(key="vote_foreground").sum() > 1000
@@ -306,10 +313,11 @@ def test_cli_prediction_metrics_equal_jax(experiment):
 def test_cli_postprocess_equal_jax(experiment):
     port_dir = _stage(experiment["port"], "instanced")
     jax_dir = _stage(experiment["jax"], "instanced")
-    got = tio.IoZarr(os.path.join(port_dir, SAMPLE + ".zarr")).read(
+    got = tio.IoHDF5(os.path.join(port_dir, SAMPLE + ".hdf")).read(
         key="vote_instances_rm_20")
     want = np.asarray(jio.open_volume(os.path.join(
         jax_dir, SAMPLE + ".hdf"), "r").read(key="vote_instances_rm_20"))
+    assert got.dtype == want.dtype == np.uint16
     np.testing.assert_array_equal(got, want)
     nrrds = sorted(os.path.basename(p) for p in
                    glob.glob(os.path.join(port_dir, "*.nrrd")))
@@ -334,7 +342,7 @@ def test_cli_skips_done_samples_and_infer_fused_writes_label_keys(
     args = cli.get_arguments(argv)
     assert cli.infer_fused(args, config.load_config(experiment["cfg"]),
                            fused) == [SAMPLE]
-    keys = [tio.IoZarr(os.path.join(d, str(STEP), SAMPLE + ".zarr"))
+    keys = [tio.IoHDF5(os.path.join(d, str(STEP), SAMPLE + ".hdf"))
             .list_keys() for d in (paths["test_instanced"], str(tmp_path))]
     # the labelled store also holds postprocess's vote_instances_rm_20
     assert keys[1] == [k for k in keys[0] if "_rm_" not in k]
@@ -354,14 +362,139 @@ def test_label_runs_samples_on_threads(experiment):
     cli.main(experiment["argv"] + [
         "-id", "threads", "--device", "cpu", "-d", "label",
         "--set", "vote_instances.num_parallel_samples=2"])
-    want = tio.IoZarr(os.path.join(_stage(experiment["port"], "instanced"),
-                                   SAMPLE + ".zarr")).read(
+    want = tio.IoHDF5(os.path.join(_stage(experiment["port"], "instanced"),
+                                   SAMPLE + ".hdf")).read(
                                        key="vote_instances")
     for name in ("a", "b"):
-        got = tio.IoZarr(os.path.join(_stage(paths, "instanced"),
-                                      name + ".zarr")).read(
+        got = tio.IoHDF5(os.path.join(_stage(paths, "instanced"),
+                                      name + ".hdf")).read(
                                           key="vote_instances")
         np.testing.assert_array_equal(got, want)
+
+
+# -- the two packages' experiment folders ------------------------------------
+
+def _copy_results(src_paths, dst_paths):
+    """The instanced folder of one experiment into another's."""
+    shutil.copytree(_stage(src_paths, "instanced"),
+                    _stage(dst_paths, "instanced"), dirs_exist_ok=True)
+
+
+def test_jax_results_through_port_evaluate_postprocess_visualize(
+        experiment):
+    """The JAX CLI's ``<sample>.hdf`` through the port's ``evaluate``,
+    ``postprocess`` and ``visualize``: the JAX package's metric dict, its
+    ``vote_instances_rm_20`` and its instance PNG (pixels)."""
+    exps = os.path.dirname(experiment["port"]["base"])
+    paths = cli.create_folders(exps, "jax_in_port")
+    _copy_results(experiment["jax"], paths)
+    res = os.path.join(_stage(paths, "instanced"), SAMPLE + ".hdf")
+    with h5py.File(res, "a") as f:
+        del f["vote_instances_rm_20"]
+    for nrrd in glob.glob(os.path.join(_stage(paths, "instanced"),
+                                       "*.nrrd")):
+        os.remove(nrrd)
+    cli.main(experiment["argv"] + ["-id", "jax_in_port", "--device", "cpu",
+                                   "-d", "evaluate", "postprocess",
+                                   "visualize"])
+    jcli.main(experiment["argv"] + ["-id", "jax", "-d", "visualize"])
+    name = SAMPLE + ".json"
+    got, want = (json.load(open(os.path.join(_stage(p, "evaluated"), name)))
+                 for p in (paths, experiment["jax"]))
+    assert got == want and got["general"]["Num Pred"] >= 3
+    with h5py.File(os.path.join(_stage(experiment["jax"], "instanced"),
+                                SAMPLE + ".hdf"), "r") as f:
+        want_rm = f["vote_instances_rm_20"][()]
+    got_rm = tio.IoHDF5(res).read(key="vote_instances_rm_20")
+    assert got_rm.dtype == want_rm.dtype
+    np.testing.assert_array_equal(got_rm, want_rm)
+    png = [tio.read_png(os.path.join(_stage(p, "instanced"), SAMPLE + ".png"))
+           for p in (paths, experiment["jax"])]
+    assert png[0].shape[:2] == (S, S)
+    np.testing.assert_array_equal(png[0], png[1])
+
+
+def test_port_results_through_jax_evaluate(experiment):
+    """The port's ``<sample>.hdf`` through the JAX CLI's ``evaluate``: the
+    port's metric dict."""
+    exps = os.path.dirname(experiment["port"]["base"])
+    paths = jcli.create_folders(exps, "port_in_jax")
+    _copy_results(experiment["port"], paths)
+    jcli.main(experiment["argv"] + ["-id", "port_in_jax", "-d", "evaluate"])
+    name = SAMPLE + ".json"
+    got, want = (json.load(open(os.path.join(_stage(p, "evaluated"), name)))
+                 for p in (paths, experiment["port"]))
+    assert got == want and got["general"]["Num Pred"] >= 3
+
+
+@pytest.mark.parametrize("kind", ["blosc_zarr", "hdf"])
+def test_jax_written_predictions_through_port_label(experiment, kind):
+    """The port's prediction written again by the JAX package, as its
+    default blosc zarr store or as an ``.hdf`` file (which the JAX CLI's
+    ``label`` also takes), labelled by the port's ``label``: the map of the
+    port's own zlib store."""
+    exps = os.path.dirname(experiment["port"]["base"])
+    expid = "pred_" + kind
+    paths = cli.create_folders(exps, expid)
+    src_path = os.path.join(_stage(experiment["port"], "processed"),
+                            SAMPLE + ".zarr")
+    src = tio.IoZarr(src_path)
+    keys = [k for k in src.list_keys() if k != "volumes/patch_iou"]
+    os.makedirs(_stage(paths, "processed"))
+    if kind == "hdf":
+        out = jio.IoHDF5(os.path.join(_stage(paths, "processed"),
+                                      SAMPLE + ".hdf"), mode="w")
+    else:
+        out = jio.IoZarr(os.path.join(_stage(paths, "processed"),
+                                      SAMPLE + ".zarr"), mode="w")
+    for key in keys:
+        arr = src.read(key=key)
+        if kind == "blosc_zarr":
+            out.create(key, arr.shape, arr.dtype, chunks=src.meta(
+                key)["chunks"])
+        out.write(arr, key=key)
+    out.close()
+    if kind == "blosc_zarr":
+        with open(os.path.join(_stage(paths, "processed"), SAMPLE + ".zarr",
+                               keys[0], ".zarray")) as f:
+            assert json.load(f)["compressor"]["id"] == "blosc"
+    assert cli.main(experiment["argv"] + [
+        "-id", expid, "--device", "cpu", "-d", "label"])
+    got, want = (tio.IoHDF5(os.path.join(_stage(p, "instanced"),
+                                         SAMPLE + ".hdf"))
+                 .read(key="vote_instances")
+                 for p in (paths, experiment["port"]))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_hdf_inputs(experiment, tmp_path):
+    """``input_format = "hdf"``: the sample written as ``.hdf`` by the JAX
+    package's ``IoHDF5`` runs through the port's ``predict decode label
+    evaluate`` to the results and metrics of the zarr sample."""
+    data = tmp_path / "hdf_data"
+    data.mkdir()
+    src = tio.IoZarr(os.path.join(os.path.dirname(experiment["cfg"]),
+                                  "data", SAMPLE + ".zarr"))
+    out = jio.IoHDF5(str(data / (SAMPLE + ".hdf")), mode="w")
+    for key in ("volumes/raw", "volumes/gt_instances"):
+        out.write(src.read(key=key), key=key)
+    out.close()
+    exps = os.path.dirname(experiment["port"]["base"])
+    weights.write_checkpoint(_seeded_tree(),
+                             os.path.join(exps, "hdf_in", "train"), STEP)
+    paths = cli.main(experiment["argv"] + [
+        "-id", "hdf_in", "--device", "cpu", "--set",
+        "data.input_format=hdf", "--set", f"data.test_data={data}",
+        "-d", "predict", "decode", "label", "evaluate"])
+    got, want = (tio.IoHDF5(os.path.join(_stage(p, "instanced"),
+                                         SAMPLE + ".hdf"))
+                 .read(key="vote_instances")
+                 for p in (paths, experiment["port"]))
+    np.testing.assert_array_equal(got, want)
+    name = SAMPLE + ".json"
+    got, want = (json.load(open(os.path.join(_stage(p, "evaluated"), name)))
+                 for p in (paths, experiment["port"]))
+    assert got == want
 
 
 def test_checkpoint_swa_params(tmp_path):

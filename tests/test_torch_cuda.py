@@ -392,11 +392,11 @@ def crop_cli(dev, tmp_path_factory):
 
 def _result(paths):
     import chip_smoke
-    from patchperpix_tpu_torch.utils.io import IoZarr
+    from patchperpix_tpu_torch.utils.io import IoHDF5
 
     sample = os.path.splitext(os.path.basename(chip_smoke.FIXTURE))[0]
-    return IoZarr(os.path.join(paths["test_instanced"], "1",
-                               sample + ".zarr"))
+    return IoHDF5(os.path.join(paths["test_instanced"], "1",
+                               sample + ".hdf"))
 
 
 def test_cli_on_the_card_agrees_with_run_path(dev, crop_cli):
@@ -445,11 +445,11 @@ def test_visualize_on_the_card(dev, crop_cli):
                         "1", "--set", "visualize.show_patches=true", "-d",
                         "visualize"])
     res = _result(label)
-    png = res.path[:-len(".zarr")] + ".png"
+    png = res.path[:-len(".hdf")] + ".png"
     assert np.array_equal(read_png(png), render_instances(
         res.read(key="vote_instances"), device=dev))
-    store = os.path.join(written["test_processed"], "1",
-                         os.path.basename(res.path))
+    sample = os.path.basename(res.path)[:-len(".hdf")]
+    store = os.path.join(written["test_processed"], "1", sample + ".zarr")
     affs = IoZarr(store).read(key="volumes/pred_affs").astype(np.float32)
     mosaic = patch_mosaic(affs, (7, 7, 7), device=dev)
     assert mosaic.shape == (350, 350)

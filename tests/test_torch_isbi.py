@@ -399,12 +399,12 @@ def test_cross_validate_equals_jax(cross_runs):
 
 def test_cleanup_through_both_clis(toy, cross_runs):
     """cleanup deletes the predictions whose instances exist, in both
-    CLIs alike, and keeps one whose instance store is missing (the port's
-    result stores are .zarr, the JAX CLI's .hdf)."""
+    CLIs alike, and keeps one whose result (``.hdf`` in both) is
+    missing."""
     removed = {}
     for name, main, extra, ext in (("jax", jcli.main, [], ".hdf"),
                                    ("port", cli.main, ["--device", "cpu"],
-                                    ".zarr")):
+                                    ".hdf")):
         paths = cross_runs[name]["paths"]
         cp = cross_runs[name]["res"]["val_data->test_data"]["best"][
             "checkpoint"]
@@ -457,7 +457,7 @@ def test_only_visualize_is_refused(toy, cross_runs):
     pngs = {}
     for name, main, extra, ext in (("jax", jcli.main, [], ".hdf"),
                                    ("port", cli.main, ["--device", "cpu"],
-                                    ".zarr")):
+                                    ".hdf")):
         paths = cross_runs[name]["paths"]
         cp = cross_runs[name]["res"]["val_data->test_data"]["best"][
             "checkpoint"]
@@ -471,11 +471,11 @@ def test_only_visualize_is_refused(toy, cross_runs):
         maps = {}
         for res in glob.glob(os.path.join(paths["test_instanced"], str(cp),
                                           "*" + ext)):
-            if ext == ".hdf":
+            if name == "jax":
                 with h5py.File(res, "r") as f:
                     maps[os.path.basename(res)[:-4]] = f["vote_instances"][()]
             else:
-                maps[os.path.basename(res)[:-5]] = tio.IoZarr(res).read(
+                maps[os.path.basename(res)[:-4]] = tio.IoHDF5(res).read(
                     key="vote_instances")
         pngs[name] = (out, maps)
     (got, tmaps), (want, jmaps) = pngs["port"], pngs["jax"]

@@ -32,6 +32,7 @@ from patchperpix_tpu_torch.infer import decode as TD
 from patchperpix_tpu_torch.infer import predict as TPr
 from patchperpix_tpu_torch.infer import tta as TT
 from patchperpix_tpu_torch.models import PPPConfig
+from patchperpix_tpu_torch.utils import blosc as tblosc
 from patchperpix_tpu_torch.utils import io as tio
 from patchperpix_tpu_torch.utils.postprocess import relabel
 
@@ -81,9 +82,11 @@ def test_port_zlib_store_read_by_jax(tmp_path):
         not tio.check_file(path, ["volumes/b"])
 
 
-def test_jax_raw_and_blosc_stores_read_by_port(tmp_path):
-    """JAX-written raw chunks read by the port over ragged boxes and
-    points; the JAX package's default blosc store raises, naming it."""
+def test_jax_raw_and_blosc_stores_read_by_port(tmp_path, monkeypatch):
+    """JAX-written raw chunks and the JAX package's default blosc chunks
+    (zstd, bitshuffle) read by the port over ragged boxes and points equal
+    the JAX package's reads; with libzstd hidden the blosc array raises,
+    naming the library, and a write into it raises."""
     arr = _volume(1)
     path = str(tmp_path / "j.zarr")
     j = jio.IoZarr(path, mode="w")
@@ -106,8 +109,20 @@ def test_jax_raw_and_blosc_stores_read_by_port(tmp_path):
     pts = np.array([[0, 0, 0], [16, 8, 12], [7, 3, 6], [7, 3, 7]])
     np.testing.assert_array_equal(io.read_points(pts, key="volumes/raw"),
                                   arr[(slice(None),) + tuple(pts.T)].T)
-    with pytest.raises(ValueError, match="blosc"):
-        io.read(key="volumes/blosc")
+    want = jio.IoZarr(path).read(key="volumes/blosc")
+    np.testing.assert_array_equal(want, arr)
+    np.testing.assert_array_equal(io.read(key="volumes/blosc"), want)
+    for bb in RAGGED:
+        np.testing.assert_array_equal(io.read(bb=bb, key="volumes/blosc"),
+                                      want[bb])
+    np.testing.assert_array_equal(io.read_points(pts, key="volumes/blosc"),
+                                  want[(slice(None),) + tuple(pts.T)].T)
+    with pytest.raises(ValueError, match="blosc.*read-only"):
+        tio.IoZarr(path, mode="r+").write(arr, key="volumes/blosc")
+    monkeypatch.setattr(tblosc, "_bound", {})
+    monkeypatch.setattr(tblosc, "_load_library", lambda soname: None)
+    with pytest.raises(tblosc.Undecodable, match="libzstd"):
+        tio.open_volume(path).read(key="volumes/blosc")
     with pytest.raises(KeyError):
         io.read(key="volumes/missing")
 

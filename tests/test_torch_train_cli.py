@@ -178,9 +178,9 @@ def test_all_gives_jax_checkpoints_and_results(runs):
         ["sample_test0.json", "sample_test1.json"]
     with open(os.path.join(ev, "sample_test0.json")) as f:
         assert json.load(f)["general"]["Num GT"] == 2
-    # both result keys of the two-set validation live in one store
-    io = tio.IoZarr(os.path.join(t["paths"]["val_instanced"], "120",
-                                 "sample_val0.zarr"))
+    # both result keys of the two-set validation live in one file
+    io = tio.IoHDF5(os.path.join(t["paths"]["val_instanced"], "120",
+                                 "sample_val0.hdf"))
     assert io.read(key="vote_instances_ps0").shape == \
         io.read(key="vote_instances_ps1").shape
 
@@ -284,13 +284,14 @@ def test_refusals(config_file, tmp_path, monkeypatch):
     checked = 0
     for res in sorted(os.listdir(os.path.join(paths["test_instanced"],
                                               "2"))):
-        if not res.endswith(".zarr"):
+        if not res.endswith(".hdf"):
             continue
-        s = res[:-5]
-        inst = tio.IoZarr(os.path.join(paths["test_instanced"], "2",
+        s = res[:-4]
+        inst = tio.IoHDF5(os.path.join(paths["test_instanced"], "2",
                                        res)).read(key="vote_instances")
         affs = tio.IoZarr(os.path.join(paths["test_processed"], "2",
-                                       res)).read(key="volumes/pred_affs")
+                                       s + ".zarr")).read(
+                                           key="volumes/pred_affs")
         mosaic = patch_mosaic(affs.astype(np.float32), (1, 5, 5))
         for png, want in (
                 (os.path.join(paths["test_instanced"], "2", s + ".png"),

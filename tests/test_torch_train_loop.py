@@ -14,6 +14,7 @@ import logging
 import os
 import sys
 
+import h5py
 import jax
 import numpy as np
 import pytest
@@ -205,11 +206,20 @@ def test_snapshots_and_optional_tensorboard(tmp_path, monkeypatch, caplog):
             _sampler("device"), device="cpu")
     assert "tensorboard unavailable" in caplog.text
     assert not os.path.exists(tmp_path / "tb")
-    io = tio.IoZarr(str(tmp_path / "snapshots" / "snapshot_2.zarr"))
+    io = tio.IoHDF5(str(tmp_path / "snapshots" / "snapshot_2.hdf"))
     assert io.read(key="volumes/raw").shape == (2, 1, 16, 16)
     assert io.read(key="volumes/gt_labels").shape == (2, 2, 20, 20)
     assert io.read(key="volumes/pred_head1").dtype == np.float16
     assert io.read(key="volumes/pred_head2").shape == (2, 3, 16, 16)
+    # the JAX package's keys, read through h5py
+    with h5py.File(tmp_path / "snapshots" / "snapshot_2.hdf", "r") as f:
+        keys = []
+        f.visititems(lambda k, v: keys.append(k)
+                     if isinstance(v, h5py.Dataset) else None)
+        assert sorted(keys) == ["volumes/gt_labels", "volumes/pred_head1",
+                                "volumes/pred_head2", "volumes/raw"]
+        for key in keys:
+            np.testing.assert_array_equal(f[key][()], io.read(key=key))
 
 
 @pytest.mark.parametrize("kind", ["device", "host"])

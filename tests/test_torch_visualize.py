@@ -355,8 +355,8 @@ def test_vote_debug_blockwise_renders_nothing(tmp_path):
 @pytest.mark.parametrize("z", [None, 3])
 def test_visualize_task_matches_jax(z, tmp_path):
     """``-d visualize`` with show_patches through both CLIs on the same
-    results (the port's ``.zarr``, the JAX package's ``.hdf``) and
-    predictions: the instance PNG and the patch mosaic equal."""
+    results (``.hdf``, each package's own writer) and predictions: the
+    instance PNG and the patch mosaic equal."""
     affs, fg, ps = _ideal("3d")
     inst = _labels(fg.shape, 5, 14)
     cfg = tmp_path / "viz.toml"
@@ -377,9 +377,8 @@ def test_visualize_task_matches_jax(z, tmp_path):
         # a prediction store without affinities is passed over
         os.makedirs(proc / "empty.zarr")
         if mod is tcli:
-            io = tio.IoZarr(str(res / "s.zarr"), mode="w")
-            io.create("vote_instances", inst.shape, inst.dtype)
-            io.write(inst, key="vote_instances")
+            with tio.IoHDF5(str(res / "s.hdf"), mode="w") as io:
+                io.write(inst, key="vote_instances")
         else:
             with h5py.File(res / "s.hdf", "w") as f:
                 f["vote_instances"] = inst

@@ -194,7 +194,8 @@ def test_finalize_and_write_equals_jax(multi, crop, tmp_path):
         **kw), "s", str(tmp_path / "t"))
     jpath = jvi.finalize_and_write(inst.copy(), fg, jvi.VoteInstancesParams(
         **kw), "s", str(tmp_path / "j"))
-    tout, jout = tio.IoZarr(tpath), jio.open_volume(jpath, mode="r")
+    tout, jout = tio.IoHDF5(tpath), jio.open_volume(jpath, mode="r")
+    assert tout.list_keys() == sorted(jout._f.keys())
     for key in ("vote_instances", "vote_foreground", "vote_instances_masked",
                 "vote_instances_dil_1", "vote_instances_masked_dil_1"):
         assert np.array_equal(tout.read(key=key),
