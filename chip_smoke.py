@@ -14,14 +14,23 @@ under 400 voxels go.  Phases, each printed as one JSON line:
 1. device: the card, and nvidia-smi's name and power limit (also printed
    alone on its own line); then the libraries the blosc decoder binds
    (libzstd.so.1, liblz4.so.1 and their version numbers, or null);
-2. build: nvcc of every source under csrc/ (five kernels), in parallel,
+2. build: nvcc of every source under csrc/ (seven kernels), in parallel,
    and g++ of the host thinning (native/thinning.cpp) beside them;
 3. f32 main path (TF32 off): a warm-up run, then the counted run with
    per-stage times; each CUDA kernel is held against its plain PyTorch
    version on this run's decoded affinities (consensus atol = rtol =
    1e-4, rank atol 1e-3 / rtol 1e-4: the JAX package's own kernel
    tolerances), launched a second time for equal bits, and timed against
-   it (plain, kernel, kernel, plain; CUDA events; medians);
+   it (plain, kernel, kernel, plain; CUDA events; medians).  The counted
+   run launches K1, K2 and the thin cover K6 (``csrc/thin_cover.cu``);
+   then phase cover_kernels on the warm-up run's thin-cover input (held by
+   ``CoverCapture``): K6 against its plain version (the host loops of
+   ``ops/cover.py``), ``selected`` equal bit for bit (integer counts, no
+   tolerance), timed like the kernels above, with the loop's iterations,
+   picks and refreshes, and again with the lazy loop capped at a quarter
+   of its candidates (the cap a kernel argument), where the full loop
+   takes over; and, for information, K6 on the JAX package's own greedy
+   cover list of the crop against its thin cover list;
 4. held against the JAX package's float32 CPU run stored in
    parity/torch_port_ref_f32.npz: foreground agreement >= 99.9 %, equal
    instance count, >= 99 % of foreground voxels agreeing after best-IoU
@@ -48,7 +57,11 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    Gates: in (A) every ground-truth worm is matched by exactly one
    predicted instance with IoU >= 0.5; (A) and (B) agree with the JAX
    package's f32 CPU runs in parity/torch_port_ref2d_f32.npz (at the size
-   stored there) under the limits of phase 4;
+   stored there) under the limits of phase 4.  K3, K4, the cascade K5
+   (``csrc/cover_cascade.cu``, setting (B)) and K6 are each launched; after
+   phase 8, phase cover_kernels on (B)'s warm-up inputs: K5 (``selected``
+   and the still-uncovered volume equal bit for bit) and K6 against their
+   plain versions, as in phase 3;
 8. kernels2d: the 2D consensus and rank kernels against their plain
    versions on path2d's inputs, f32 and bf16 half (consensus atol = rtol =
    1e-4 in f32, 1e-4 + 2^-7 |x| in bf16, one rounding step of the stored
@@ -85,7 +98,7 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    (center_valid set) against their plain versions at phase 3's
    tolerances, equal bits on two launches.  K1 / K2 launches on the path
    must equal the blocks (K2) and the blocks plus stitch windows (K1) that
-   reached the consensus stage;
+   reached the consensus stage, and K6 must be launched;
 11. cli: the reference CLI's path through the port's CLI
    (``patchperpix_tpu_torch.cli.main`` in-process, on the card), the way
    users run it: ``-c configs/flylight_crop_dec.toml -c <override> -d
@@ -100,7 +113,7 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    phase 4's limits on the map, the skeleton of the mask to cover equal
    bit for bit (the port's thinning of the stored foreground always; the
    run's own when its foreground equals the stored one), |avg_f1_cov -
-   the JAX run's| <= 0.01; K1 and K2 launched within the CLI run; then
+   the JAX run's| <= 0.01; K1, K2 and K6 launched within the CLI run; then
    ``postprocess``.  The results are ``<sample>.hdf`` (``IoHDF5``): every
    array the run gave ``IoHDF5`` to write, read back from its file, equal
    bit for bit, with the write and read seconds; and the JAX package's
@@ -159,7 +172,8 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    decode seconds; (a) ``to_instance_seg`` on the ideal
    25x25 affinities of both test samples at 512^2 (94 % foreground):
    maps identical up to relabelling, the same candidate count, metric
-   dicts equal, K3 / K4 launched once each; then K3 / K4 against their
+   dicts equal, K3 / K4 launched once each, K5 / K6 at least once; then
+   K3 / K4 against their
    plain versions on that input (1e-4 / 1e-3 absolute as in phase 8), two
    launches equal, times and bounds; (b) keep_single_slice, the sparse
    grid and the boundary filter on a seeded three-slice stack, bit for
@@ -211,8 +225,8 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    with ``training.num_devices = 2`` (batch 4, the host sampler), 20
    steps, finite losses; (e) (a) and (d) across real cards where there
    are two, else a printed skip;
-16. the script's wall, the kernels line (each row with its launches by
-   counted phase), then the contract's last line.
+16. the script's wall, the kernels line (K1-K4, P1, K5, K6, each row
+   with its launches by counted phase), then the contract's last line.
 
 Any failure raises and exits non-zero before the last line; with no CUDA
 device, or without the repository beside it, it exits 2.
@@ -1101,9 +1115,10 @@ def assemble_2d(setting, inp, affs, dev, timings=None):
     return inst, inter
 
 
-def run_path2d(dev, kernels):
+def run_path2d(dev, kernels, capture=None):
     """Phase path2d.  Returns the launch counts of the counted runs and
-    the device affinities of the full image (for kernels2d)."""
+    the device affinities of the full image (for kernels2d).  ``capture``
+    (a ``CoverCapture``) is entered around the warm-up runs."""
     import numpy as np
     import torch
 
@@ -1115,7 +1130,11 @@ def run_path2d(dev, kernels):
     warm = {}
     for s in PATH2D:
         t0 = time.perf_counter()
-        assemble_2d(s, full[s], affs, dev)
+        if capture is not None and s == "B":
+            with capture:
+                assemble_2d(s, full[s], affs, dev)
+        else:
+            assemble_2d(s, full[s], affs, dev)
         torch.cuda.synchronize(dev)
         warm[s] = time.perf_counter() - t0
     for k in kernels:
@@ -1188,6 +1207,170 @@ def bounds_2d(ag, tgt, cfg, half):
             "rank2d_bytes": in_bytes + live * size + 4 * tgt.numel(),
             "dense_bytes": 4 * (ag.numel() + tgt.numel())
             + half.numel() * size}
+
+class CoverCapture:
+    """While entered, keeps the arguments of the assembly's last cover
+    calls (``vote_instances.greedy_cover_device`` with dense data, the
+    cascade's input, and ``thin_out_cover_device``, the thin cover's): the
+    affinity tensor on its device, the mask to cover, the candidates'
+    centers in order, the overlap rows, the patch shape and fc.  The calls
+    themselves run as they are."""
+
+    def __init__(self):
+        from patchperpix_tpu_torch.assembly import vote_instances as vi
+
+        self.vi = vi
+        self.real = (vi.greedy_cover_device, vi.thin_out_cover_device)
+        self.cascade = self.thin = None
+
+    def __enter__(self):
+        import numpy as np
+
+        greedy, thin = self.real
+
+        def case(affs, mask, patches, ps, fc, overlap=None):
+            centers = np.array([c for c, _ in patches], dtype=np.int64)
+            rows = np.zeros(len(centers), bool) if overlap is None \
+                else np.asarray(overlap)[tuple(centers.T)] > 0
+            return {"affs": affs, "mask": np.array(mask, dtype=bool),
+                    "centers": centers, "overlap_rows": rows,
+                    "ps": tuple(int(p) for p in ps), "fc": float(fc)}
+
+        def rec_greedy(affs, mask, ranked, ps, fc_threshold=0.5,
+                       overlap=None, sparse_data=True, mesh=None):
+            if not sparse_data and ranked:
+                self.cascade = case(affs, mask, ranked, ps, fc_threshold,
+                                    overlap)
+            return greedy(affs, mask, ranked, ps, fc_threshold=fc_threshold,
+                          overlap=overlap, sparse_data=sparse_data, mesh=mesh)
+
+        def rec_thin(affs, mask, selected, ps, fc_threshold=0.5):
+            if selected:
+                self.thin = case(affs, mask, selected, ps, fc_threshold)
+            return thin(affs, mask, selected, ps, fc_threshold=fc_threshold)
+
+        self.vi.greedy_cover_device = rec_greedy
+        self.vi.thin_out_cover_device = rec_thin
+        return self
+
+    def __exit__(self, *exc):
+        self.vi.greedy_cover_device, self.vi.thin_out_cover_device = self.real
+
+
+def pix_thresholds(ps):
+    """The dense-data cascade's pixel thresholds (below P // 2)."""
+    import numpy as np
+
+    mid = int(np.prod(ps)) // 2
+    return tuple(t for t in (500, 100, 50, 10, 0) if t < mid)
+
+
+def cover_case(name, kind, inp, dev, max_it=None, rounds=2):
+    """Phase cover_kernels, one case: K5 (``kind`` "cascade") or K6
+    ("thin", capped at ``max_it`` where given) and its plain version (the
+    host loop, ``ops/cover.py``) on a captured input.  Gate: ``selected``
+    equal bit for bit, and the cascade's still-uncovered volume equal (the
+    counts are integers: no tolerance).  Times: CUDA events, medians of
+    plain, kernel, kernel, plain (each call from the host's arrays to the
+    host's selection).  Bound: the bytes the loop needs (the n affinity
+    columns, the mask, centers and overlap rows read once, the selection
+    and the volume written once) against 2 P operations for each window
+    this run counted; the iteration counts beside it."""
+    import numpy as np
+
+    from patchperpix_tpu_torch.ops import cover as COV
+    from patchperpix_tpu_torch.ops import cover_kernels as CK
+
+    a, mask, centers = inp["affs"], inp["mask"], inp["centers"]
+    ps, fc, ovl = inp["ps"], inp["fc"], inp["overlap_rows"]
+    n, P, V = len(centers), int(np.prod(ps)), int(mask.size)
+    if kind == "cascade":
+        ths = pix_thresholds(ps)
+        kernel = CK.COVER_CASCADE
+
+        def kern():
+            return CK.cover_cascade_cuda(a, mask, centers, ovl, ps, fc, ths)
+
+        def plain():
+            return COV.cover_cascade_plain(a, mask, centers, ovl, ps, fc, ths)
+        sel_k, run_k, st = kern()
+        sel_p, run_p = plain()
+        equal = bool(np.array_equal(sel_k, sel_p)
+                     and np.array_equal(run_k, run_p))
+        err = max(int(np.abs(sel_k.astype(int) - sel_p).max()),
+                  int(np.abs(run_k.astype(int) - run_p).max()))
+        windows = st["bounded"] + st["visits"] + st["takes"]
+        nbytes = 4 * n * P + 2 * V + 12 * n + 2 * n
+    else:
+        kernel = CK.THIN_COVER
+
+        def kern():
+            return CK.thin_cover_cuda(a, mask, centers, ps, fc, max_it=max_it)
+
+        def plain():
+            return COV.thin_cover_plain(a, mask, centers, ps, fc, max_it)
+        sel_k, st = kern()
+        sel_p = plain()
+        equal = bool(np.array_equal(sel_k, sel_p))
+        err = int(np.abs(sel_k.astype(int) - sel_p).max())
+        windows = n + st["refreshes"] + st["picks"]
+        if "full" in st:
+            windows += n * st["full"]["iterations"] + st["full"]["picks"]
+        nbytes = 4 * n * P + V + 12 * n + n
+    ms, plain_ms = time_pair(plain, kern, dev, rounds)
+    bound = bound_ms(nbytes, 2 * P * windows)
+    res = {"phase": "cover_kernels", "case": name, "kernel": kernel.name,
+           "n": n, "P": P, "volume": list(mask.shape),
+           "selected": int(sel_k.sum()), "plain_selected": int(sel_p.sum()),
+           "selected_equal": equal, "max_abs_err": err, "stats": st,
+           "max_it": max_it, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound[0], "bound_by": bound[1], "bytes": nbytes,
+           "windows": windows}
+    emit(res)
+    if not equal:
+        raise AssertionError(f"cover_kernels {name}: {kernel.name} differs "
+                             f"from its plain version")
+    if max_it is not None and not st["capped"]:
+        raise AssertionError(f"cover_kernels {name}: the cap was not reached")
+    return kernel_row(kernel, float(err), ms, plain_ms, bound)
+
+
+def run_cover_kernels_3d(cap, dev):
+    """Phase cover_kernels on the f32 main path's thin-cover input, then the
+    same input with the lazy loop capped at a quarter of its candidates
+    (the full loop takes over).  Information, no gate: K6 on the JAX
+    package's own greedy cover of the crop (parity/torch_port_ref_f32.npz,
+    whose ranked order differs from the port's where scores tie within
+    float32 noise) with the port's affinities, against the JAX run's thin
+    cover.  Returns K6's row."""
+    import numpy as np
+
+    from patchperpix_tpu_torch.ops import cover_kernels as CK
+
+    row = cover_case("f32_path_thin", "thin", cap.thin, dev)
+    n = len(cap.thin["centers"])
+    cover_case("f32_path_thin_capped", "thin", cap.thin, dev,
+               max_it=n // 4, rounds=1)
+    ref, t = np.load(REF_NPZ), cap.thin
+    sel, st = CK.thin_cover_cuda(t["affs"], t["mask"], ref["cover_centers"],
+                                 t["ps"], t["fc"])
+    kept = ref["cover_centers"][sel]
+    emit({"phase": "cover_kernels", "case": "f32_path_thin_of_jax_cover",
+          "n": len(sel), "selected": int(sel.sum()),
+          "jax_selected": len(ref["thin_centers"]),
+          "equal_jax_thin_centers": bool(
+              kept.shape == ref["thin_centers"].shape
+              and np.array_equal(kept, ref["thin_centers"])),
+          "stats": st})
+    return row
+
+
+def run_cover_kernels_2d(cap, dev):
+    """Phase cover_kernels on 2D setting (B)'s cascade input and its
+    thin-cover input.  Returns K5's row."""
+    row = cover_case("path2d_B_cascade", "cascade", cap.cascade, dev)
+    cover_case("path2d_B_thin", "thin", cap.thin, dev)
+    return row
 
 
 def check_kernels_2d(affs, full, dev):
@@ -1577,9 +1760,10 @@ def reader_split(store, dec, fg, extent, dev):
 
 
 def run_blockwise(model, cfg, raw, run, dev, kernels, then=None):
-    """Phase blockwise (gates (a)-(e)); returns the K1 / K2 launches of the
-    counted code-reader run.  ``then(ctx)`` runs before the phase's
-    temporary store goes (the multidevice phase)."""
+    """Phase blockwise (gates (a)-(e)); returns the launches of
+    ``kernels`` (K1, K2, then any other kernel the blocks run, each at
+    least once) in the counted code-reader run.  ``then(ctx)`` runs
+    before the phase's temporary store goes (the multidevice phase)."""
     import shutil
     import tempfile
 
@@ -1660,10 +1844,11 @@ def run_blockwise(model, cfg, raw, run, dev, kernels, then=None):
         t["blockwise_codes"] = time.perf_counter() - t0
         launches = count_launches("blockwise", kernels)
         peak_codes = extra_peak_gb(dev, base)
-        k1, k2 = kernels
+        k1, k2 = kernels[:2]
         if not (launches[k2.name] == stats.blocks_consensus >= 1
                 and launches[k1.name] == stats.blocks_consensus
-                + stats.stitch_consensus):
+                + stats.stitch_consensus
+                and all(launches[k.name] >= 1 for k in kernels[2:])):
             raise AssertionError(f"blockwise launches {launches} disagree "
                                  f"with the run: {stats.as_dict()}")
 
@@ -3234,7 +3419,7 @@ def isbi_kernels(affs, dev):
                              "the ISBI input")
 
 
-def isbi_assembly(dev, kernels, ref, meta):
+def isbi_assembly(dev, kernels, ref, meta, cover=()):
     """Gate (a): the rehearsal's assembly on the ideal affinities of both
     test samples at 512^2 against the JAX package's maps and metric
     dicts; K3 / K4 held against their plain versions on the first."""
@@ -3256,7 +3441,7 @@ def isbi_assembly(dev, kernels, ref, meta):
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        for k in kernels:
+        for k in kernels + cover:
             k.launches = 0
         t, inter, t0 = {}, {}, time.perf_counter()
         inst, fg_out = to_instance_seg(affs, fg, fg.copy(),
@@ -3264,7 +3449,7 @@ def isbi_assembly(dev, kernels, ref, meta):
                                        device=dev, timings=t,
                                        intermediates=inter)
         t["total"] = time.perf_counter() - t0
-        launches = count_launches("isbi_assembly", kernels)
+        launches = count_launches("isbi_assembly", kernels + cover)
         inst[fg_out == 0] = 0
         metrics = evaluate_labels(inst, gt, **isbi_eval_kwargs())
         want = meta["assembly"][sample]
@@ -3289,7 +3474,8 @@ def isbi_assembly(dev, kernels, ref, meta):
                "jax_cpu_s": want["cpu_seconds"],
                "peak_extra_gb": extra_peak_gb(dev, base)}
         emit(res)
-        if not all(n == 1 for n in launches.values()):
+        if not (all(launches[k.name] == 1 for k in kernels)
+                and all(launches[k.name] >= 1 for k in cover)):
             raise AssertionError(f"isbi assembly launches {launches}")
         if not (same and res["metrics_equal_ref"]
                 and res["n_candidates"] == want["n_candidates"]):
@@ -3670,9 +3856,10 @@ def isbi_blosc():
                              f"differs from the zlib copy: {equal}")
 
 
-def run_isbi(dev, kernels):
+def run_isbi(dev, kernels, cover=()):
     """Phase isbi: the blosc data against its zlib copy, then gates (a)
-    to (f) of the ISBI 2012 protocol."""
+    to (f) of the ISBI 2012 protocol; the ``cover`` kernels are counted in
+    gate (a)'s assemblies."""
     import shutil
     import tempfile
 
@@ -3682,7 +3869,7 @@ def run_isbi(dev, kernels):
     t_phase = time.perf_counter()
     ref, meta = np.load(ISBI_REF_NPZ), json.load(open(ISBI_REF_JSON))
     isbi_blosc()
-    isbi_assembly(dev, kernels, ref, meta)
+    isbi_assembly(dev, kernels, ref, meta, cover)
     isbi_boundary(ref)
     out_root = os.path.join(REPO, "experiments_out")
     os.makedirs(out_root, exist_ok=True)
@@ -3817,6 +4004,7 @@ def main() -> int:
     from patchperpix_tpu_torch import native
     from patchperpix_tpu_torch.ops import _build
     from patchperpix_tpu_torch.ops import consensus_kernels as K
+    from patchperpix_tpu_torch.ops import cover_kernels as CK
     from patchperpix_tpu_torch.ops.consensus_kernels import KERNELS
     from patchperpix_tpu_torch.utils.io import IoZarr
     from patchperpix_tpu_torch.weights import build_model
@@ -3855,11 +4043,13 @@ def main() -> int:
     # f32 main path: warm-up, then the counted run
     cfg = crop_config("float32")
     model = build_model(cfg, device=dev)
-    warm = run_path(model, cfg, raw, dev)
+    with CoverCapture() as cap3d:
+        warm = run_path(model, cfg, raw, dev)
     for k in KERNELS:
         k.launches = 0
     run = run_path(model, cfg, raw, dev)
-    launches = count_launches("f32_path", (K.CONSENSUS, K.RANK))
+    launches = count_launches("f32_path",
+                              (K.CONSENSUS, K.RANK, CK.THIN_COVER))
     emit({"phase": "f32_path", "launches": launches,
           "warmup_s": warm["times"], "steady_s": run["times"],
           "fg_vox": int(run["fg"].sum()),
@@ -3873,6 +4063,8 @@ def main() -> int:
         raise AssertionError(f"a kernel was not launched: {launches}")
 
     kernels = check_kernels(run, dev)
+    kernels.append(run_cover_kernels_3d(cap3d, dev))
+    del cap3d
     for k in kernels:
         k["launches"] = launches[k["name"]]
     ref = compare_reference(run)
@@ -3893,7 +4085,8 @@ def main() -> int:
                     "AP"]}
     scores32 = scores(run["inst"])
     emit_roofline("f32", run, cfg, dev)
-    run_blockwise(model, cfg, raw, run, dev, (K.CONSENSUS, K.RANK),
+    run_blockwise(model, cfg, raw, run, dev,
+                  (K.CONSENSUS, K.RANK, CK.THIN_COVER),
                   then=lambda ctx: run_multidevice(ctx, dev,
                                                    (K.CONSENSUS, K.RANK)))
     del run
@@ -3914,7 +4107,7 @@ def main() -> int:
     del run16, model16, model
     torch.cuda.empty_cache()
 
-    run_cli(dev, (K.CONSENSUS, K.RANK),
+    run_cli(dev, (K.CONSENSUS, K.RANK, CK.THIN_COVER),
             then=lambda ctx: run_visualize(ctx, dev, (K.CONSENSUS, K.RANK),
                                            (K.CONSENSUS2D, K.RANK2D)))
     torch.cuda.empty_cache()
@@ -3922,24 +4115,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_swin(dev, (K.CONSENSUS, K.RANK))
     torch.cuda.empty_cache()
-    run_isbi(dev, (K.CONSENSUS2D, K.RANK2D))
+    run_isbi(dev, (K.CONSENSUS2D, K.RANK2D),
+             (CK.COVER_CASCADE, CK.THIN_COVER))
     torch.cuda.empty_cache()
 
     kernels.append(run_probe(dev))
-    launches2d, affs2d, full2d = run_path2d(dev, (K.CONSENSUS2D, K.RANK2D))
+    cap2d = CoverCapture()
+    launches2d, affs2d, full2d = run_path2d(
+        dev, (K.CONSENSUS2D, K.RANK2D, CK.COVER_CASCADE, CK.THIN_COVER),
+        cap2d)
     if not all(n >= 1 for n in launches2d.values()):
         raise AssertionError(f"a 2D kernel was not launched: {launches2d}")
     rows2d = check_kernels_2d(affs2d, full2d, dev)
+    rows2d.append(run_cover_kernels_2d(cap2d, dev))
     for k in rows2d:
         k["launches"] = launches2d[k["name"]]
-    kernels[2:2] = rows2d
-    del affs2d, full2d
+    kernels += rows2d
+    del affs2d, full2d, cap2d
     torch.cuda.empty_cache()
     check_model2d(dev)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
+    names = [k.name for k in KERNELS]
+    kernels.sort(key=lambda k: names.index(k["name"]))
     for k in kernels:
         k["launches_by_phase"] = {ph: n[k["name"]] for ph, n in
                                   LAUNCHES.items() if k["name"] in n}

@@ -8,17 +8,19 @@ Counterpart of ``patchperpix_tpu/ops/cover.py`` for the main path:
   (``_greedy_cover_min_scatter``, cover.py:84-140), z-sharded over a
   mesh where one is given (cover.py:293-343).  For dense data the
   cascade of ranked-order sweeps, one per pix_th in 500/100/50/10/0 below
-  P // 2 (``_greedy_cover_volume``, cover.py:30-81): the candidates'
-  fc-thresholded columns are gathered once on the device, and the sweep,
-  sequential by nature, runs on the host over them
-  (``_greedy_cover_cascade``).
+  P // 2 (``_greedy_cover_volume``, cover.py:30-81): on a CUDA tensor the
+  kernel ``csrc/cover_cascade.cu`` runs the whole cascade on the card
+  (``ops/cover_kernels.py``); on a CPU tensor its plain version, the host
+  loop ``_greedy_cover_cascade`` over the candidates' fc-thresholded
+  columns.
 - ``thin_out_cover_device``: the lazy greedy set cover (cover.py:143-234)
   with its exact full-recompute fallback (:237-284) when the iteration cap
-  is hit.  The patch masks are gathered on the device; the loop itself is
-  sequential and scalar (one argmax and one 7^3 window per step), so it
-  runs on the host over those (n, P) masks: on the card every step would
-  be a host round trip.
+  is hit.  On a CUDA tensor the kernel ``csrc/thin_cover.cu`` runs both
+  loops on the card; on a CPU tensor their plain versions, the host loops
+  ``_thin_cover_lazy`` / ``_thin_cover_full`` over the (n, P) patch masks.
 
+On the card nothing but the selection (and the cascade's still-uncovered
+volume) comes back to the host, once; any other device raises.
 Tie-breaking matches the reference: candidates are visited in ranked
 order and the set-cover argmax takes the first maximal patch.
 """
@@ -29,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .consensus_kernels import _route
+from .cover_kernels import cover_cascade_cuda, thin_cover_cuda
 from .np_reference import interior, patch_offsets
 
 _INF = 2 ** 30
@@ -68,15 +72,12 @@ def greedy_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
     else:
         overlap_rows = np.zeros(n, dtype=bool)
     if pix_ths != (0,):
-        pmasks = _patch_masks(affs, centers, fc_threshold)
-        win, running, inner = _thin_cover_volumes(mask_to_cover, centers, ps)
-        selected = _greedy_cover_cascade(pmasks, win, running, inner,
-                                         overlap_rows, pix_ths)
-        pad_shape = tuple(int(s + 2 * r) for s, r in zip(vol_shape, rad))
-        crop = tuple(slice(int(r), int(r) + s)
-                     for r, s in zip(rad, vol_shape))
+        run = cover_cascade_cuda if _route(affs, "greedy cover") \
+            else cover_cascade_plain
+        selected, running = run(affs, mask_to_cover, centers, overlap_rows,
+                                ps, fc_threshold, pix_ths)[:2]
         return [rp for i, rp in enumerate(ranked_patches) if selected[i]], \
-            running.reshape(pad_shape)[crop] > 0.5
+            running
     ranks = np.where(overlap_rows, _INF, np.arange(n))
     rankvol = torch.full(vol_shape, _INF, dtype=torch.int32, device=dev)
     c_t = torch.as_tensor(centers, device=dev)
@@ -132,6 +133,41 @@ def min_rank_field(affs: torch.Tensor, rankvol: torch.Tensor, ps,
     return view.amin(dim=(0, 1, 2))
 
 
+def cover_cascade_plain(affs: torch.Tensor, mask_to_cover: np.ndarray,
+                        centers: np.ndarray, overlap_rows: np.ndarray,
+                        ps, fc_threshold: float, pix_ths) -> tuple:
+    """Plain version of ``csrc/cover_cascade.cu``: the host cascade over
+    the candidates' columns, gathered on ``affs.device``.  Returns
+    (selected bool (n,), still-uncovered bool volume)."""
+    ps = np.asarray(ps, dtype=np.int64)
+    rad = ps // 2
+    vol_shape = tuple(int(s) for s in mask_to_cover.shape)
+    pmasks = _patch_masks(affs, centers, fc_threshold)
+    win, running, inner = _thin_cover_volumes(mask_to_cover, centers, ps)
+    selected = _greedy_cover_cascade(pmasks, win, running, inner,
+                                     overlap_rows, pix_ths)
+    pad_shape = tuple(int(s + 2 * r) for s, r in zip(vol_shape, rad))
+    crop = tuple(slice(int(r), int(r) + s) for r, s in zip(rad, vol_shape))
+    return selected, running.reshape(pad_shape)[crop] > 0.5
+
+
+def thin_cover_plain(affs: torch.Tensor, mask_to_cover: np.ndarray,
+                     centers: np.ndarray, ps, fc_threshold: float,
+                     max_it: int | None = None) -> np.ndarray:
+    """Plain version of ``csrc/thin_cover.cu``: the host lazy loop over
+    the patch masks gathered on ``affs.device`` and, where it reaches its
+    cap (``max_it``, by default 64 n + 1024), the full loop.  Returns
+    selected bool (n,)."""
+    ps = np.asarray(ps, dtype=np.int64)
+    pmasks = _patch_masks(affs, centers, fc_threshold)
+    win, running0, inner = _thin_cover_volumes(mask_to_cover, centers, ps)
+    selected, capped = _thin_cover_lazy(pmasks, win, running0.copy(), inner,
+                                        centers, ps, max_it)
+    if capped:
+        selected = _thin_cover_full(pmasks, win, running0.copy(), inner)
+    return selected
+
+
 def _patch_masks(affs: torch.Tensor, centers: np.ndarray,
                  fc_threshold: float) -> np.ndarray:
     """(n, P) float32 0/1 on the host: each center's patch column above
@@ -176,12 +212,15 @@ def _greedy_cover_cascade(pmasks, win, running, inner, overlap_rows,
     return selected
 
 
-def _thin_cover_lazy(pmasks, win, running, inner, centers, ps):
+def _thin_cover_lazy(pmasks, win, running, inner, centers, ps,
+                     max_it=None):
     """Exact lazy greedy set cover (cover.py:143-234) over the flat
     rad-padded volumes ``running`` / ``inner``; ``win[i]`` holds the flat
-    indices of patch i's window.  Returns (selected, capped)."""
+    indices of patch i's window.  Stops at ``max_it`` iterations (64 n +
+    1024 by default, as the reference).  Returns (selected, capped)."""
     n = len(centers)
-    max_it = 64 * n + 1024
+    if max_it is None:
+        max_it = 64 * n + 1024
     sizes = np.sum(pmasks * running[win], axis=1, dtype=np.float64)
     stale = np.zeros(n, bool)
     selected = np.zeros(n, bool)
@@ -257,10 +296,10 @@ def thin_out_cover_device(affs: torch.Tensor, mask_to_cover: np.ndarray,
     if not selected_patches:
         return []
     centers = np.array([rp[0] for rp in selected_patches], dtype=np.int64)
-    pmasks = _patch_masks(affs, centers, fc_threshold)
-    win, running0, inner = _thin_cover_volumes(mask_to_cover, centers, ps)
-    selected, capped = _thin_cover_lazy(pmasks, win, running0.copy(), inner,
-                                        centers, ps)
-    if capped:
-        selected = _thin_cover_full(pmasks, win, running0.copy(), inner)
+    if _route(affs, "thin cover"):
+        selected = thin_cover_cuda(affs, mask_to_cover, centers, ps,
+                                   fc_threshold)[0]
+    else:
+        selected = thin_cover_plain(affs, mask_to_cover, centers, ps,
+                                    fc_threshold)
     return [rp for i, rp in enumerate(selected_patches) if selected[i]]

@@ -9,8 +9,10 @@
 // a block, the blocks one after the other, __syncthreads as a barrier
 // over the block's threads that have not yet returned from the kernel.
 // `__shared__` variables are statics, which is right because only one block
-// runs at a time.  PPP_HOST_MOCK tells the sources to take plain loads
-// where the card's build uses Hopper instructions.
+// runs at a time.  A warp's shuffles and __syncwarp meet at a barrier over
+// the warp's threads, so the lanes of a warp must call them together, as
+// on the card.  PPP_HOST_MOCK tells the sources to take plain loads where
+// the card's build uses Hopper instructions.
 
 #pragma once
 
@@ -19,8 +21,10 @@
 #include <algorithm>
 #include <condition_variable>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -58,6 +62,7 @@ enum {
   cudaErrorInvalidDevice = 101
 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t e) {
@@ -75,6 +80,11 @@ inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
   return cudaSuccess;
 }
+// an H100's opt-in limit
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 232448;
+  return cudaSuccess;
+}
 
 using std::max;
 using std::min;
@@ -89,6 +99,9 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
 }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicAnd(unsigned* p, unsigned v) {
+  return __atomic_fetch_and(p, v, __ATOMIC_SEQ_CST);
 }
 
 namespace ppp_mock {
@@ -128,6 +141,14 @@ struct Block {
 inline Block block;
 inline unsigned char* dyn_smem = nullptr;
 
+// A warp: the same barrier over its threads, and one 8-byte slot a lane
+// for the shuffles.
+struct Warp {
+  Block barrier;
+  unsigned long long slot[32];
+};
+inline std::vector<std::unique_ptr<Warp>> warps;
+
 }  // namespace ppp_mock
 
 inline thread_local dim3 threadIdx, blockIdx;
@@ -136,6 +157,33 @@ inline dim3 blockDim, gridDim;
 inline void __syncthreads() { ppp_mock::block.sync(0); }
 inline int __syncthreads_or(int pred) {
   return ppp_mock::block.sync(pred != 0);
+}
+
+namespace ppp_mock {
+inline unsigned thread_rank() {
+  return threadIdx.x + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
+}
+inline Warp& my_warp() { return *warps[thread_rank() / 32]; }
+}  // namespace ppp_mock
+
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  ppp_mock::my_warp().barrier.sync(0);
+}
+// v of lane (this lane ^ lane_mask); every lane of the warp calls it
+template <typename T>
+T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  static_assert(sizeof(T) <= 8, "a shuffle moves at most 8 bytes");
+  ppp_mock::Warp& w = ppp_mock::my_warp();
+  const unsigned lane = ppp_mock::thread_rank() % 32;
+  unsigned long long bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  w.slot[lane] = bits;
+  w.barrier.sync(0);  // every lane has written
+  bits = w.slot[(lane ^ (unsigned)lane_mask) % 32];
+  w.barrier.sync(0);  // every lane has read
+  T out;
+  std::memcpy(&out, &bits, sizeof(T));
+  return out;
 }
 
 namespace ppp_mock {
@@ -153,6 +201,11 @@ inline void launch(dim3 grid, dim3 blk, size_t smem,
         block.alive = n;
         block.waiting = 0;
         block.vote = 0;
+        warps.clear();
+        for (unsigned w = 0; w * 32 < n; ++w) {
+          warps.emplace_back(new Warp());
+          warps.back()->barrier.alive = std::min(32u, n - w * 32);
+        }
         std::vector<std::thread> threads;
         threads.reserve(n);
         for (unsigned t = 0; t < n; ++t)
@@ -161,6 +214,7 @@ inline void launch(dim3 grid, dim3 blk, size_t smem,
                              t / (blk.x * blk.y));
             blockIdx = dim3(bx, by, bz);
             body();
+            warps[t / 32]->barrier.leave();
             block.leave();
           });
         for (auto& th : threads) th.join();

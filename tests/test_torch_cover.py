@@ -84,7 +84,7 @@ def test_thin_cover_full_fallback_equals_lazy():
 @pytest.mark.parametrize("seed,fc,use_overlap", [(0, 0.5, True),
                                                  (1, 0.5, False),
                                                  (2, 0.7, True)])
-def test_dense_cascade_is_refused(seed, fc, use_overlap):
+def test_dense_cascade_matches_jax(seed, fc, use_overlap):
     """The dense-data cascade (one ranked sweep per pixel threshold below
     P // 2) is no longer refused: it selects what the JAX package's
     selects, in order, and leaves the same pixels uncovered."""
@@ -103,3 +103,32 @@ def test_dense_cascade_is_refused(seed, fc, use_overlap):
     np.testing.assert_array_equal([c for c, _ in got], [c for c, _ in want])
     assert [s for _, s in got] == [s for _, s in want]
     np.testing.assert_array_equal(got_run, np.asarray(want_run))
+
+
+def test_card_route_never_runs_a_host_loop(monkeypatch):
+    """Off the CPU the cover stages launch their kernels or raise: a tensor
+    on another device (``meta``) raises before any host loop runs, and the
+    kernels' wrappers refuse a CPU tensor."""
+    from patchperpix_tpu_torch.ops import cover_kernels as CK
+
+    affs, mask, ranked, overlap = _data(0)
+
+    def no_host_loop(*a, **k):
+        raise AssertionError("a host loop ran")
+    for name in ("_greedy_cover_cascade", "_thin_cover_lazy",
+                 "_thin_cover_full", "_patch_masks", "cover_cascade_plain",
+                 "thin_cover_plain"):
+        monkeypatch.setattr(tcover, name, no_host_loop)
+    meta = torch.empty(affs.shape, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tcover.greedy_cover_device(meta, mask, ranked, PS, overlap=overlap,
+                                   sparse_data=False)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tcover.thin_out_cover_device(meta, mask, ranked[:20], PS)
+    centers = np.array([c for c, _ in ranked])
+    with pytest.raises(ValueError, match="not CUDA"):
+        CK.cover_cascade_cuda(torch.from_numpy(affs), mask, centers,
+                              np.zeros(len(centers), bool), PS, 0.5, (50, 0))
+    with pytest.raises(ValueError, match="not CUDA"):
+        CK.thin_cover_cuda(torch.from_numpy(affs), mask, centers, PS, 0.5)
+    assert CK.COVER_CASCADE.launches == CK.THIN_COVER.launches == 0

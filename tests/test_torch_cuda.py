@@ -9,7 +9,8 @@ on the GPU machine, which has none:
 Tolerances: consensus 1e-4 absolute and relative, rank 1e-3 absolute /
 1e-4 relative (the JAX package's own kernel tolerances, 3D and 2D); a bf16
 half within one rounding step of the stored type (2^-7 relative); the
-row-window probe 1e-4 absolute.  The CLI on the FlyLight crop holds its
+row-window probe 1e-4 absolute; the cover kernels K5 / K6 equal to their
+host loops bit for bit (integer counts).  The CLI on the FlyLight crop holds its
 map against chip_smoke.py's f32 main path under chip_smoke.py's phase 4
 limits (the CLI stages the heads and affinities through float16 stores).
 """
@@ -773,3 +774,112 @@ def test_sharded_path_and_mesh_step_on_one_card(dev):
     for n in g1:
         assert float((g2[n] - g1[n]).norm()) <= 1e-5 * max(
             float(g1[n].norm()), 1e-30), n
+
+
+# -- the cover loops (K5, K6) ---------------------------------------------------
+
+def _cover_equal(cap, cap_it=None):
+    """K5 on ``cap``'s cascade input (where it has one) and K6 on its thin
+    input against their plain versions (the host loops): selections, and
+    the cascade's still-uncovered volume, equal bit for bit; both block
+    sizes' staging (shared memory, device memory) alike."""
+    import chip_smoke as cs
+    from patchperpix_tpu_torch.ops import cover as COV
+    from patchperpix_tpu_torch.ops import cover_kernels as CK
+
+    if cap.cascade is not None:
+        c = cap.cascade
+        ths = cs.pix_thresholds(c["ps"])
+        args = (c["affs"], c["mask"], c["centers"], c["overlap_rows"],
+                c["ps"], c["fc"], ths)
+        want_sel, want_run = COV.cover_cascade_plain(*args)
+        for kw in ({}, {"smem_cap": 0, "threads": 256}):
+            sel, run, st = CK.cover_cascade_cuda(*args, **kw)
+            assert np.array_equal(sel, want_sel), kw
+            assert np.array_equal(run, want_run), kw
+            assert st["takes"] == want_sel.sum() > 0
+    t = cap.thin
+    args = (t["affs"], t["mask"], t["centers"], t["ps"], t["fc"])
+    want = COV.thin_cover_plain(*args, max_it=cap_it)
+    for kw in ({}, {"smem_cap": 0, "threads": 128}):
+        sel, st = CK.thin_cover_cuda(*args, max_it=cap_it, **kw)
+        assert np.array_equal(sel, want), kw
+        assert st["capped"] == (cap_it is not None)
+    return int(want.sum())
+
+
+def test_cover_kernels_on_the_3d_crop_input(dev):
+    """K6 on the f32 main path's thin-cover input (the FlyLight crop,
+    7^3 patches), uncapped and with the lazy loop capped at a quarter of
+    its candidates (the full loop takes over)."""
+    import chip_smoke as cs
+    from patchperpix_tpu_torch.utils.io import IoZarr
+    from patchperpix_tpu_torch.weights import build_model
+
+    io = IoZarr(cs.FIXTURE)
+    raw = np.clip(io.read(key="volumes/raw").astype(np.float32), 0,
+                  1500.0) / 1500.0
+    cfg = cs.crop_config("float32")
+    with cs.CoverCapture() as cap:
+        run = cs.run_path(build_model(cfg, device=dev), cfg, raw, dev)
+    n = len(cap.thin["centers"])
+    assert n == len(run["inter"]["cover_centers"]) > 1000
+    kept = _cover_equal(cap)
+    assert kept == len(run["inter"]["thin_centers"])
+    assert _cover_equal(cap, cap_it=n // 4) == kept
+
+
+def test_cover_kernels_on_the_2d_b_input(dev):
+    """K5 and K6 on 2D setting (B)'s inputs (the 16-worm image at 520x696,
+    25x25 patches, dense-data cover, overlaps)."""
+    import chip_smoke as cs
+
+    full = cs.path2d_inputs("B")
+    with cs.CoverCapture() as cap:
+        _, inter = cs.assemble_2d("B", full, torch.as_tensor(
+            full["affs"], device=dev), dev)
+    assert len(cap.cascade["centers"]) == len(inter["ranked_centers"])
+    assert _cover_equal(cap) == len(inter["thin_centers"])
+
+
+def test_cover_kernels_from_several_threads(dev):
+    """Blockwise assembly launches from several host threads on one
+    stream: each launch has its own scratch and gives the plain result."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from patchperpix_tpu_torch.ops import cover as COV
+    from patchperpix_tpu_torch.ops import cover_kernels as CK
+    from patchperpix_tpu_torch.ops import synthetic
+
+    cases = []
+    for seed in range(6):
+        rng = np.random.RandomState(seed)
+        lab = np.zeros((24, 26, 28), np.int32)
+        for k in range(1, 5):
+            z, y, x = rng.randint(4, 20, 3)
+            lab[z - 3:z + 4, y - 4:y + 5, x - 5:x + 6] = k
+        affs = synthetic.labels_to_affinities(lab, np.array((5, 5, 5)))
+        affs = np.clip(affs * 0.8 + 0.2 * rng.rand(*affs.shape), 0, 1)
+        mask = lab > 0
+        centers = np.argwhere(mask)[rng.permutation(int(mask.sum()))]
+        cases.append((torch.as_tensor(affs.astype(np.float32), device=dev),
+                      mask, centers))
+
+    def both(case):
+        a, mask, centers = case
+        ovl = np.zeros(len(centers), bool)
+        sel, run, _ = CK.cover_cascade_cuda(a, mask, centers, ovl,
+                                            (5, 5, 5), 0.5, (50, 10, 0))
+        thin, _ = CK.thin_cover_cuda(a, mask, centers[sel], (5, 5, 5), 0.5)
+        return sel, run, thin
+
+    with ThreadPoolExecutor(4) as ex:
+        got = list(ex.map(both, cases * 2))
+    for (a, mask, centers), (sel, run, thin) in zip(cases * 2, got):
+        want_sel, want_run = COV.cover_cascade_plain(
+            a, mask, centers, np.zeros(len(centers), bool), (5, 5, 5), 0.5,
+            (50, 10, 0))
+        assert np.array_equal(sel, want_sel)
+        assert np.array_equal(run, want_run)
+        assert np.array_equal(thin, COV.thin_cover_plain(
+            a, mask, centers[sel], (5, 5, 5), 0.5))

@@ -1,10 +1,11 @@
 """Host rehearsal of the consensus and rank CUDA kernels, 3D
 (``csrc/consensus.cu``, ``csrc/rank.cu``, with ``csrc/pack_codes.cuh``) and
 2D (``csrc/consensus2d.cu``, ``csrc/rank2d.cu``), with
-``csrc/fill_zero.cuh``, and of the row-window probe
-(``csrc/probe_window.cu``): compiled by g++ against the small mock of the CUDA
-headers in ``tests/cuda_mock/`` and run on the CPU, the grid as loops and
-one host thread per CUDA thread of a block, against their plain PyTorch
+``csrc/fill_zero.cuh``, of the row-window probe (``csrc/probe_window.cu``)
+and of the cover loops (``csrc/cover_cascade.cu``, ``csrc/thin_cover.cu``,
+with ``csrc/cover_window.cuh``): compiled by g++ against the small mock of
+the CUDA headers in ``tests/cuda_mock/`` and run on the CPU, the grid as
+loops and one host thread per CUDA thread of a block, against their plain
 versions at tiny shapes.
 
 This checks the kernels' indexing, gates and sums before any time on a
@@ -17,7 +18,8 @@ Tolerances as for the kernels on the card: consensus 1e-4 absolute and
 relative (2^-7 relative for a bf16 half), rank 1e-3 absolute / 1e-4
 relative, the probe 1e-4 absolute (it sums in the plain version's order,
 so it is also held to equal bits); the pack pass's words and planes are
-compared exactly.
+compared exactly, and so are the cover loops' selections and
+still-uncovered volumes (their counts are integers).
 """
 
 import ctypes
@@ -32,6 +34,8 @@ import torch
 
 from patchperpix_tpu_torch.ops import consensus as C
 from patchperpix_tpu_torch.ops import consensus_kernels as K
+from patchperpix_tpu_torch.ops import cover as COV
+from patchperpix_tpu_torch.ops import cover_kernels as CK
 from patchperpix_tpu_torch.ops import probe as PR
 from patchperpix_tpu_torch.ops._build import CSRC
 
@@ -98,7 +102,9 @@ def libs(tmp_path_factory):
                              ("rank2d", "rank2d", []),
                              ("rank2d_rounds", "rank2d",
                               ["-DPPP_RANK_ITEMS_MIN=50"]),
-                             ("probe_window", "probe_window", [])):
+                             ("probe_window", "probe_window", []),
+                             ("cover_cascade", "cover_cascade", []),
+                             ("thin_cover", "thin_cover", [])):
         so = out / f"lib{name}_host.so"
         subprocess.run(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", *flags,
@@ -498,3 +504,229 @@ def test_cuda_kernel_binds_each_entry_point_once(libs, monkeypatch):
                     ctypes.c_char_p)
     assert msg(0) and kern.bind("ppp_probe_window_error_string",
                                 [ctypes.c_int]) is msg
+
+
+# the cover loops (K5, K6): the wrappers' own marshalling
+# (ops/cover_kernels.py) around the host build of each source
+
+def _entry(lib, kernel):
+    fn = getattr(lib, kernel.symbol)
+    fn.argtypes = kernel.argtypes
+    fn.restype = ctypes.c_int
+
+    def launch(*args):
+        assert fn(*args) == 0
+    return launch
+
+
+def _cascade_host(libs, affs, mask, centers, ovl, ps, fc, ths, **kw):
+    return CK.run_cover_cascade(_entry(libs["cover_cascade"],
+                                       CK.COVER_CASCADE),
+                                torch.from_numpy(affs), mask, centers, ovl,
+                                ps, fc, ths, **kw)
+
+
+def _thin_host(libs, affs, mask, centers, ps, fc, mode="lazy", max_it=None,
+               **kw):
+    return CK.run_thin_cover(_entry(libs["thin_cover"], CK.THIN_COVER),
+                             torch.from_numpy(affs), mask, centers, ps, fc,
+                             mode, max_it, **kw)
+
+
+def _pix_ths(ps):
+    mid = int(np.prod(ps)) // 2
+    return tuple(t for t in (500, 100, 50, 10, 0) if t < mid)
+
+
+def _blobs_2d(shape, p, seed):
+    """A (1, H, W) image of a few overlapping discs, reaching the borders,
+    with noisy ideal (1, p, p) affinities; the mask to cover is all of the
+    foreground (border pixels included), the candidates every foreground
+    pixel in a seeded order with ties.  Returns (affs, mask, centers,
+    overlap rows)."""
+    from patchperpix_tpu_torch.ops import synthetic
+
+    rng = np.random.RandomState(seed)
+    lab = np.zeros(shape, np.int32)
+    yy, xx = np.mgrid[:shape[1], :shape[2]]
+    for k in range(1, 6):
+        cy, cx = rng.randint(0, shape[1]), rng.randint(0, shape[2])
+        r = rng.randint(3, 7)
+        lab[0][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = k
+    affs = synthetic.labels_to_affinities(lab, np.array((1, p, p)))
+    affs = np.clip(affs * 0.7 + 0.3 * rng.rand(*affs.shape), 0, 1).astype(
+        np.float32)
+    fg = lab > 0
+    cand = np.argwhere(fg)
+    scores = rng.rand(len(cand)).astype(np.float32)
+    scores[::5] = scores[1]
+    centers = cand[np.argsort(-scores, kind="stable")]
+    ovl = rng.rand(len(centers)) < 0.05
+    return affs, fg, centers, ovl
+
+
+def _cover_data(seed):
+    """tests/test_torch_cover.py's 3D inputs (5^3 patches, 16x17x18, tied
+    scores, overlap rows): (affs, mask, ranked centers, overlap rows)."""
+    from test_torch_cover import _data
+
+    affs, mask, ranked, overlap = _data(seed)
+    centers = np.array([c for c, _ in ranked])
+    return affs, mask, centers, overlap[tuple(centers.T)] > 0
+
+
+@pytest.mark.parametrize("threads,smem_cap,chunk", [
+    (64, CK.SMEM_CAP, 256),     # running bits in shared memory
+    (96, 0, 40),                # in device memory, three warps
+])
+@pytest.mark.parametrize("seed,fc", [(0, 0.5), (2, 0.7)])
+def test_cover_cascade_source_matches_plain_on_host(libs, seed, fc, threads,
+                                                    smem_cap, chunk):
+    affs, mask, centers, ovl = _cover_data(seed)
+    ps = (5, 5, 5)
+    want_sel, want_run = COV.cover_cascade_plain(
+        torch.from_numpy(affs), mask, centers, ovl, ps, fc, _pix_ths(ps))
+    sel, run, st = _cascade_host(libs, affs, mask, centers, ovl, ps, fc,
+                                 _pix_ths(ps), threads=threads,
+                                 smem_cap=smem_cap, chunk=chunk)
+    assert ovl.any() and 0 < want_sel.sum() < len(centers)
+    assert not (sel & ovl).any()
+    np.testing.assert_array_equal(sel, want_sel)
+    np.testing.assert_array_equal(run, want_run)
+    assert st["takes"] == want_sel.sum() and st["visits"] >= st["takes"]
+
+
+@pytest.mark.parametrize("seed", [3, 7])
+def test_cover_cascade_source_stops_mid_chunk_on_host(libs, seed):
+    """A flat (1, H, W) image with (1, 7, 7) patches whose mask to cover
+    reaches the borders: the interior is covered (rem reaches 0) at a
+    candidate in the middle of a chunk while later candidates still cover
+    more than the threshold outside the interior; none of them is taken."""
+    ps = (1, 7, 7)
+    affs, mask, centers, ovl = _blobs_2d((1, 24, 27), 7, seed)
+    ths = _pix_ths(ps)
+    a = torch.from_numpy(affs)
+    want_sel, want_run = COV.cover_cascade_plain(a, mask, centers, ovl, ps,
+                                                 0.5, ths)
+    # the same cascade counting every pixel to cover as interior: rem then
+    # reaches 0 later, and more candidates are taken
+    pm = COV._patch_masks(a, centers, 0.5)
+    win, run0, _ = COV._thin_cover_volumes(mask, centers, np.array(ps))
+    more = COV._greedy_cover_cascade(pm, win, run0.copy(),
+                                     (run0 > 0).astype(np.float32), ovl, ths)
+    assert more.sum() > want_sel.sum() > 0
+    last = int(np.flatnonzero(want_sel)[-1])
+    assert last + 1 < len(centers)
+    for chunk in (last + 3, 16):
+        assert last % chunk != chunk - 1
+        sel, run, st = _cascade_host(libs, affs, mask, centers, ovl, ps, 0.5,
+                                     ths, threads=64, chunk=chunk)
+        np.testing.assert_array_equal(sel, want_sel)
+        np.testing.assert_array_equal(run, want_run)
+        assert run.any() and st["sweeps"] <= len(ths)
+
+
+def _thin_centers(affs, mask, centers, ovl, ps, fc):
+    """The candidates a thin cover takes: the greedy cover's selection."""
+    sel, _ = COV.cover_cascade_plain(torch.from_numpy(affs), mask, centers,
+                                     ovl, ps, fc, (0,))
+    return centers[sel]
+
+
+@pytest.mark.parametrize("threads,smem_cap", [(64, CK.SMEM_CAP), (96, 0)])
+@pytest.mark.parametrize("seed,fc", [(0, 0.5), (1, 0.5), (2, 0.7)])
+def test_thin_cover_source_matches_plain_on_host(libs, seed, fc, threads,
+                                                 smem_cap):
+    affs, mask, centers, ovl = _cover_data(seed)
+    ps = (5, 5, 5)
+    cen = _thin_centers(affs, mask, centers, ovl, ps, fc)
+    want = COV.thin_cover_plain(torch.from_numpy(affs), mask, cen, ps, fc)
+    got, st = _thin_host(libs, affs, mask, cen, ps, fc, threads=threads,
+                         smem_cap=smem_cap)
+    assert 0 < want.sum() < len(cen)
+    np.testing.assert_array_equal(got, want)
+    assert not st["capped"] and st["picks"] == want.sum()
+    assert st["iterations"] == st["picks"] + st["refreshes"]
+    full, _ = _thin_host(libs, affs, mask, cen, ps, fc, "full",
+                         threads=threads, smem_cap=smem_cap)
+    np.testing.assert_array_equal(full, want)
+
+
+@pytest.mark.parametrize("seed", [3, 5])
+def test_thin_cover_source_2d_on_host(libs, seed):
+    ps = (1, 7, 7)
+    affs, mask, centers, ovl = _blobs_2d((1, 24, 27), 7, seed)
+    cen = _thin_centers(affs, mask, centers, ovl, ps, 0.5)
+    want = COV.thin_cover_plain(torch.from_numpy(affs), mask, cen, ps, 0.5)
+    got, st = _thin_host(libs, affs, mask, cen, ps, 0.5, threads=64)
+    assert 0 < want.sum() < len(cen)
+    np.testing.assert_array_equal(got, want)
+    assert st["refreshes"] > 0
+    # the same image as a 2D volume (H, W) with (7, 7) patches
+    got2, _ = _thin_host(libs, affs.reshape(49, 24, 27), mask[0], cen[:, 1:],
+                         (7, 7), 0.5, threads=64)
+    np.testing.assert_array_equal(got2, want)
+
+
+def test_thin_cover_source_at_its_cap_on_host(libs):
+    """A lazy loop cut at 12 iterations: it reports the cap and has
+    selected what the plain lazy loop selects in 12 iterations; the full
+    mode then selects what the uncapped loops select."""
+    affs, mask, centers, ovl = _cover_data(1)
+    ps = (5, 5, 5)
+    a = torch.from_numpy(affs)
+    cen = _thin_centers(affs, mask, centers, ovl, ps, 0.5)
+    pm = COV._patch_masks(a, cen, 0.5)
+    win, run0, inner = COV._thin_cover_volumes(mask, cen, np.array(ps))
+    want_cut, capped = COV._thin_cover_lazy(pm, win, run0.copy(), inner, cen,
+                                            np.array(ps), max_it=12)
+    assert capped and 0 < want_cut.sum() < 12
+    got_cut, st = _thin_host(libs, affs, mask, cen, ps, 0.5, max_it=12,
+                             threads=64)
+    assert st["capped"] and st["iterations"] == 12
+    np.testing.assert_array_equal(got_cut, want_cut)
+    want = COV.thin_cover_plain(a, mask, cen, ps, 0.5)
+    np.testing.assert_array_equal(
+        COV.thin_cover_plain(a, mask, cen, ps, 0.5, max_it=12), want)
+    full, st_full = _thin_host(libs, affs, mask, cen, ps, 0.5, "full",
+                               threads=64)
+    assert not st_full["capped"]
+    np.testing.assert_array_equal(full, want)
+
+
+def test_cover_routes_to_the_sources_on_host(libs, monkeypatch):
+    """``greedy_cover_device`` (dense data) and ``thin_out_cover_device``
+    on a tensor routed as a card's: the wrappers launch the host build of
+    the kernels, no host loop runs, and the selections equal the JAX
+    package's, in order."""
+    from patchperpix_tpu.ops import cover as jcover
+
+    affs, mask, centers, ovl = _cover_data(0)
+    from test_torch_cover import _data
+    _, _, ranked, overlap = _data(0)
+    ps = (5, 5, 5)
+    monkeypatch.setattr(COV, "_route", lambda t, what: True)
+    for kern, lib in ((CK.COVER_CASCADE, "cover_cascade"),
+                      (CK.THIN_COVER, "thin_cover")):
+        monkeypatch.setattr(
+            CK, "_card", lambda k, t: (_entry(libs[k.name], k), None))
+
+    def no_host_loop(*a, **k):
+        raise AssertionError("a host loop ran")
+    for name in ("_greedy_cover_cascade", "_thin_cover_lazy",
+                 "_thin_cover_full", "_patch_masks"):
+        monkeypatch.setattr(COV, name, no_host_loop)
+    a = torch.from_numpy(affs)
+    got, got_run = COV.greedy_cover_device(a, mask, ranked, ps,
+                                           overlap=overlap, sparse_data=False)
+    want, want_run = jcover.greedy_cover_device(affs, mask, ranked, ps,
+                                                overlap=overlap,
+                                                sparse_data=False)
+    assert 0 < len(want) < len(ranked)
+    np.testing.assert_array_equal([c for c, _ in got], [c for c, _ in want])
+    np.testing.assert_array_equal(got_run, np.asarray(want_run))
+    thin_g = COV.thin_out_cover_device(a, mask, got, ps)
+    thin_w = jcover.thin_out_cover_device(affs, mask, want, ps)
+    assert 0 < len(thin_w) < len(want)
+    np.testing.assert_array_equal([c for c, _ in thin_g],
+                                  [c for c, _ in thin_w])
