@@ -1265,6 +1265,44 @@ def pix_thresholds(ps):
     return tuple(t for t in (500, 100, 50, 10, 0) if t < mid)
 
 
+COVER_DEVICE_KERNELS = ("pack_masks", "pack_running", "thin_cover_kernel",
+                        "cover_cascade_kernel")
+
+
+def cover_split(fn, dev, rounds=3):
+    """Where a cover wrapper's call goes on the card: the device ms of each
+    of its kernels (``COVER_DEVICE_KERNELS``), a mean over ``rounds`` calls
+    under ``torch.profiler`` (where the profiler sees no device time, the
+    call's CUDA-event ms instead), and the shares of the loop's cycles by
+    phase (thread 0's ``clock64`` sums in the statistics that ``fn``
+    returns last)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    st = fn()[-1]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(rounds):
+            fn()
+        torch.cuda.synchronize(dev)
+    dev_ms = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k in COVER_DEVICE_KERNELS if k in e.name), None)
+        if name is not None:
+            t = e.device_time if hasattr(e, "device_time") else e.cuda_time
+            dev_ms[name] = dev_ms.get(name, 0.0) + t / rounds / 1e3
+    out = {"device_ms": dev_ms or None}
+    if not dev_ms:
+        out["call_ms"] = time_pair(fn, fn, dev, 1)[0]
+    cyc = st["cycles"]
+    total = sum(cyc.values())
+    out["cycle_share"] = {k: v / total if total else 0.0
+                          for k, v in cyc.items()}
+    return out
+
+
 def cover_case(name, kind, inp, dev, max_it=None, rounds=2):
     """Phase cover_kernels, one case: K5 (``kind`` "cascade") or K6
     ("thin", capped at ``max_it`` where given) and its plain version (the
@@ -1275,7 +1313,8 @@ def cover_case(name, kind, inp, dev, max_it=None, rounds=2):
     host's selection).  Bound: the bytes the loop needs (the n affinity
     columns, the mask, centers and overlap rows read once, the selection
     and the volume written once) against 2 P operations for each window
-    this run counted; the iteration counts beside it."""
+    this run counted; the iteration counts beside it, and ``split``
+    (``cover_split``: device ms by kernel, the loop's cycles by phase)."""
     import numpy as np
 
     from patchperpix_tpu_torch.ops import cover as COV
@@ -1318,6 +1357,7 @@ def cover_case(name, kind, inp, dev, max_it=None, rounds=2):
             windows += n * st["full"]["iterations"] + st["full"]["picks"]
         nbytes = 4 * n * P + V + 12 * n + n
     ms, plain_ms = time_pair(plain, kern, dev, rounds)
+    split = cover_split(kern, dev, rounds=1 if max_it is not None else 3)
     bound = bound_ms(nbytes, 2 * P * windows)
     res = {"phase": "cover_kernels", "case": name, "kernel": kernel.name,
            "n": n, "P": P, "volume": list(mask.shape),
@@ -1325,7 +1365,7 @@ def cover_case(name, kind, inp, dev, max_it=None, rounds=2):
            "selected_equal": equal, "max_abs_err": err, "stats": st,
            "max_it": max_it, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound[0], "bound_by": bound[1], "bytes": nbytes,
-           "windows": windows}
+           "windows": windows, "split": split}
     emit(res)
     if not equal:
         raise AssertionError(f"cover_kernels {name}: {kernel.name} differs "

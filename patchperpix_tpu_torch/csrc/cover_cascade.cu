@@ -51,6 +51,9 @@ constexpr int kStatTakes = 2;
 constexpr int kStatBounds = 3;    // windows counted at chunk starts
 constexpr int kStatSweeps = 4;    // thresholds entered
 constexpr int kMaxThresholds = 8;
+// thread 0's cycles: its share of the bound pass, the walk, waits at the
+// block barriers, the output pass
+enum { kCyBound, kCyWalk, kCyWait, kCyOutput };
 
 struct Thresholds {
   int n;
@@ -75,6 +78,7 @@ __global__ void __launch_bounds__(1024)
       stage_run ? reinterpret_cast<unsigned*>(bound + chunk) : g_run;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
+  long long cyc[ppp_cover::kCycleSlots] = {0, 0, 0, 0};
   if (stage_run)
     for (long long w = tid; w < g.nwords; w += blockDim.x) run[w] = g_run[w];
   for (int j = tid; j < n; j += blockDim.x) selected[j] = 0;
@@ -86,6 +90,7 @@ __global__ void __launch_bounds__(1024)
     ++sweeps;
     for (int s = 0; s < n && rem > 0; s += chunk) {
       const int e = min(n, s + chunk);
+      long long t0 = clock64();
       for (int i = s + warp; i < e; i += nwarps) {
         int c = -1;
         if (!selected[i] && !overlap_rows[i])
@@ -93,7 +98,11 @@ __global__ void __launch_bounds__(1024)
                                     centers + 3 * i);
         if (lane == 0) bound[i - s] = c;
       }
+      long long t1 = clock64();
+      cyc[kCyBound] += t1 - t0;
       __syncthreads();
+      t0 = clock64();
+      cyc[kCyWait] += t0 - t1;
       if (warp == 0) {
         for (int i = s; i < e && rem > 0; ++i) {
           const int b = bound[i - s];
@@ -109,11 +118,15 @@ __global__ void __launch_bounds__(1024)
         }
         if (lane == 0) s_rem[0] = rem;
       }
+      t1 = clock64();
+      cyc[kCyWalk] += t1 - t0;
       __syncthreads();
+      cyc[kCyWait] += clock64() - t1;
       rem = s_rem[0];
     }
   }
   // the still-uncovered volume, unpadded
+  const long long t_out = clock64();
   const long long V = (long long)g.Z * g.Y * g.X;
   for (long long v = tid; v < V; v += blockDim.x) {
     const int x = (int)(v % g.X);
@@ -123,7 +136,9 @@ __global__ void __launch_bounds__(1024)
         ((long long)(z + g.rz) * g.PY + y + g.ry) * g.PX + x + g.rx;
     running[v] = (unsigned char)((run[p >> 5] >> (p & 31)) & 1u);
   }
+  cyc[kCyOutput] += clock64() - t_out;
   if (tid == 0) {
+    ppp_cover::store_cycles(stats, cyc);
     stats[kStatVisits] = visits;
     stats[kStatTakes] = takes;
     stats[kStatBounds] = bounds;
@@ -138,8 +153,8 @@ __global__ void __launch_bounds__(1024)
 // the pixel thresholds ths[0 .. n_ths) (host memory, at most 8), chunk the
 // candidates bounded at once (1 .. 4096).  Scratch the caller allocates: pm
 // (n * (ceil(P / 32) + 1)) and run (ceil(padded voxels / 32) + 1) uint32.
-// Outputs: stats (8 int32: interior pixels to cover, visits, takes,
-// windows bounded, sweeps), selected (n) uint8 and running (Z, Y, X) uint8,
+// Outputs: stats (ppp_cover::kStats int32: interior pixels to cover,
+// visits, takes, windows bounded, sweeps; then thread 0's cycles by phase), selected (n) uint8 and running (Z, Y, X) uint8,
 // the pixels still uncovered.  threads: the block's size, a multiple of 32
 // up to 1024; smem_cap: the most shared memory the block may stage in (the
 // device's limit where larger).  Launches on `stream`; returns the CUDA

@@ -62,10 +62,20 @@ inline bool geom_ok(int Z, int Y, int X, int pz, int py, int px) {
   return Z > 0 && Y > 0 && X > 0 && pz > 0 && py > 0 && px > 0;
 }
 
-// Statistics a launch writes (int32 each): the interior pixels to cover at
-// the start, then the loop's own counts (cover_cascade.cu, thin_cover.cu).
+// Statistics a launch writes: int32 slots, the interior pixels to cover at
+// the start, then the loop's own counts (cover_cascade.cu, thin_cover.cu);
+// from kStatCycles on, kCycleSlots int64 sums of clock64() deltas, the
+// cycles that the loop spent in each of its phases.
 constexpr int kStatRem = 0;
-constexpr int kStats = 8;
+constexpr int kStatCycles = 8;
+constexpr int kCycleSlots = 4;
+constexpr int kStats = kStatCycles + 2 * kCycleSlots;
+
+__device__ __forceinline__ void store_cycles(int* stats,
+                                             const long long* cycles) {
+  long long* out = reinterpret_cast<long long*>(stats + kStatCycles);
+  for (int k = 0; k < kCycleSlots; ++k) out[k] = cycles[k];
+}
 
 __device__ __forceinline__ unsigned low_mask(int L) {
   return L >= 32 ? 0xffffffffu : ((1u << L) - 1u);

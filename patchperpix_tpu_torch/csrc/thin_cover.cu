@@ -58,6 +58,9 @@ constexpr int kStatIters = 1;
 constexpr int kStatPicks = 2;
 constexpr int kStatRefreshes = 3;
 constexpr int kStatCapped = 4;
+// thread 0's cycles: staging and first counts, argmax, refresh (mode 1:
+// every size counted anew), pick (take and stale marks)
+enum { kCySetup, kCyArgmax, kCyRefresh, kCyPick };
 
 // Shared memory: 32 warp keys, 8 ints, then the running words and the
 // arrays (sizes, centers, stale) where they are staged.
@@ -100,6 +103,8 @@ __global__ void __launch_bounds__(1024)
   }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
+  long long cyc[ppp_cover::kCycleSlots] = {0, 0, 0, 0};
+  long long t0 = clock64();
   if (stage_run)
     for (long long w = tid; w < g.nwords; w += blockDim.x) run[w] = g_run[w];
   if (stage_arrays)
@@ -118,9 +123,12 @@ __global__ void __launch_bounds__(1024)
     }
     __syncthreads();
   }
+  long long t1 = clock64();
+  cyc[kCySetup] += t1 - t0;
   int it = 0, picks = 0, refreshes = 0, done = 0;
   while (!done && picks < n && rem > 0 && (mode == 1 || it < max_it)) {
     ++it;
+    t0 = clock64();
     if (mode == 1) {
       for (int i = warp; i < n; i += nwarps) {
         const int c = ppp_cover::warp_count(g, pm + (long long)i * g.Wp, run,
@@ -128,6 +136,9 @@ __global__ void __launch_bounds__(1024)
         if (lane == 0) sizes[i] = c;
       }
       __syncthreads();
+      t1 = clock64();
+      cyc[kCyRefresh] += t1 - t0;
+      t0 = t1;
     }
     // argmax, the first index of the largest size (keys are > 0); the
     // key also carries the entry's stale flag, so that the branch below is
@@ -148,6 +159,8 @@ __global__ void __launch_bounds__(1024)
     const int best =
         (int)(0xffffffffu - (unsigned)((key >> 1) & 0xffffffffull));
     const int bsize = (int)(key >> 33);
+    t1 = clock64();
+    cyc[kCyArgmax] += t1 - t0;
     if (key & 1ull) {
       ++refreshes;
       if (warp == 0) {
@@ -159,6 +172,7 @@ __global__ void __launch_bounds__(1024)
         }
       }
       __syncthreads();
+      cyc[kCyRefresh] += clock64() - t1;
       continue;
     }
     if (tid == 0) selected[best] = 1;
@@ -185,8 +199,10 @@ __global__ void __launch_bounds__(1024)
     }
     ++picks;
     done = bsize <= 0;
+    cyc[kCyPick] += clock64() - t1;
   }
   if (tid == 0) {
+    ppp_cover::store_cycles(stats, cyc);
     stats[kStatIters] = it;
     stats[kStatPicks] = picks;
     stats[kStatRefreshes] = refreshes;
@@ -200,8 +216,9 @@ __global__ void __launch_bounds__(1024)
 // (Z, Y, X) uint8; patch (pz, py, px).  mode 0 lazy (stops at max_it
 // iterations and sets stats[4]), 1 full.  Scratch the caller allocates: pm
 // (n * (ceil(P / 32) + 1)) and run (ceil(padded voxels / 32) + 1) uint32,
-// sizes (n) int32, stale (n) uint8.  Outputs: stats (8 int32: interior
-// pixels to cover, iterations, picks, refreshes, capped) and selected (n)
+// sizes (n) int32, stale (n) uint8.  Outputs: stats (ppp_cover::kStats
+// int32: interior pixels to cover, iterations, picks, refreshes, capped;
+// then thread 0's cycles by phase) and selected (n)
 // uint8.  threads: the block's size, a multiple of 32 up to 1024;
 // smem_cap: the most shared memory the block may stage in (the device's
 // limit where larger).  Launches on `stream`; returns the CUDA error code.

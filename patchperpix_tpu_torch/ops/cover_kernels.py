@@ -60,9 +60,14 @@ THIN_THREADS = 512
 CHUNK = 256            # candidates the cascade bounds at once
 SMEM_CAP = 1 << 30     # stage all that fits in the device's shared memory
 MODES = {"lazy": 0, "full": 1}
-STATS_BYTES = 32       # 8 int32 at the front of the output buffer
+# the statistics at the front of the output buffer: 8 int32 counts, then 4
+# int64 sums of the cycles that the loop's thread 0 spent in each phase
+# (ppp_cover::kStats, csrc/cover_window.cuh)
+STATS_BYTES = 64
 CASCADE_STATS = ("to_cover", "visits", "takes", "bounded", "sweeps")
+CASCADE_CYCLES = ("bound", "walk", "wait", "output")
 THIN_STATS = ("to_cover", "iterations", "picks", "refreshes", "capped")
+THIN_CYCLES = ("setup", "argmax", "refresh", "pick")
 
 
 def default_max_it(n: int) -> int:
@@ -110,9 +115,13 @@ def _operands(what, affs, mask_to_cover, centers, patchshape):
             torch.as_tensor(cen3.astype(np.int32), device=dev))
 
 
-def _stats(host: np.ndarray, names) -> dict:
-    vals = host[:STATS_BYTES].view(np.int32)
-    return {k: int(v) for k, v in zip(names, vals)}
+def _stats(host: np.ndarray, names, cycle_names) -> dict:
+    """The counts under ``names`` and the phase cycles under
+    ``"cycles"``."""
+    out = {k: int(v) for k, v in zip(names, host[:32].view(np.int32))}
+    out["cycles"] = {k: int(v) for k, v in zip(
+        cycle_names, host[32:STATS_BYTES].view(np.int64))}
+    return out
 
 
 def run_cover_cascade(launch, affs, mask_to_cover, centers, overlap_rows,
@@ -140,7 +149,7 @@ def run_cover_cascade(launch, affs, mask_to_cover, centers, overlap_rows,
     host = out.cpu().numpy()
     return (host[STATS_BYTES:STATS_BYTES + n].astype(bool),
             host[STATS_BYTES + n:].reshape(np.shape(mask_to_cover))
-            .astype(bool), _stats(host, CASCADE_STATS))
+            .astype(bool), _stats(host, CASCADE_STATS, CASCADE_CYCLES))
 
 
 def run_thin_cover(launch, affs, mask_to_cover, centers, patchshape,
@@ -167,7 +176,7 @@ def run_thin_cover(launch, affs, mask_to_cover, centers, patchshape,
            int(smem_cap), pm.data_ptr(), run.data_ptr(), sizes.data_ptr(),
            stale.data_ptr(), base, base + STATS_BYTES, stream)
     host = out.cpu().numpy()
-    stats = _stats(host, THIN_STATS)
+    stats = _stats(host, THIN_STATS, THIN_CYCLES)
     stats["capped"] = bool(stats["capped"])
     return host[STATS_BYTES:].astype(bool), stats
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the cover kernels K5 / K6 at each block size on the paths' inputs.
 
-    python3 scripts/time_cover_kernels.py [--rounds N]
+    python3 scripts/time_cover_kernels.py [--rounds N] [--split]
 
 Runs, on one NVIDIA GPU, the f32 main path of ``chip_smoke.py`` (the
 trained crop model on the 50^3 FlyLight fixture) and the 2D assembly of
@@ -17,8 +17,14 @@ of the selection to the host) with CUDA events, median and minimum of
 - ``cascade_2d``: K5 on (B)'s cascade input (chunks of 256);
 - ``thin_2d``: K6 on (B)'s thin-cover input.
 
-Each selection is checked against the wrapper's default launch.  Prints
-the card's name and power limit, then one JSON line per block size.
+Each selection is checked against the wrapper's default launch.  With
+``--split``, first one JSON line per case at the default block size
+(``thin_3d``, ``thin_3d_capped``: the lazy loop capped at a quarter of
+its candidates, then the full loop; ``cascade_2d``, ``thin_2d``): the
+device ms of each kernel of the call (``pack_masks``, ``pack_running``,
+the loop) from ``torch.profiler``, the loop's counts, and its cycles by
+phase with their shares (``chip_smoke.cover_split``).  Prints the card's
+name and power limit, then one JSON line per block size.
 """
 
 import argparse
@@ -52,6 +58,8 @@ def event_ms(fn, dev, rounds):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--split", action="store_true",
+                    help="first the device and phase split of each case")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -92,6 +100,28 @@ def main() -> int:
 
     want = {"thin_3d": thin(t3), "cascade_2d": cascade(),
             "thin_2d": thin(t2)}
+    if args.split:
+        cap_it = len(t3["centers"]) // 4
+        for name, fn in (
+                ("thin_3d", lambda: CK.thin_cover_cuda(
+                    t3["affs"], t3["mask"], t3["centers"], t3["ps"],
+                    t3["fc"])),
+                ("thin_3d_capped", lambda: CK.thin_cover_cuda(
+                    t3["affs"], t3["mask"], t3["centers"], t3["ps"],
+                    t3["fc"], max_it=cap_it)),
+                ("cascade_2d", lambda: CK.cover_cascade_cuda(
+                    c2["affs"], c2["mask"], c2["centers"],
+                    c2["overlap_rows"], c2["ps"], c2["fc"], ths)),
+                ("thin_2d", lambda: CK.thin_cover_cuda(
+                    t2["affs"], t2["mask"], t2["centers"], t2["ps"],
+                    t2["fc"]))):
+            sel = fn()[0]
+            print(json.dumps({
+                "case": name, "equal": bool(np.array_equal(
+                    sel, want[name.replace("_capped", "")])),
+                "stats": fn()[-1], "wrapper_ms": event_ms(fn, dev,
+                                                          args.rounds),
+                **cs.cover_split(fn, dev, args.rounds)}), flush=True)
     for threads in (128, 256, 512, 1024):
         got = {"thin_3d": thin(t3, threads=threads),
                "cascade_2d": cascade(threads=threads),

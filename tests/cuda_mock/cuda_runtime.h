@@ -19,6 +19,7 @@
 #define PPP_HOST_MOCK 1
 
 #include <algorithm>
+#include <chrono>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdlib>
@@ -96,6 +97,10 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
   return (unsigned)((((uint64_t)hi << 32) | lo) >> (shift & 31));
+}
+// the SM's cycle counter: nanoseconds of the host's steady clock
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
 }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
