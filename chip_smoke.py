@@ -26,10 +26,11 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    then phase cover_kernels on the warm-up run's thin-cover input (held by
    ``CoverCapture``): K6 against its plain version (the host loops of
    ``ops/cover.py``), ``selected`` equal bit for bit (integer counts, no
-   tolerance), timed like the kernels above, with the loop's iterations,
-   picks and refreshes, and again with the lazy loop capped at a quarter
-   of its candidates (the cap a kernel argument), where the full loop
-   takes over; and, for information, K6 on the JAX package's own greedy
+   tolerance), timed like the kernels above, with the loop's rounds,
+   picks and refreshes, the device ms of each kernel of the call and the
+   loop's cycles by phase, and again with the lazy loop capped at a
+   quarter of its candidates in rounds (the cap a kernel argument), where
+   the full loop takes over; and, for information, K6 on the JAX package's own greedy
    cover list of the crop against its thin cover list;
 4. held against the JAX package's float32 CPU run stored in
    parity/torch_port_ref_f32.npz: foreground agreement >= 99.9 %, equal
@@ -1273,9 +1274,10 @@ def cover_split(fn, dev, rounds=3):
     """Where a cover wrapper's call goes on the card: the device ms of each
     of its kernels (``COVER_DEVICE_KERNELS``), a mean over ``rounds`` calls
     under ``torch.profiler`` (where the profiler sees no device time, the
-    call's CUDA-event ms instead), and the shares of the loop's cycles by
-    phase (thread 0's ``clock64`` sums in the statistics that ``fn``
-    returns last)."""
+    call's CUDA-event ms instead), and each phase's share of the loop
+    kernel's cycles (the ``clock64`` sums in the statistics that ``fn``
+    returns last; K5's bounding and walking warps run side by side, so its
+    shares need not add up to 1)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1296,8 +1298,8 @@ def cover_split(fn, dev, rounds=3):
     out = {"device_ms": dev_ms or None}
     if not dev_ms:
         out["call_ms"] = time_pair(fn, fn, dev, 1)[0]
-    cyc = st["cycles"]
-    total = sum(cyc.values())
+    cyc = dict(st["cycles"])
+    total = cyc.pop("total")
     out["cycle_share"] = {k: v / total if total else 0.0
                           for k, v in cyc.items()}
     return out
@@ -1354,7 +1356,7 @@ def cover_case(name, kind, inp, dev, max_it=None, rounds=2):
         err = int(np.abs(sel_k.astype(int) - sel_p).max())
         windows = n + st["refreshes"] + st["picks"]
         if "full" in st:
-            windows += n * st["full"]["iterations"] + st["full"]["picks"]
+            windows += st["full"]["refreshes"] + st["full"]["picks"]
         nbytes = 4 * n * P + V + 12 * n + n
     ms, plain_ms = time_pair(plain, kern, dev, rounds)
     split = cover_split(kern, dev, rounds=1 if max_it is not None else 3)

@@ -52,26 +52,30 @@ THIN_COVER = CudaKernel(
     "patchperpix_tpu/ops/cover.py:144 _thin_cover_volume_lazy "
     "(a lax.while_loop, not Pallas) and :238 _thin_cover_volume")
 
-# block sizes, the fastest of 128 to 1024 on an H100 (the thin cover on the
-# 3D main path's input, the cascade on 2D setting (B)'s;
+# block sizes and the cascade's chunk, the fastest of 64 to 1024 threads
+# and of 32 to 1024 candidates on an H100 (the thin cover on the 3D main
+# path's input, the cascade on 2D setting (B)'s;
 # scripts/time_cover_kernels.py, PERF.md)
 CASCADE_THREADS = 1024
-THIN_THREADS = 512
+THIN_THREADS = 1024
 CHUNK = 256            # candidates the cascade bounds at once
 SMEM_CAP = 1 << 30     # stage all that fits in the device's shared memory
 MODES = {"lazy": 0, "full": 1}
-# the statistics at the front of the output buffer: 8 int32 counts, then 4
-# int64 sums of the cycles that the loop's thread 0 spent in each phase
-# (ppp_cover::kStats, csrc/cover_window.cuh)
-STATS_BYTES = 64
+# the statistics at the front of the output buffer: 8 int32 counts, then 8
+# int64 sums of clock64() cycles (ppp_cover::kStats, csrc/cover_window.cuh):
+# the loop kernel's total, then by phase (the source's kCy* slots)
+STATS_BYTES = 96
 CASCADE_STATS = ("to_cover", "visits", "takes", "bounded", "sweeps")
-CASCADE_CYCLES = ("bound", "walk", "wait", "output")
-THIN_STATS = ("to_cover", "iterations", "picks", "refreshes", "capped")
-THIN_CYCLES = ("setup", "argmax", "refresh", "pick")
+CASCADE_CYCLES = ("total", "setup", "bound", "bound_wait", "walk",
+                  "walk_wait", "output")
+THIN_STATS = ("to_cover", "rounds", "picks", "refreshes", "capped")
+THIN_CYCLES = ("total", "setup", "argmax", "refresh", "pick", "take",
+               "mark")
 
 
 def default_max_it(n: int) -> int:
-    """The lazy loop's cap, 64 n + 1024 iterations (cover.py:177)."""
+    """The lazy loop's cap, 64 n + 1024 (cover.py:177's iterations; the
+    kernel counts rounds: a pick, or one batched refresh)."""
     return 64 * int(n) + 1024
 
 
@@ -84,9 +88,17 @@ def _geometry(vol, ps) -> tuple:
     return (P + 31) // 32 + 1, (nbits + 31) // 32 + 1
 
 
+def _mask_words(n: int, wp: int) -> int:
+    """Words of the mask buffer: n wp rounded up to 16 bytes, so that the
+    kernels' bulk copies of rows widened to 16-byte bounds stay inside."""
+    return (n * wp + 3) // 4 * 4
+
+
 def _operands(what, affs, mask_to_cover, centers, patchshape):
     """The kernels' operands on ``affs.device``: (vol, ps, affs, mask
-    uint8, centers int32 (n, 3)), each cut to three axes."""
+    uint8, centers int32 (n, 3)), each cut to three axes; the centers'
+    allocation holds whole 16-byte groups (zero rows past the n), which the
+    cascade's bulk copies read."""
     ps = tuple(int(p) for p in patchshape)
     vol = tuple(int(s) for s in np.shape(mask_to_cover))
     if len(ps) != len(vol) or not 1 <= len(ps) <= 3:
@@ -110,9 +122,12 @@ def _operands(what, affs, mask_to_cover, centers, patchshape):
                            centers], axis=1)
     dev = affs.device
     mask = np.ascontiguousarray(mask_to_cover, dtype=bool).view(np.uint8)
+    n = len(cen3)
+    cen_buf = np.zeros(((n + 3) // 4 * 4, 3), np.int32)
+    cen_buf[:n] = cen3
     return (vol3, ps3, affs.reshape((P,) + vol3),
             torch.as_tensor(mask.reshape(vol3), device=dev),
-            torch.as_tensor(cen3.astype(np.int32), device=dev))
+            torch.as_tensor(cen_buf, device=dev)[:n])
 
 
 def _stats(host: np.ndarray, names, cycle_names) -> dict:
@@ -134,10 +149,11 @@ def run_cover_cascade(launch, affs, mask_to_cover, centers, overlap_rows,
                                       mask_to_cover, centers, patchshape)
     n, V, dev = len(cen), int(np.prod(vol)), affs.device
     wp, nwords = _geometry(vol, ps)
-    pm = torch.empty(n * wp, dtype=torch.int32, device=dev)
+    pm = torch.empty(_mask_words(n, wp), dtype=torch.int32, device=dev)
     run = torch.empty(nwords, dtype=torch.int32, device=dev)
-    ovl = torch.as_tensor(np.asarray(overlap_rows, bool).astype(np.uint8),
-                          device=dev)
+    ovl = np.zeros((n + 15) // 16 * 16, np.uint8)
+    ovl[:n] = np.asarray(overlap_rows, bool)
+    ovl = torch.as_tensor(ovl, device=dev)
     out = torch.empty(STATS_BYTES + n + V, dtype=torch.uint8, device=dev)
     ths = [int(t) for t in pix_ths]
     base = out.data_ptr()
@@ -157,24 +173,24 @@ def run_thin_cover(launch, affs, mask_to_cover, centers, patchshape,
                    max_it: int | None = None, *, threads: int = THIN_THREADS,
                    smem_cap: int = SMEM_CAP, stream=None) -> tuple:
     """One launch of the thin cover through ``launch`` in ``mode``
-    ("lazy", stopping at ``max_it`` iterations, by default 64 n + 1024, or
+    ("lazy", stopping at ``max_it`` rounds, by default 64 n + 1024, or
     "full"): (selected bool (n,), statistics with ``capped``)."""
     vol, ps, a, mask, cen = _operands("thin cover kernel", affs,
                                       mask_to_cover, centers, patchshape)
     n, dev = len(cen), affs.device
     wp, nwords = _geometry(vol, ps)
-    pm = torch.empty(n * wp, dtype=torch.int32, device=dev)
+    pm = torch.empty(_mask_words(n, wp), dtype=torch.int32, device=dev)
     run = torch.empty(nwords, dtype=torch.int32, device=dev)
-    sizes = torch.empty(n, dtype=torch.int32, device=dev)
-    stale = torch.empty(n, dtype=torch.uint8, device=dev)
+    state = torch.empty(n, dtype=torch.int32, device=dev)
+    cpk = torch.empty(n, dtype=torch.int64, device=dev)
     out = torch.empty(STATS_BYTES + n, dtype=torch.uint8, device=dev)
     max_it = min(default_max_it(n) if max_it is None else int(max_it),
                  2 ** 31 - 1)
     base = out.data_ptr()
     launch(a.data_ptr(), mask.data_ptr(), cen.data_ptr(), n, *vol, *ps,
            float(fc_threshold), MODES[mode], max_it, int(threads),
-           int(smem_cap), pm.data_ptr(), run.data_ptr(), sizes.data_ptr(),
-           stale.data_ptr(), base, base + STATS_BYTES, stream)
+           int(smem_cap), pm.data_ptr(), run.data_ptr(), state.data_ptr(),
+           cpk.data_ptr(), base, base + STATS_BYTES, stream)
     host = out.cpu().numpy()
     stats = _stats(host, THIN_STATS, THIN_CYCLES)
     stats["capped"] = bool(stats["capped"])
@@ -207,8 +223,8 @@ def thin_cover_cuda(affs, mask_to_cover, centers, patchshape,
                     fc_threshold: float, max_it: int | None = None,
                     **kw) -> tuple:
     """Launch ``csrc/thin_cover.cu`` on the CUDA tensor ``affs``: the lazy
-    loop, and where it reached its cap (``max_it``, by default 64 n +
-    1024) the full loop, as the JAX package falls back
+    loop, and where it reached its cap (``max_it`` rounds, by default 64 n
+    + 1024) the full loop, as the JAX package falls back
     (cover.py:383-389).  Returns (selected bool (n,), statistics: the lazy
     launch's, and the full launch's under ``"full"`` where it ran)."""
     launch, stream = _card(THIN_COVER, affs)

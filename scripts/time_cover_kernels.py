@@ -7,7 +7,7 @@ Runs, on one NVIDIA GPU, the f32 main path of ``chip_smoke.py`` (the
 trained crop model on the 50^3 FlyLight fixture) and the 2D assembly of
 setting (B) (the 16-worm 520x696 image, 25x25 patches), each once, with
 ``chip_smoke.CoverCapture`` recording their cover inputs.  Then, for each
-block size of 128, 256, 512 and 1,024 threads, times the wrappers
+block size of 64, 128, 256, 512 and 1,024 threads, times the wrappers
 (``ops/cover_kernels.py``: the pack passes, the loop's block and the copy
 of the selection to the host) with CUDA events, median and minimum of
 ``--rounds`` calls after one warm-up:
@@ -15,7 +15,10 @@ of the selection to the host) with CUDA events, median and minimum of
 - ``thin_3d``: K6 on the 3D thin-cover input, the loop's shared memory
   staged (``staged``) and, for comparison, in device memory (``gmem``);
 - ``cascade_2d``: K5 on (B)'s cascade input (chunks of 256);
-- ``thin_2d``: K6 on (B)'s thin-cover input.
+- ``thin_2d``: K6 on (B)'s thin-cover input;
+
+and then K5 on (B)'s cascade input at chunks of 32 to 1,024 candidates
+(the default block size).
 
 Each selection is checked against the wrapper's default launch.  With
 ``--split``, first one JSON line per case at the default block size
@@ -24,7 +27,8 @@ its candidates, then the full loop; ``cascade_2d``, ``thin_2d``): the
 device ms of each kernel of the call (``pack_masks``, ``pack_running``,
 the loop) from ``torch.profiler``, the loop's counts, and its cycles by
 phase with their shares (``chip_smoke.cover_split``).  Prints the card's
-name and power limit, then one JSON line per block size.
+name and power limit, then one JSON line per block size and one per
+chunk.
 """
 
 import argparse
@@ -122,7 +126,7 @@ def main() -> int:
                 "stats": fn()[-1], "wrapper_ms": event_ms(fn, dev,
                                                           args.rounds),
                 **cs.cover_split(fn, dev, args.rounds)}), flush=True)
-    for threads in (128, 256, 512, 1024):
+    for threads in (64, 128, 256, 512, 1024):
         got = {"thin_3d": thin(t3, threads=threads),
                "cascade_2d": cascade(threads=threads),
                "thin_2d": thin(t2, threads=threads)}
@@ -143,6 +147,13 @@ def main() -> int:
             "n": {"thin_3d": len(t3["centers"]),
                   "cascade_2d": len(c2["centers"]),
                   "thin_2d": len(t2["centers"])}}), flush=True)
+    for chunk in (32, 64, 128, 256, 512, 1024):
+        print(json.dumps({
+            "chunk": chunk,
+            "equal": bool(np.array_equal(cascade(chunk=chunk),
+                                         want["cascade_2d"])),
+            "cascade_2d": event_ms(lambda: cascade(chunk=chunk), dev,
+                                   args.rounds)}), flush=True)
     return 0
 
 

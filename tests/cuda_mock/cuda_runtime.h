@@ -12,7 +12,11 @@
 // runs at a time.  A warp's shuffles and __syncwarp meet at a barrier over
 // the warp's threads, so the lanes of a warp must call them together, as
 // on the card.  PPP_HOST_MOCK tells the sources to take plain loads where
-// the card's build uses Hopper instructions.
+// the card's build uses Hopper instructions; the mbarriers and bulk copies
+// of csrc/cover_window.cuh come here: an mbarrier as a counter of
+// arrivals and bytes with its completed phases, under one mutex and
+// condition variable, and a bulk copy as a memcpy that then counts its
+// bytes as landed.
 
 #pragma once
 
@@ -25,6 +29,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <map>
 #include <memory>
 #include <mutex>
 #include <thread>
@@ -53,6 +58,10 @@ struct uint4 {
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return uint4{x, y, z, w};
 }
+struct int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -192,6 +201,92 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask) {
 }
 
 namespace ppp_mock {
+// op over the lanes' values; every lane calls it and gets the result
+template <typename T, typename Op>
+T warp_reduce(T v, Op op) {
+  Warp& w = my_warp();
+  const unsigned rank = thread_rank();
+  const unsigned lanes =
+      std::min(32u, blockDim.x * blockDim.y * blockDim.z - rank / 32 * 32);
+  w.slot[rank % 32] = (unsigned long long)v;
+  w.barrier.sync(0);
+  T out = (T)w.slot[0];
+  for (unsigned l = 1; l < lanes; ++l) out = op(out, (T)w.slot[l]);
+  w.barrier.sync(0);
+  return out;
+}
+}  // namespace ppp_mock
+
+inline int __reduce_add_sync(unsigned, int v) {
+  return ppp_mock::warp_reduce(v, [](int a, int b) { return a + b; });
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return ppp_mock::warp_reduce(
+      v, [](unsigned a, unsigned b) { return a > b ? a : b; });
+}
+
+// the lanes' predicates as bits, bit l for lane l; every lane calls it
+inline unsigned __ballot_sync(unsigned, int pred) {
+  ppp_mock::Warp& w = ppp_mock::my_warp();
+  const unsigned rank = ppp_mock::thread_rank();
+  const unsigned lanes = std::min(32u, blockDim.x * blockDim.y * blockDim.z -
+                                           rank / 32 * 32);
+  w.slot[rank % 32] = pred != 0;
+  w.barrier.sync(0);
+  unsigned out = 0;
+  for (unsigned l = 0; l < lanes; ++l) out |= (unsigned)(w.slot[l] != 0) << l;
+  w.barrier.sync(0);
+  return out;
+}
+
+namespace ppp_mock {
+
+// mbarriers, by the address of their 64-bit word: the arrivals a phase
+// takes, those still to come, the bytes still in flight, and the phases
+// completed.  A phase completes when its arrivals are in and its bytes
+// have landed; a wait for parity p returns once the phase of parity p has
+// completed, i.e. while the count of completed phases has parity != p.
+struct MBar {
+  unsigned count = 0, pending = 0;
+  long long tx = 0;
+  unsigned completed = 0;
+};
+inline std::mutex mbar_mutex;
+inline std::condition_variable mbar_cv;
+inline std::map<const void*, MBar> mbars;
+
+inline void mbar_settle(MBar& b) {  // with the lock held
+  if (b.pending == 0 && b.tx == 0) {
+    ++b.completed;
+    b.pending = b.count;
+    mbar_cv.notify_all();
+  }
+}
+inline void mbar_init(unsigned long long* bar, unsigned count) {
+  std::lock_guard<std::mutex> lk(mbar_mutex);
+  mbars[bar] = MBar{count, count, 0, 0};
+}
+// one arrival, expecting `bytes` more to land in this phase
+inline void mbar_arrive(unsigned long long* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> lk(mbar_mutex);
+  MBar& b = mbars.at(bar);
+  b.tx += bytes;
+  --b.pending;
+  mbar_settle(b);
+}
+inline void mbar_wait(unsigned long long* bar, unsigned parity) {
+  std::unique_lock<std::mutex> lk(mbar_mutex);
+  MBar& b = mbars.at(bar);
+  mbar_cv.wait(lk, [&] { return (b.completed & 1u) != (parity & 1u); });
+}
+inline void bulk_copy(void* dst, const void* src, unsigned bytes,
+                      unsigned long long* bar) {
+  std::memcpy(dst, src, bytes);
+  std::lock_guard<std::mutex> lk(mbar_mutex);
+  MBar& b = mbars.at(bar);
+  b.tx -= bytes;
+  mbar_settle(b);
+}
 
 inline void launch(dim3 grid, dim3 blk, size_t smem,
                    const std::function<void()>& body) {

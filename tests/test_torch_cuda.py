@@ -781,8 +781,10 @@ def test_sharded_path_and_mesh_step_on_one_card(dev):
 def _cover_equal(cap, cap_it=None):
     """K5 on ``cap``'s cascade input (where it has one) and K6 on its thin
     input against their plain versions (the host loops): selections, and
-    the cascade's still-uncovered volume, equal bit for bit; both block
-    sizes' staging (shared memory, device memory) alike."""
+    the cascade's still-uncovered volume, equal bit for bit; everything
+    staged in shared memory, nothing (``smem_cap=0``), and part of it (60
+    KB: the running bits, not the masks), at several block sizes and, for
+    the cascade, chunks of 40."""
     import chip_smoke as cs
     from patchperpix_tpu_torch.ops import cover as COV
     from patchperpix_tpu_torch.ops import cover_kernels as CK
@@ -793,18 +795,22 @@ def _cover_equal(cap, cap_it=None):
         args = (c["affs"], c["mask"], c["centers"], c["overlap_rows"],
                 c["ps"], c["fc"], ths)
         want_sel, want_run = COV.cover_cascade_plain(*args)
-        for kw in ({}, {"smem_cap": 0, "threads": 256}):
+        for kw in ({}, {"smem_cap": 0, "threads": 256},
+                   {"smem_cap": 60000, "threads": 64, "chunk": 40}):
             sel, run, st = CK.cover_cascade_cuda(*args, **kw)
             assert np.array_equal(sel, want_sel), kw
             assert np.array_equal(run, want_run), kw
             assert st["takes"] == want_sel.sum() > 0
+            assert st["visits"] >= st["takes"]
     t = cap.thin
     args = (t["affs"], t["mask"], t["centers"], t["ps"], t["fc"])
     want = COV.thin_cover_plain(*args, max_it=cap_it)
-    for kw in ({}, {"smem_cap": 0, "threads": 128}):
+    for kw in ({}, {"smem_cap": 0, "threads": 128},
+               {"smem_cap": 60000, "threads": 256}):
         sel, st = CK.thin_cover_cuda(*args, max_it=cap_it, **kw)
         assert np.array_equal(sel, want), kw
         assert st["capped"] == (cap_it is not None)
+        assert st["rounds"] >= st["picks"]
     return int(want.sum())
 
 

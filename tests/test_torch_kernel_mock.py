@@ -93,7 +93,8 @@ def libs(tmp_path_factory):
                 f.write(src)
     built = {}
     # rank_rounds: the rank kernel with room for few items, so that a block
-    # needs several rounds over its lanes at these shapes
+    # needs several rounds over its lanes at these shapes; thin_cover_list2:
+    # the thin cover refreshing at most two stale entries a round
     for name, src, flags in (("consensus", "consensus", []),
                              ("rank", "rank", []),
                              ("rank_rounds", "rank",
@@ -104,7 +105,9 @@ def libs(tmp_path_factory):
                               ["-DPPP_RANK_ITEMS_MIN=50"]),
                              ("probe_window", "probe_window", []),
                              ("cover_cascade", "cover_cascade", []),
-                             ("thin_cover", "thin_cover", [])):
+                             ("thin_cover", "thin_cover", []),
+                             ("thin_cover_list2", "thin_cover",
+                              ["-DPPP_THIN_LIST=2"])):
         so = out / f"lib{name}_host.so"
         subprocess.run(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", *flags,
@@ -575,15 +578,39 @@ def _cover_data(seed):
     return affs, mask, centers, overlap[tuple(centers.T)] > 0
 
 
+def _r16(b):
+    return (b + 15) // 16 * 16
+
+
+def _cascade_smem(n, vol, ps, chunk):
+    """(bytes of csrc/cover_cascade.cu's shared memory before the staged
+    parts, of its running words, of its two mask buffers)."""
+    wp, nwords = CK._geometry(vol, ps)
+    return (_r16(6 * 8 + 4 * 4 + 2 * chunk * 4), _r16(4 * nwords),
+            2 * _r16(chunk * wp * 4 + 32))
+
+
+def _thin_smem(n, vol, ps, list_len=1024):
+    """(bytes of csrc/thin_cover.cu's shared memory before the staged
+    parts, of its running words, of its arrays, of its masks)."""
+    wp, nwords = CK._geometry(vol, ps)
+    return (_r16(64 * 8 + 8 + 16 + 4 * list_len), _r16(4 * nwords),
+            _r16(12 * n), _r16(4 * n * wp))
+
+
 @pytest.mark.parametrize("threads,smem_cap,chunk", [
-    (64, CK.SMEM_CAP, 256),     # running bits in shared memory
-    (96, 0, 40),                # in device memory, three warps
+    (64, CK.SMEM_CAP, 256),     # running bits and masks in shared memory
+    (96, 0, 40),                # both in device memory, three warps
+    (64, "run", 16),            # the running bits only
 ])
 @pytest.mark.parametrize("seed,fc", [(0, 0.5), (2, 0.7)])
 def test_cover_cascade_source_matches_plain_on_host(libs, seed, fc, threads,
                                                     smem_cap, chunk):
     affs, mask, centers, ovl = _cover_data(seed)
     ps = (5, 5, 5)
+    if smem_cap == "run":
+        base, run_b, _ = _cascade_smem(len(centers), mask.shape, ps, chunk)
+        smem_cap = base + run_b
     want_sel, want_run = COV.cover_cascade_plain(
         torch.from_numpy(affs), mask, centers, ovl, ps, fc, _pix_ths(ps))
     sel, run, st = _cascade_host(libs, affs, mask, centers, ovl, ps, fc,
@@ -626,6 +653,57 @@ def test_cover_cascade_source_stops_mid_chunk_on_host(libs, seed):
         assert run.any() and st["sweeps"] <= len(ths)
 
 
+@pytest.mark.parametrize("chunk", [16, 40])
+@pytest.mark.parametrize("threads,smem_cap", [(64, CK.SMEM_CAP), (96, 0)])
+def test_cover_cascade_source_takes_at_chunk_ends_on_host(libs, chunk,
+                                                          threads, smem_cap):
+    """Chunks of 16 and 40 on the 2D blobs, where the walk takes
+    candidates in the last rows of a chunk: the bounding warps count the
+    next chunk's windows while those takes clear bits, in shared and in
+    device memory; selection and volume equal the plain version's."""
+    ps = (1, 7, 7)
+    affs, mask, centers, ovl = _blobs_2d((1, 24, 27), 7, 9)
+    ths = _pix_ths(ps)
+    want_sel, want_run = COV.cover_cascade_plain(
+        torch.from_numpy(affs), mask, centers, ovl, ps, 0.5, ths)
+    taken = np.flatnonzero(want_sel)
+    assert (taken % chunk >= chunk - 2).any()
+    sel, run, st = _cascade_host(libs, affs, mask, centers, ovl, ps, 0.5,
+                                 ths, threads=threads, smem_cap=smem_cap,
+                                 chunk=chunk)
+    np.testing.assert_array_equal(sel, want_sel)
+    np.testing.assert_array_equal(run, want_run)
+    assert st["takes"] == len(taken) and st["visits"] >= st["takes"]
+    assert st["bounded"] >= len(centers) - ovl.sum()
+
+
+def test_cover_sources_long_windows_on_host(libs):
+    """(1, 131, 3) patches: 131 items a window, more than the kernels'
+    table of 128 (cover_window.cuh's kTab), so that a lane keeps up to
+    four items and the last three come from the items past the table; K5
+    and K6 against their plain versions on seeded random affinities."""
+    rng = np.random.RandomState(11)
+    ps, shape = (1, 131, 3), (1, 136, 5)
+    P = int(np.prod(ps))
+    affs = (rng.rand(P, *shape) > 0.55).astype(np.float32)
+    mask = rng.rand(*shape) > 0.3
+    centers = np.argwhere(mask)[rng.permutation(int(mask.sum()))]
+    ovl = rng.rand(len(centers)) < 0.1
+    a = torch.from_numpy(affs)
+    ths = _pix_ths(ps)
+    want_sel, want_run = COV.cover_cascade_plain(a, mask, centers, ovl, ps,
+                                                 0.5, ths)
+    sel, run, st = _cascade_host(libs, affs, mask, centers, ovl, ps, 0.5,
+                                 ths, threads=64, chunk=16)
+    assert 0 < want_sel.sum() < len(centers)
+    np.testing.assert_array_equal(sel, want_sel)
+    np.testing.assert_array_equal(run, want_run)
+    want = COV.thin_cover_plain(a, mask, centers, ps, 0.5)
+    got, st = _thin_host(libs, affs, mask, centers, ps, 0.5, threads=64)
+    assert 0 < want.sum() < len(centers)
+    np.testing.assert_array_equal(got, want)
+
+
 def _thin_centers(affs, mask, centers, ovl, ps, fc):
     """The candidates a thin cover takes: the greedy cover's selection."""
     sel, _ = COV.cover_cascade_plain(torch.from_numpy(affs), mask, centers,
@@ -633,20 +711,84 @@ def _thin_centers(affs, mask, centers, ovl, ps, fc):
     return centers[sel]
 
 
-@pytest.mark.parametrize("threads,smem_cap", [(64, CK.SMEM_CAP), (96, 0)])
+def _thin_batched(pmasks, win, running, inner, centers, ps, max_it=None):
+    """The kernel's lazy schedule in rounds (``csrc/thin_cover.cu``, an
+    unbounded refresh list) on the host: b the largest fresh key (size <<
+    32 | ~index), S the stale entries above it; S empty picks b, else S is
+    counted anew.  Returns (selected, statistics as the kernel's, the
+    largest S, the refresh rounds whose S holds a size equal to b's)."""
+    n = len(centers)
+    max_it = 64 * n + 1024 if max_it is None else max_it
+    sizes = np.sum(pmasks * running[win], axis=1).astype(np.int64)
+    stale = np.zeros(n, bool)
+    selected = np.zeros(n, bool)
+    rem = int(np.dot(running, inner))
+    low = 0xffffffff - np.arange(n, dtype=np.int64)
+    rounds = picks = refreshes = largest = ties = 0
+    done = False
+    while not done and picks < n and rem > 0 and rounds < max_it:
+        rounds += 1
+        key = (sizes << 32) | low
+        kf = int(key[~stale].max()) if (~stale).any() else 0
+        bsize = kf >> 32
+        S = np.flatnonzero(stale & (key > kf))
+        if len(S):
+            largest = max(largest, len(S))
+            ties += bool(kf and (sizes[S] == bsize).any())
+            for j in S:
+                sizes[j] = int(np.dot(pmasks[j], running[win[j]]))
+            stale[S] = False
+            refreshes += len(S)
+            continue
+        best = 0xffffffff - (kf & 0xffffffff)
+        selected[best] = True
+        if bsize > 0:
+            w = win[best]
+            newly = pmasks[best] * running[w]
+            rem -= int(np.dot(newly, inner[w]))
+            running[w] -= newly
+            stale |= np.all(np.abs(centers - centers[best][None])
+                            < ps[None], axis=1)
+            stale[best] = False
+            sizes[best] = 0
+        picks += 1
+        done = bsize <= 0
+    return selected, {"rounds": rounds, "picks": picks,
+                      "refreshes": refreshes,
+                      "capped": rounds >= max_it}, largest, ties
+
+
+def _thin_model(affs, mask, cen, ps, fc, max_it=None):
+    pm = COV._patch_masks(torch.from_numpy(affs), cen, fc)
+    win, run0, inner = COV._thin_cover_volumes(mask, cen, np.array(ps))
+    return _thin_batched(pm, win, run0.copy(), inner, cen,
+                         np.array(ps), max_it)
+
+
+@pytest.mark.parametrize("threads,smem_cap", [(64, CK.SMEM_CAP), (96, 0),
+                                              (64, "arrays")])
 @pytest.mark.parametrize("seed,fc", [(0, 0.5), (1, 0.5), (2, 0.7)])
 def test_thin_cover_source_matches_plain_on_host(libs, seed, fc, threads,
                                                  smem_cap):
+    """Masks in shared memory, everything in device memory, and the masks
+    alone in device memory ("arrays": the running bits and the arrays
+    staged); the kernel's counts are those of its schedule's host model."""
     affs, mask, centers, ovl = _cover_data(seed)
     ps = (5, 5, 5)
     cen = _thin_centers(affs, mask, centers, ovl, ps, fc)
+    if smem_cap == "arrays":
+        base, run_b, arr_b, _ = _thin_smem(len(cen), mask.shape, ps)
+        smem_cap = base + run_b + arr_b
     want = COV.thin_cover_plain(torch.from_numpy(affs), mask, cen, ps, fc)
     got, st = _thin_host(libs, affs, mask, cen, ps, fc, threads=threads,
                          smem_cap=smem_cap)
     assert 0 < want.sum() < len(cen)
     np.testing.assert_array_equal(got, want)
     assert not st["capped"] and st["picks"] == want.sum()
-    assert st["iterations"] == st["picks"] + st["refreshes"]
+    assert st["rounds"] >= st["picks"]
+    model, mst, _, _ = _thin_model(affs, mask, cen, ps, fc)
+    np.testing.assert_array_equal(model, want)
+    assert {k: st[k] for k in mst} == mst
     full, _ = _thin_host(libs, affs, mask, cen, ps, fc, "full",
                          threads=threads, smem_cap=smem_cap)
     np.testing.assert_array_equal(full, want)
@@ -661,7 +803,7 @@ def test_thin_cover_source_2d_on_host(libs, seed):
     got, st = _thin_host(libs, affs, mask, cen, ps, 0.5, threads=64)
     assert 0 < want.sum() < len(cen)
     np.testing.assert_array_equal(got, want)
-    assert st["refreshes"] > 0
+    assert st["refreshes"] > 0 and st["rounds"] >= st["picks"]
     # the same image as a 2D volume (H, W) with (7, 7) patches
     got2, _ = _thin_host(libs, affs.reshape(49, 24, 27), mask[0], cen[:, 1:],
                          (7, 7), 0.5, threads=64)
@@ -669,22 +811,31 @@ def test_thin_cover_source_2d_on_host(libs, seed):
 
 
 def test_thin_cover_source_at_its_cap_on_host(libs):
-    """A lazy loop cut at 12 iterations: it reports the cap and has
-    selected what the plain lazy loop selects in 12 iterations; the full
-    mode then selects what the uncapped loops select."""
+    """A lazy loop cut at 12 rounds: it reports the cap and has selected
+    what its schedule selects in 12 rounds, which is what the plain lazy
+    loop has selected after as many picks; the full mode then selects what
+    the uncapped loops select."""
     affs, mask, centers, ovl = _cover_data(1)
     ps = (5, 5, 5)
     a = torch.from_numpy(affs)
     cen = _thin_centers(affs, mask, centers, ovl, ps, 0.5)
-    pm = COV._patch_masks(a, cen, 0.5)
-    win, run0, inner = COV._thin_cover_volumes(mask, cen, np.array(ps))
-    want_cut, capped = COV._thin_cover_lazy(pm, win, run0.copy(), inner, cen,
-                                            np.array(ps), max_it=12)
-    assert capped and 0 < want_cut.sum() < 12
+    want_cut, mst, _, _ = _thin_model(affs, mask, cen, ps, 0.5, max_it=12)
+    assert mst["capped"] and 0 < want_cut.sum() < 12
     got_cut, st = _thin_host(libs, affs, mask, cen, ps, 0.5, max_it=12,
                              threads=64)
-    assert st["capped"] and st["iterations"] == 12
+    assert st["capped"] and st["rounds"] == 12
     np.testing.assert_array_equal(got_cut, want_cut)
+    pm = COV._patch_masks(a, cen, 0.5)
+    win, run0, inner = COV._thin_cover_volumes(mask, cen, np.array(ps))
+    it = 1
+    while True:
+        plain_cut, capped = COV._thin_cover_lazy(
+            pm, win, run0.copy(), inner, cen, np.array(ps), max_it=it)
+        if plain_cut.sum() >= st["picks"]:
+            break
+        it += 1
+    assert capped
+    np.testing.assert_array_equal(got_cut, plain_cut)
     want = COV.thin_cover_plain(a, mask, cen, ps, 0.5)
     np.testing.assert_array_equal(
         COV.thin_cover_plain(a, mask, cen, ps, 0.5, max_it=12), want)
@@ -692,6 +843,31 @@ def test_thin_cover_source_at_its_cap_on_host(libs):
                                threads=64)
     assert not st_full["capped"]
     np.testing.assert_array_equal(full, want)
+
+
+@pytest.mark.parametrize("seed", [0, 2])
+def test_thin_cover_source_batched_refresh_on_host(libs, seed):
+    """Picks that make more entries stale than the block has warps, and
+    refresh rounds whose S holds a size equal to the best fresh one's (the
+    tie goes to the smaller index): two warps refresh such an S at once;
+    the kernel's rounds, picks and refreshes are its schedule's, and the
+    selection the plain loops'.  With a refresh list of two entries
+    (PPP_THIN_LIST=2) what does not fit stays stale for the next round:
+    more rounds, the same selection."""
+    affs, mask, centers, ovl = _cover_data(seed)
+    ps = (5, 5, 5)
+    cen = _thin_centers(affs, mask, centers, ovl, ps, 0.5)
+    want = COV.thin_cover_plain(torch.from_numpy(affs), mask, cen, ps, 0.5)
+    model, mst, largest, ties = _thin_model(affs, mask, cen, ps, 0.5)
+    assert largest > 2 and ties > 0
+    got, st = _thin_host(libs, affs, mask, cen, ps, 0.5, threads=64)
+    np.testing.assert_array_equal(got, want)
+    assert {k: st[k] for k in mst} == mst
+    short, st2 = CK.run_thin_cover(
+        _entry(libs["thin_cover_list2"], CK.THIN_COVER),
+        torch.from_numpy(affs), mask, cen, ps, 0.5, threads=64)
+    np.testing.assert_array_equal(short, want)
+    assert st2["rounds"] > st["rounds"] and st2["picks"] == st["picks"]
 
 
 def test_cover_routes_to_the_sources_on_host(libs, monkeypatch):
