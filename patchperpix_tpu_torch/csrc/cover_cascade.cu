@@ -43,10 +43,11 @@
 //   the bounding warps read them with relaxed loads.
 // The bounds are double-buffered, and so are the chunk's rows of masks,
 // centers and overlap flags, which are contiguous: where they fit in
-// shared memory (2 x 25 KB at 25 x 25), warp 1 brings them in with bulk
-// asynchronous copies, one chunk ahead.  Each buffer's hand-off is an
-// mbarrier: `full` (the bounding warps arrive), `empty` (warp 0 arrives
-// after its walk), `masks` (the copies' bytes).  A window's items come
+// shared memory (2 x 25 KB at 25 x 25), warp 0 brings them in with bulk
+// asynchronous copies, chunk k + 2's as soon as it has walked chunk k.
+// Each buffer's hand-off is an mbarrier: `full` (the bounding warps
+// arrive), `empty` (warp 0 arrives after its walk), `masks` (the copies'
+// bytes).  A window's items come
 // from a table of their offsets built once (cover_window.cuh).  No
 // block barrier runs inside the loop.  Once rem is 0 warp 0 raises `done`
 // and stops; the bounding warps stop at their next chunk.  Integer counts
@@ -168,6 +169,22 @@ __global__ void __launch_bounds__(1024)
                 buf + mb + (12ll * s - ppp_cover::row_span(s, e, 12).lo)),
             buf + mb + cb + (s - ppp_cover::row_span(s, e, 1).lo)};
   };
+  // one thread: chunk k's rows into its buffer, their bytes expected on
+  // the buffer's `masks` barrier
+  auto issue = [&](int k) {
+    const int s = (k % nchunks) * chunk, e = min(n, s + chunk);
+    const int wb = g.Wp * 4;
+    const ppp_cover::RowSpan rm = ppp_cover::row_span(s, e, wb),
+                             rc = ppp_cover::row_span(s, e, 12),
+                             ro = ppp_cover::row_span(s, e, 1);
+    unsigned char* buf = bufs + (k & 1) * buf_bytes;
+    unsigned long long* bar = masks + (k & 1);
+    ppp_cover::mbar_expect(
+        bar, (unsigned)(rm.hi - rm.lo + rc.hi - rc.lo + ro.hi - ro.lo));
+    ppp_cover::copy_rows(buf, pm, s, e, wb, bar);
+    ppp_cover::copy_rows(buf + mb, centers, s, e, 12, bar);
+    ppp_cover::copy_rows(buf + mb + cb, overlap_rows, s, e, 1, bar);
+  };
   if (warp > 0) {
     // bounding warps
     int counted = 0;
@@ -176,25 +193,15 @@ __global__ void __launch_bounds__(1024)
       const unsigned use = (unsigned)(k >> 1);
       const long long t0 = clock64();
       if (k >= 2) ppp_cover::mbar_wait(empty + b, (use - 1) & 1);
-      if (ppp_cover::load_relaxed(s_done)) break;
+      // one decision for the whole warp: its lanes leave the wait above
+      // one by one and may read the flag on either side of its store.
+      // Warps may decide at different chunks; none waits on another.  A
+      // warp that has not seen the flag reaches at most chunk K + 2 (K the
+      // walk's last chunk), whose wait above acquires it.
+      if (__reduce_max_sync(0xffffffffu, ppp_cover::load_relaxed(s_done)))
+        break;
       const int s = (k % nchunks) * chunk, e = min(n, s + chunk);
-      if (stage_chunks) {
-        if (warp == 1 && lane == 0) {
-          const int wb = g.Wp * 4;
-          const ppp_cover::RowSpan rm = ppp_cover::row_span(s, e, wb),
-                                   rc = ppp_cover::row_span(s, e, 12),
-                                   ro = ppp_cover::row_span(s, e, 1);
-          unsigned char* buf = bufs + b * buf_bytes;
-          ppp_cover::mbar_expect(
-              masks + b,
-              (unsigned)(rm.hi - rm.lo + rc.hi - rc.lo + ro.hi - ro.lo));
-          ppp_cover::copy_rows(buf, pm, s, e, wb, masks + b);
-          ppp_cover::copy_rows(buf + mb, centers, s, e, 12, masks + b);
-          ppp_cover::copy_rows(buf + mb + cb, overlap_rows, s, e, 1,
-                               masks + b);
-        }
-        ppp_cover::mbar_wait(masks + b, use & 1);
-      }
+      if (stage_chunks) ppp_cover::mbar_wait(masks + b, use & 1);
       const long long t1 = clock64();
       cyc[kCyBoundWait] += t1 - t0;
       const Rows r = rows_of(k, s, e);
@@ -213,8 +220,13 @@ __global__ void __launch_bounds__(1024)
     }
     if (lane == 0) atomicAdd(s_bounds, counted);
   } else {
-    // warp 0: the walk
+    // warp 0: the walk.  It issues the chunks' copies: the first two here,
+    // chunk k + 2 once it has walked chunk k (the bounding warps are done
+    // with that buffer too: they arrived on `full` for chunk k), so that
+    // every chunk up to K + 1 has its rows.
     int visits = 0, takes = 0, sweeps = 0;
+    if (stage_chunks && lane == 0)
+      for (int k = 0; k < min(2, G); ++k) issue(k);
     for (int k = 0; k < G; ++k) {
       const int b = k & 1;
       const unsigned use = (unsigned)(k >> 1);
@@ -246,7 +258,10 @@ __global__ void __launch_bounds__(1024)
       }
       __syncwarp();
       if (lane == 0) {
-        if (rem <= 0) ppp_cover::store_relaxed(s_done, 1u);
+        if (rem <= 0)
+          ppp_cover::store_relaxed(s_done, 1u);
+        else if (stage_chunks && k + 2 < G)
+          issue(k + 2);
         ppp_cover::mbar_arrive(empty + b);
       }
       cyc[kCyWalk] += clock64() - t1;

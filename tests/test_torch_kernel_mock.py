@@ -27,6 +27,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -702,6 +703,50 @@ def test_cover_sources_long_windows_on_host(libs):
     got, st = _thin_host(libs, affs, mask, centers, ps, 0.5, threads=64)
     assert 0 < want.sum() < len(centers)
     np.testing.assert_array_equal(got, want)
+
+
+_STRESS = """
+import sys
+import numpy as np
+import torch
+import test_torch_kernel_mock as T
+from patchperpix_tpu_torch.ops import cover as COV
+from patchperpix_tpu_torch.ops import cover_kernels as CK
+
+launch = T._entry(T.ctypes.CDLL(sys.argv[1]), CK.COVER_CASCADE)
+ps, runs = (1, 7, 7), int(sys.argv[2])
+for it in range(runs):
+    affs, mask, centers, ovl = T._blobs_2d((1, 24, 27), 7, 3 + it % 9)
+    a = torch.from_numpy(affs)
+    want = COV.cover_cascade_plain(a, mask, centers, ovl, ps, 0.5,
+                                   T._pix_ths(ps))
+    got = CK.run_cover_cascade(launch, a, mask, centers, ovl, ps, 0.5,
+                               T._pix_ths(ps), threads=96, chunk=16,
+                               smem_cap=(0, CK.SMEM_CAP)[it % 2])
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1],
+                                                              want[1])
+print(runs)
+"""
+
+
+def test_cover_cascade_source_many_launches_on_host(libs):
+    """A time-bounded stress run of the cascade's host build: 24 launches
+    on the 2D blobs, where rem reaches 0 part-way and the bounding warps
+    stop on the walk's done flag, staged and in device memory, one host
+    thread per CUDA thread while the other test workers load the CPU.  It
+    runs in a subprocess with a time limit, so that a hand-off between the
+    warps that can deadlock fails the test instead of hanging it (an early
+    version did: bounding warps that decided to stop at different chunks
+    left one waiting for a copy that another was to issue).  Each launch
+    equals the plain version."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(tests), tests, os.environ.get("PYTHONPATH", "")]))
+    r = subprocess.run([sys.executable, "-c", _STRESS,
+                        libs["cover_cascade"]._name, "24"], env=env,
+                       capture_output=True, text=True, timeout=400)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split()[-1] == "24"
 
 
 def _thin_centers(affs, mask, centers, ovl, ps, fc):
