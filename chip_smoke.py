@@ -154,10 +154,9 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    from init_tree, on the crop model cut in width to TRAIN_RUN_WIDTHS: the
    mean loss of the last 50 steps within the band of two JAX runs of the
    same (seeds 0 and 1), widened below by the larger of 15 % and their
-   spread, above by the larger of 5 % and their spread; the median step ms
-   in f32 and bf16 with crops/s and peak memory; (c) ``-d all`` through
-   the port's CLI on the crop as users run it (bf16, Adam, warmup-cosine,
-   device sampler), the override cutting max_iterations to 400,
+   spread, above by the larger of 5 % and their spread; (c) ``-d all``
+   through the port's CLI on the crop as users run it (bf16, Adam,
+   warmup-cosine, device sampler), the override cutting max_iterations to 400,
    checkpoints to 200 and the warmup to 100 steps, from the trained
    parameters seeded as train_net_checkpoint_0 (no optimizer state): log
    rows at steps 1, 100, ... 400 with finite losses, checkpoints [0, 200,
@@ -187,9 +186,8 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    within 1e-4 relative L2 per head, then f32 and bf16 times and peak
    memory; (e) one f32 step of the rehearsal model on a fixed batch
    under phase 12's gate (a) limits (its own float64 witness), the 2D
-   device sampler against the host's, bf16 step times of the rehearsal
-   and the full-width model; (f) ``-d all`` with the rehearsal config
-   (6,000 bf16 steps, checkpoints every 2,000): every checkpoint
+   device sampler against the host's; (f) ``-d all`` with the rehearsal
+   config (6,000 bf16 steps, checkpoints every 2,000): every checkpoint
    validated, K3 / K4 launched once per labelled sample (the validated
    checkpoints' val samples and the final test label), rand_fscore /
    adapted_rand_error / VOI per test sample beside the JAX rehearsal's
@@ -203,8 +201,8 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    memory; a 2D Swin at configs/bbbc010.toml's widths on the model2d
    window (1e-4 + 1e-4 |x|); (b) one f32 step of configs/flylight_crop
    .toml's model as a Swin on phase 12's batch under phase 12(a)'s
-   limits, ``rel_pos_bias`` and the qkv leaves named; its bf16 step ms;
-   (c) ``-d all`` with that config as a Swin (bf16, device sampler, 400
+   limits, ``rel_pos_bias`` and the qkv leaves named; (c) ``-d all``
+   with that config as a Swin (bf16, device sampler, 400
    steps, checkpoints every 200, foreground by the numinst argmax) from
    the seeded tree as checkpoint 0:
    every checkpoint scored, K1 / K2 once per validated checkpoint plus
@@ -2448,42 +2446,6 @@ def run_cli(dev, kernels, then=None):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def train_step_times(cfg, ds, dev, steps=40, warm=20, tree=None):
-    """Median step ms after ``warm`` steps (a synchronise after each), with
-    crops/s and the peak memory, of the model ``cfg`` with the parameters
-    ``tree`` (default: the trained crop model) training on device batches
-    (Adam, lr 1e-3)."""
-    import numpy as np
-    import torch
-
-    from patchperpix_tpu_torch import weights
-    from patchperpix_tpu_torch.models import PPPModel
-    from patchperpix_tpu_torch.train.trainer import (TrainConfig,
-                                                     make_optimizer,
-                                                     make_train_step)
-
-    model = PPPModel(cfg)
-    model.load_state_dict(weights.to_state_dict(
-        weights.load_npz() if tree is None else tree))
-    model.to(dev).train()
-    tcfg = TrainConfig(lr=1e-3)
-    opt, sched = make_optimizer(tcfg, model.parameters())
-    step, _ = make_train_step(model, cfg, tcfg, opt, sched)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    times = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        raw, labels, _ = ds.sample_batch(gen)
-        step(raw, labels, gen)
-        torch.cuda.synchronize(dev)
-        times.append(time.perf_counter() - t0)
-    ms = float(np.median(times[warm:])) * 1e3
-    return {"step_ms": ms, "crops_per_s": ds.cfg.batch_size / ms * 1e3,
-            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-
-
 def step_errors(dev, branch, cfg, tree, raw, labels, want, ref,
                 corners=None, mesh=None, named=(), grads_out=None):
     """One f32 step (TF32 off) of the port's model ``cfg`` with the flat
@@ -2851,19 +2813,16 @@ def run_train_all(dev_args, kernels, work, phase="train_all",
 def run_train(dev, kernels):
     """Phase train: (a) one train step at full width in f32 against the
     JAX package's, both branches; (b) the loss level of a 200-step run
-    against two JAX runs; the step times in f32 and bf16; (c) the
-    reference CLI's ``-d all`` on the crop, then a resumed ``train``."""
-    import dataclasses
+    against two JAX runs; (c) the reference CLI's ``-d all`` on the
+    crop, then a resumed ``train``."""
     import shutil
     import tempfile
 
     import numpy as np
     import torch
 
-    from patchperpix_tpu_torch import models
     from patchperpix_tpu_torch.train import data as td
     from patchperpix_tpu_torch.train.device_data import DeviceSampler
-    from patchperpix_tpu_torch.utils.device import exact_f32
 
     t_phase = time.perf_counter()
     ref = np.load(TRAIN_REF_NPZ)
@@ -2884,14 +2843,6 @@ def run_train(dev, kernels):
     try:
         check_sampler_alignment(ds, [sample], td)
         check_train_run(dev, ds, meta["runs"], work)
-        cfg32 = train_model_config(models, CLI_CONFIG)
-        with exact_f32():
-            times = {"float32": train_step_times(cfg32, ds, dev)}
-        times["bfloat16"] = train_step_times(
-            dataclasses.replace(cfg32, dtype="bfloat16"), ds, dev)
-        emit({"phase": "train_step_times", **times,
-              "note": "trained crop model, batch 3 of 40^3, device "
-                      "sampler, Adam; median step after 20 of 40"})
         torch.cuda.empty_cache()
         run_train_all([], kernels, work)
         emit({"phase": "train_wall",
@@ -3060,14 +3011,13 @@ def swin_full_step(dev):
 
 def run_swin(dev, kernels):
     """Phase swin: (a) ``swin_forward``; (b) the crop config's Swin step
-    in f32 against the JAX fixture under phase 12(a)'s limits, then its
-    bf16 step ms on device batches; (c) ``-d all`` with
+    in f32 against the JAX fixture under phase 12(a)'s limits; (c)
+    ``-d all`` with
     configs/flylight_crop.toml as a Swin (bf16, the device sampler,
     ALL_STEPS steps, checkpoints every ALL_CHECKPOINTS) from the seeded
     tree as checkpoint 0: every checkpoint scored, K1 / K2 once per
     validated checkpoint plus the final label (foreground by the numinst
     argmax); (d) ``swin_full_step``."""
-    import dataclasses
     import shutil
     import tempfile
 
@@ -3077,7 +3027,6 @@ def run_swin(dev, kernels):
     from patchperpix_tpu_torch import models
     from patchperpix_tpu_torch.models.init import flax_leaves
     from patchperpix_tpu_torch.train import data as td
-    from patchperpix_tpu_torch.train.device_data import DeviceSampler
     from patchperpix_tpu_torch.weights import seeded_tree
 
     t_phase = time.perf_counter()
@@ -3096,12 +3045,6 @@ def run_swin(dev, kernels):
                        named=("rel_pos_bias", "WindowAttention_0/Dense_0"))
     emit({"phase": "swin_step_vs_jax_f32", **step})
     gate_step({"swin": step})
-    ds = DeviceSampler([sample], train_sampler_config(td),
-                       max_gt_channels=labels.shape[1], device=dev)
-    emit({"phase": "swin_step_times", "bfloat16": train_step_times(
-        dataclasses.replace(cfg, dtype="bfloat16"), ds, dev, tree=tree),
-        "note": "configs/flylight_crop.toml as a Swin, seeded, batch 3 of "
-                "40^3, device sampler, Adam; median step after 20 of 40"})
     torch.cuda.empty_cache()
 
     out_root = os.path.join(REPO, "experiments_out")
@@ -3719,11 +3662,8 @@ def isbi_forward(dev, ref, meta):
 def isbi_step(dev, ref, meta):
     """Gate (e): one f32 step of the rehearsal model (seeded) on the fixed
     batch against the JAX package's, under ``step_errors``' limits (the
-    train phase's gate (a)); then step times in bf16 of the rehearsal
-    model (batch 2 of 160^2) and of the full-width isbi2012 model (batch 4
-    of 256^2), on device batches of the stand-in's training samples."""
-    import dataclasses
-
+    train phase's gate (a)); then the device sampler's batches of the
+    stand-in's training samples against the host sampler's."""
     import numpy as np
 
     from patchperpix_tpu_torch import models
@@ -3748,23 +3688,9 @@ def isbi_step(dev, ref, meta):
     samples = [td.load_sample(os.path.join(
         ISBI_DATA, "train", f"isbi_train_0{i}.zarr"), "volumes/raw",
         "volumes/gt_instances") for i in range(6)]
-    times = {}
-    for name, path in (("rehearsal", ISBI_CONFIG),
-                       ("isbi2012", ISBI2012_CONFIG)):
-        c = dataclasses.replace(train_model_config(models, path),
-                                dtype="bfloat16")
-        ds = DeviceSampler(samples, isbi_sampler_config(td, path),
-                           max_gt_channels=1, device=dev)
-        if name == "rehearsal":
-            check_sampler_alignment(ds, samples, td)
-        times[name] = {"batch": [ds.cfg.batch_size,
-                                 list(ds.cfg.input_shape)],
-                       **train_step_times(c, ds, dev, steps=30, warm=10,
-                                          tree=isbi_seeded_tree(
-                                              flax_leaves(c)))}
-    emit({"phase": "isbi_step_times", **times,
-          "note": "bf16 autocast, seeded weights, device sampler, Adam; "
-                  "median step after 10 of 30"})
+    ds = DeviceSampler(samples, isbi_sampler_config(td, ISBI_CONFIG),
+                       max_gt_channels=1, device=dev)
+    check_sampler_alignment(ds, samples, td)
 
 
 def isbi_all(dev_args, kernels, work, seeded):

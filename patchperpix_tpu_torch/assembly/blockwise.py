@@ -51,6 +51,7 @@ from ..ops import np_reference as ref
 from ..ops.graph_device import graph_components_device
 from ..parallel import sharded
 from ..utils import io as vio
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.postprocess import clean_mask
 from ..utils.skeleton import skeletonize
@@ -336,8 +337,9 @@ class BlockStats:
     """What a blockwise run did, for the caller to read: the reader that
     served the windows, blocks and stitch windows in all and those that
     reached the consensus stage, the stitch window extent, per-block stage
-    seconds and the stitch's stage seconds summed over its windows (the
-    device synchronised at each stage boundary while stats are kept)."""
+    seconds and the stitch's stage seconds summed over its windows (each
+    stage from the moment the previous one was done on the host and the
+    device to the moment it was; ``utils/trace.Stages``)."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -603,133 +605,130 @@ def stitch_blocks(reader, fg, numinst, block_results,
     from scipy.spatial import cKDTree
 
     dev = resolve_device(device)
-    t0 = clock = time.perf_counter()
-
-    def lap(name):
-        nonlocal clock
-        if stats is None:
-            return
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        stats.stitch_stages[name] = (stats.stitch_stages.get(name, 0.0)
-                                     + now - clock)
-        clock = now
-
-    ps = np.asarray(params.patchshape, dtype=np.int64)
-    vol_shape = np.array(fg.shape)
-    ndim = len(ps)
-    edges_pairs, edges_weights, node_block = [], [], {}
-    for res in block_results.values():
-        if res is None:
-            continue
-        pairs, weights, bkey = res
-        edges_pairs.append(pairs)
-        edges_weights.append(weights)
-        for row in np.asarray(pairs).tolist():
-            node_block[tuple(row[:ndim])] = bkey
-            node_block[tuple(row[ndim:])] = bkey
-    if not edges_pairs:
-        return np.zeros(tuple(vol_shape), np.uint16)
-    all_pairs = np.concatenate(edges_pairs, axis=0)
-    all_weights = np.concatenate(edges_weights, axis=0)
-
-    # candidate pairs of selected patches of different blocks within reach,
-    # in the sorted order of the k-d tree's index pairs
-    nodes = sorted(node_block.keys())
-    pts = np.array(nodes, dtype=np.int64)
-    cross_pairs = []
-    if len(pts) > 1:
-        tree = cKDTree(pts, leafsize=4)
-        cand = tree.query_pairs(2 * float(np.sum(ps)), p=1,
-                                output_type="ndarray")
-        cand = cand[np.lexsort((cand[:, 1], cand[:, 0]))]
-        block_id = {k: i for i, k in enumerate(set(node_block.values()))}
-        blk = np.array([block_id[node_block[n]] for n in nodes])
-        max_d = params.max_total_patch_distance_in_ps_multiples * ps
-        a, b = cand[:, 0], cand[:, 1]
-        keep = (blk[a] != blk[b]) & ~np.any(
-            np.abs(pts[a] - pts[b]) > max_d, axis=1)
-        cross_pairs = [(nodes[i], nodes[j]) for i, j in cand[keep].tolist()]
-    lap("candidates")
-
-    if cross_pairs:
-        # one window per block pair and 48^3 cell of the pair midpoint,
-        # all of ONE canonical shape: the per-axis largest need, rounded up
-        # to 16 (readers zero-pad past the volume, which votes nothing);
-        # flat axes keep extent 1.  The windows, and with them the maps,
-        # are those of the JAX package's run.
-        cell = 48
-        groups: dict = {}
-        for na, nb in cross_pairs:
-            gkey = tuple(sorted((node_block[na], node_block[nb])))
-            mid = tuple(((np.asarray(na) + np.asarray(nb)) // 2) // cell)
-            groups.setdefault(gkey + mid, []).append((na, nb))
-        bounds = {}
-        for gkey, prs in groups.items():
-            coords = np.array([c for pr in prs for c in pr], dtype=np.int64)
-            bounds[gkey] = (coords.min(axis=0) - 2 * ps,
-                            coords.max(axis=0) + 2 * ps + 1)
-        need = np.max(np.array([h - l for l, h in bounds.values()]), axis=0)
-        ext = -(-need // 16) * 16
-        ext = np.where(vol_shape == 1, 1, ext)
-        if stats is not None:
-            stats.stitch_extent = [int(e) for e in ext]
-        new_pairs, new_weights = [all_pairs], [all_weights]
-        for gkey, prs in groups.items():
-            lo, hi = bounds[gkey]
-            w_start = lo - (ext - (hi - lo)) // 2
-            w_stop = w_start + ext
-            lap("windows_host")
-            affs_w = reader.read_window(w_start, w_stop)
-            lap("windows_read")
-            fg_w = _crop(fg, w_start, w_stop)
-            ni_w = _crop(numinst, w_start, w_stop)
-            glob = np.array([np.concatenate([na, nb]) for na, nb in prs],
-                            dtype=np.int64)
-            local_pairs = (glob - np.concatenate([w_start, w_start])[None]
-                           ).astype(np.uint32)
-            cv = _global_center_valid(w_start, fg_w.shape, fg.shape,
-                                      ps // 2)
-            wparams = dataclasses.replace(
-                params, blockwise=True, return_intermediates=True,
-                skipRanking=True, skeletonize_foreground=False,
-                selected_patch_pairs=local_pairs, selected_patches=None,
-                center_valid=cv)
-            inter: dict = {}
-            timings = {} if stats is not None else None
-            lap("windows_host")
-            res = to_instance_seg(affs_w, fg_w, fg_w.copy(), ni_w, wparams,
-                                  device=dev, timings=timings,
-                                  intermediates=inter)
-            del affs_w
-            lap("windows_assemble")
-            if stats is not None:
-                stats.stitch_windows += 1
-                stats.stitch_consensus += int(inter.get("consensus", False))
-                for k, v in timings.items():
-                    k = "windows_assemble_" + k
-                    stats.stitch_stages[k] = stats.stitch_stages.get(k, 0) + v
-            if res[0] is None:
+    t0 = time.perf_counter()
+    with trace.Stages("stitch", dev, None if stats is None
+                      else stats.stitch_stages) as stages:
+        stages.next("candidates")
+        ps = np.asarray(params.patchshape, dtype=np.int64)
+        vol_shape = np.array(fg.shape)
+        ndim = len(ps)
+        edges_pairs, edges_weights, node_block = [], [], {}
+        for res in block_results.values():
+            if res is None:
                 continue
-            new_pairs.append(glob)
-            new_weights.append(np.asarray(res[1]))
-        all_pairs = np.concatenate(new_pairs, axis=0)
-        all_weights = np.concatenate(new_weights)
+            pairs, weights, bkey = res
+            edges_pairs.append(pairs)
+            edges_weights.append(weights)
+            for row in np.asarray(pairs).tolist():
+                node_block[tuple(row[:ndim])] = bkey
+                node_block[tuple(row[ndim:])] = bkey
+        if not edges_pairs:
+            return np.zeros(tuple(vol_shape), np.uint16)
+        all_pairs = np.concatenate(edges_pairs, axis=0)
+        all_weights = np.concatenate(edges_weights, axis=0)
 
-    if params.mws:
-        comps = ref.graph_components(all_pairs, all_weights)
-    else:
-        comps = graph_components_device(all_pairs, all_weights, dev)
-    lap("components")
-    # sparse_labels mode: only the component nodes' patch columns
-    patch_dict = reader.read_columns([idx for comp in comps for idx in comp])
-    instances = ref.components_to_instances(
-        comps, patch_dict, ps, tuple(vol_shape),
-        patch_threshold=params.patch_threshold,
-        one_instance_per_channel=params.one_instance_per_channel,
-        no_overlap_per_channel=params.no_overlap_per_channel)
-    lap("paint")
+        # candidate pairs of selected patches of different blocks within reach,
+        # in the sorted order of the k-d tree's index pairs
+        nodes = sorted(node_block.keys())
+        pts = np.array(nodes, dtype=np.int64)
+        cross_pairs = []
+        if len(pts) > 1:
+            tree = cKDTree(pts, leafsize=4)
+            cand = tree.query_pairs(2 * float(np.sum(ps)), p=1,
+                                    output_type="ndarray")
+            cand = cand[np.lexsort((cand[:, 1], cand[:, 0]))]
+            block_id = {k: i for i, k in enumerate(set(node_block.values()))}
+            blk = np.array([block_id[node_block[n]] for n in nodes])
+            max_d = params.max_total_patch_distance_in_ps_multiples * ps
+            a, b = cand[:, 0], cand[:, 1]
+            keep = (blk[a] != blk[b]) & ~np.any(
+                np.abs(pts[a] - pts[b]) > max_d, axis=1)
+            cross_pairs = [(nodes[i], nodes[j])
+                           for i, j in cand[keep].tolist()]
+
+        if cross_pairs:
+            stages.next("windows_host")
+            # one window per block pair and 48^3 cell of the pair midpoint,
+            # all of ONE canonical shape: the per-axis largest need, rounded up
+            # to 16 (readers zero-pad past the volume, which votes nothing);
+            # flat axes keep extent 1.  The windows, and with them the maps,
+            # are those of the JAX package's run.
+            cell = 48
+            groups: dict = {}
+            for na, nb in cross_pairs:
+                gkey = tuple(sorted((node_block[na], node_block[nb])))
+                mid = tuple(((np.asarray(na) + np.asarray(nb)) // 2) // cell)
+                groups.setdefault(gkey + mid, []).append((na, nb))
+            bounds = {}
+            for gkey, prs in groups.items():
+                coords = np.array([c for pr in prs for c in pr],
+                                  dtype=np.int64)
+                bounds[gkey] = (coords.min(axis=0) - 2 * ps,
+                                coords.max(axis=0) + 2 * ps + 1)
+            need = np.max(np.array([h - l for l, h in bounds.values()]),
+                          axis=0)
+            ext = -(-need // 16) * 16
+            ext = np.where(vol_shape == 1, 1, ext)
+            if stats is not None:
+                stats.stitch_extent = [int(e) for e in ext]
+            new_pairs, new_weights = [all_pairs], [all_weights]
+            for gkey, prs in groups.items():
+                lo, hi = bounds[gkey]
+                w_start = lo - (ext - (hi - lo)) // 2
+                w_stop = w_start + ext
+                stages.next("windows_read")
+                affs_w = reader.read_window(w_start, w_stop)
+                stages.next("windows_host")
+                fg_w = _crop(fg, w_start, w_stop)
+                ni_w = _crop(numinst, w_start, w_stop)
+                glob = np.array([np.concatenate([na, nb]) for na, nb in prs],
+                                dtype=np.int64)
+                local_pairs = (glob - np.concatenate([w_start, w_start])[None]
+                               ).astype(np.uint32)
+                cv = _global_center_valid(w_start, fg_w.shape, fg.shape,
+                                          ps // 2)
+                wparams = dataclasses.replace(
+                    params, blockwise=True, return_intermediates=True,
+                    skipRanking=True, skeletonize_foreground=False,
+                    selected_patch_pairs=local_pairs, selected_patches=None,
+                    center_valid=cv)
+                inter: dict = {}
+                timings = {} if stats is not None else None
+                stages.next("windows_assemble")
+                res = to_instance_seg(affs_w, fg_w, fg_w.copy(), ni_w, wparams,
+                                      device=dev, timings=timings,
+                                      intermediates=inter)
+                del affs_w
+                stages.next("windows_host")
+                if stats is not None:
+                    stats.stitch_windows += 1
+                    stats.stitch_consensus += int(inter.get("consensus",
+                                                            False))
+                    for k, v in timings.items():
+                        k = "windows_assemble_" + k
+                        stats.stitch_stages[k] = (
+                            stats.stitch_stages.get(k, 0) + v)
+                if res[0] is None:
+                    continue
+                new_pairs.append(glob)
+                new_weights.append(np.asarray(res[1]))
+            all_pairs = np.concatenate(new_pairs, axis=0)
+            all_weights = np.concatenate(new_weights)
+
+        stages.next("components")
+        if params.mws:
+            comps = ref.graph_components(all_pairs, all_weights)
+        else:
+            comps = graph_components_device(all_pairs, all_weights, dev)
+        stages.next("paint")
+        # sparse_labels mode: only the component nodes' patch columns
+        patch_dict = reader.read_columns([idx for comp in comps
+                                          for idx in comp])
+        instances = ref.components_to_instances(
+            comps, patch_dict, ps, tuple(vol_shape),
+            patch_threshold=params.patch_threshold,
+            one_instance_per_channel=params.one_instance_per_channel,
+            no_overlap_per_channel=params.no_overlap_per_channel)
     if stats is not None:
         stats.stitch_seconds = time.perf_counter() - t0
     return instances

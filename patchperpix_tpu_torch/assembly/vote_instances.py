@@ -69,7 +69,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import time
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -87,6 +86,7 @@ from ..ops.cover import greedy_cover_device, thin_out_cover_device
 from ..ops.graph_device import graph_components_device
 from ..parallel import sharded
 from ..utils import io as vio
+from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.io import save_tif, write_png
 from ..utils.postprocess import (color_labels, relabel,
@@ -328,24 +328,6 @@ def _paint_src(affs: torch.Tensor, comps, patch_threshold: float) -> dict:
     return {tuple(int(x) for x in c): cols[:, i] for i, c in enumerate(pts)}
 
 
-class _Stages:
-    """Per-stage wall seconds, synchronizing the device at each boundary
-    (only when the caller asks for the times)."""
-
-    def __init__(self, out: dict | None, device):
-        self.out, self.device = out, device
-        self.t = time.perf_counter()
-
-    def mark(self, name: str):
-        if self.out is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.out[name] = now - self.t
-        self.t = now
-
-
 def _pad_all(affs, arrays, rad):
     """Zero-pad the stack (on its device) and the masks by the patch
     radius on every spatial side (vote_instances.py:238-248)."""
@@ -466,10 +448,9 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
         foreground = isbi_hacks.keep_single_slice(foreground)
         mask_to_cover = isbi_hacks.keep_single_slice(mask_to_cover)
     if not params.blockwise and params.skeletonize_foreground:
-        t_skel = time.perf_counter()
-        mask_to_cover = skeletonize(mask_to_cover) > 0
-        if timings is not None:
-            timings["skeletonize"] = time.perf_counter() - t_skel
+        with trace.Stages("label", None, timings) as stages:
+            stages.next("skeletonize")
+            mask_to_cover = skeletonize(mask_to_cover) > 0
     mask_to_cover[overlap_mask > 0] = False
     instances = np.zeros(((1,) if _multi_out(params) else ()) + vol_shape,
                          dtype=np.uint16)
@@ -500,156 +481,157 @@ def to_instance_seg(pred_affs, foreground: np.ndarray,
             "+ aff_graph (ranking and graph weights both consume the "
             "consensus array)")
 
-    stages = _Stages(timings, dev)
-    inter = intermediates if intermediates is not None else {}
-    ccfg = params.consensus_config()
-    overlap = (torch.as_tensor(overlap_mask > 0, device=dev)
-               if params.overlapping_inst else None)
-    cv = None
-    if params.center_valid is not None:
-        cv_np = np.asarray(params.center_valid, dtype=bool)
-        if cv_np.shape != vol_shape:
-            raise ValueError(f"center_valid {cv_np.shape} != volume "
-                             f"{vol_shape}")
-        inner = inner & cv_np
-        cv = torch.as_tensor(cv_np, device=dev)
-    injected = params.selected_patch_pairs is not None
-    oracle = params.use_score_oracle and params.oracle_scores is not None
-    skip_rank = params.skipRanking and (
-        injected or params.selected_patches is not None)
+    with trace.Stages("label", dev, timings) as stages:
+        stages.next("consensus")
+        inter = intermediates if intermediates is not None else {}
+        ccfg = params.consensus_config()
+        overlap = (torch.as_tensor(overlap_mask > 0, device=dev)
+                   if params.overlapping_inst else None)
+        cv = None
+        if params.center_valid is not None:
+            cv_np = np.asarray(params.center_valid, dtype=bool)
+            if cv_np.shape != vol_shape:
+                raise ValueError(f"center_valid {cv_np.shape} != volume "
+                                 f"{vol_shape}")
+            inner = inner & cv_np
+            cv = torch.as_tensor(cv_np, device=dev)
+        injected = params.selected_patch_pairs is not None
+        oracle = params.use_score_oracle and params.oracle_scores is not None
+        skip_rank = params.skipRanking and (
+            injected or params.selected_patches is not None)
 
-    # (1) consensus: operands in PyTorch (2D: one gated stack and a target
-    # plane; 3D: the mask stacks), the canonical half from the kernel; with
-    # sharded_devices, z-sharded over a mesh with the rank beside it
-    n_sh = _sharded_mesh_size(params, vol_shape, ccfg, dev.type)
-    mesh = sharded.make_spatial_mesh(n_sh, dev.type) if n_sh > 1 else None
-    if mesh is not None:
-        operands = None
-        cons, sharded_scores = sharded.sharded_consensus_and_rank(
-            affs, ccfg, mesh, overlap, cv)
-    else:
-        operands = consensus_operands(affs, ccfg, overlap, cv)
-        cons = consensus_half(affs, operands, ccfg)
-    inter["consensus"] = True
-    stages.mark("consensus")
-
-    # (2) rank kernel (or the oracle's scores, or none when the selection
-    # is given), the candidates' scores gathered, and the host stable
-    # descending sort (ties keep scan order)
-    scores = None
-    if oracle:
-        scores = torch.as_tensor(np.asarray(params.oracle_scores,
-                                            dtype=np.float32), device=dev)
-        if tuple(scores.shape) != vol_shape:
-            raise ValueError(f"oracle scores {tuple(scores.shape)} != "
-                             f"volume {vol_shape}")
-    elif not skip_rank:
-        scores = sharded_scores if mesh is not None \
-            else rank_scores(affs, cons, operands, ccfg, cv)
-    del operands
-    cand = np.argwhere(foreground & inner)
-    if params.isbi_hack:
-        cand, mask_to_cover = _candidates(cand, affs, foreground,
-                                          mask_to_cover, ps, params)
-    if len(cand) == 0:
-        return nothing()
-    if scores is None:
-        svals = np.zeros(len(cand), dtype=np.float32)
-    else:
-        flat = torch.as_tensor(
-            np.ravel_multi_index(tuple(cand.T), vol_shape), device=dev)
-        svals = scores.reshape(-1)[flat].cpu().numpy().astype(np.float32)
-    order = np.argsort(-svals, kind="stable")
-    if params.store_scores and params.aff_file:
-        _write_scores_volume(
-            params, np.zeros(vol_shape, np.float32) if scores is None
-            else scores.cpu().numpy(), cand, rad)
-    del scores
-    if params.shuffle_patches:
-        # diagnostic (ranked_patches.py:199-210): no rank order
-        order = order[np.random.RandomState(params.seed).permutation(
-            len(order))]
-    ranked = [(cand[i], float(svals[i])) for i in order]
-    if not skip_rank:
-        inter["ranked_centers"] = cand[order]
-        inter["ranked_scores"] = svals[order]
-    stages.mark("rank")
-
-    if injected:
-        # (3)-(5) the pair list is given: the cover stages would only feed
-        # the pair generation
-        pairs = np.asarray(params.selected_patch_pairs, dtype=np.uint32)
-    else:
-        # (3) greedy cover (4) thin-out set cover, on each patch's pixels
-        # thinned with sample < 1 (one keep mask, drawn as the JAX
-        # package's host path draws it)
-        given = params.selected_patches is not None or params.skipSelection
-        thin = not (given or params.skipThinCover)
-        cover_affs = affs
-        if params.sample < 1.0 and not given:
-            keep = np.random.RandomState(params.seed).rand(
-                *affs.shape) < params.sample
-            cover_affs = torch.where(torch.as_tensor(keep, device=dev),
-                                     affs, 0.0)
-            del keep
-        if params.selected_patches is not None:
-            selected = [(np.asarray(c), 1.0)
-                        for c in params.selected_patches]
-        elif params.skipSelection:
-            selected = ranked
-        elif (params.score_threshold is not None
-              or params.select_patches_overlap_neighborhood
-              or params.mark_close_neighboorhood):
-            # the options of the host loop: one copy of the stack
-            selected, _ = ref.foreground_cover_reference(
-                cover_affs.cpu().numpy(), mask_to_cover, ranked, ps,
-                fc_threshold=params.fc_threshold, overlap=overlap_mask,
-                sparse_data=params.select_patches_for_sparse_data,
-                score_threshold=params.score_threshold,
-                overlap_neighborhood=(
-                    params.select_patches_overlap_neighborhood),
-                mark_close=params.mark_close_neighboorhood)
+        # (1) consensus: operands in PyTorch (2D: one gated stack and a target
+        # plane; 3D: the mask stacks), the canonical half from the kernel; with
+        # sharded_devices, z-sharded over a mesh with the rank beside it
+        n_sh = _sharded_mesh_size(params, vol_shape, ccfg, dev.type)
+        mesh = sharded.make_spatial_mesh(n_sh, dev.type) if n_sh > 1 else None
+        if mesh is not None:
+            operands = None
+            cons, sharded_scores = sharded.sharded_consensus_and_rank(
+                affs, ccfg, mesh, overlap, cv)
         else:
-            selected, _ = greedy_cover_device(
-                cover_affs, mask_to_cover, ranked, ps,
-                fc_threshold=params.fc_threshold, overlap=overlap_mask,
-                sparse_data=params.select_patches_for_sparse_data,
-                mesh=mesh)
-        inter["cover_centers"] = np.array([c for c, _ in selected])
-        stages.mark("cover")
-        if thin and selected:
-            selected = thin_out_cover_device(
-                cover_affs, mask_to_cover, selected, ps,
-                fc_threshold=params.fc_threshold)
-        del cover_affs
-        inter["thin_centers"] = np.array([c for c, _ in selected])
-        stages.mark("thin_cover")
-        # (5) patch pairs (host)
-        pairs, _ = ref.patch_pairs_reference(
-            selected, ps,
-            max_ps_dist=params.max_total_patch_distance_in_ps_multiples,
-            include_singleton=params.includeSinglePatchCCS)
-    stages.mark("pairs")
-    if pairs is None or len(pairs) == 0:
-        return nothing()
-    # patch-graph weights (device)
-    sym = symmetrize_half(cons, ccfg)
-    del cons
-    weights = patch_graph_weights(affs, sym, pairs, ccfg,
-                                  drop_intersection=params.removeIntersection,
-                                  mesh=mesh)
-    del sym
-    inter["pairs"], inter["weights"] = pairs, weights
-    stages.mark("graph")
-    if params.return_intermediates:
-        return pairs, weights
+            operands = consensus_operands(affs, ccfg, overlap, cv)
+            cons = consensus_half(affs, operands, ccfg)
+        inter["consensus"] = True
+        stages.next("rank")
 
-    # (6) components (host mutex watershed, or label propagation on the
-    # device) -> painting
-    comps = _components(pairs, weights, params, dev)
-    instances = _paint(comps, affs, ps, vol_shape, params)
-    inter["n_components"] = len(comps)
-    stages.mark("mws_paint")
+        # (2) rank kernel (or the oracle's scores, or none when the selection
+        # is given), the candidates' scores gathered, and the host stable
+        # descending sort (ties keep scan order)
+        scores = None
+        if oracle:
+            scores = torch.as_tensor(np.asarray(params.oracle_scores,
+                                                dtype=np.float32), device=dev)
+            if tuple(scores.shape) != vol_shape:
+                raise ValueError(f"oracle scores {tuple(scores.shape)} != "
+                                 f"volume {vol_shape}")
+        elif not skip_rank:
+            scores = sharded_scores if mesh is not None \
+                else rank_scores(affs, cons, operands, ccfg, cv)
+        del operands
+        cand = np.argwhere(foreground & inner)
+        if params.isbi_hack:
+            cand, mask_to_cover = _candidates(cand, affs, foreground,
+                                              mask_to_cover, ps, params)
+        if len(cand) == 0:
+            return nothing()
+        if scores is None:
+            svals = np.zeros(len(cand), dtype=np.float32)
+        else:
+            flat = torch.as_tensor(
+                np.ravel_multi_index(tuple(cand.T), vol_shape), device=dev)
+            svals = scores.reshape(-1)[flat].cpu().numpy().astype(np.float32)
+        order = np.argsort(-svals, kind="stable")
+        if params.store_scores and params.aff_file:
+            _write_scores_volume(
+                params, np.zeros(vol_shape, np.float32) if scores is None
+                else scores.cpu().numpy(), cand, rad)
+        del scores
+        if params.shuffle_patches:
+            # diagnostic (ranked_patches.py:199-210): no rank order
+            order = order[np.random.RandomState(params.seed).permutation(
+                len(order))]
+        ranked = [(cand[i], float(svals[i])) for i in order]
+        if not skip_rank:
+            inter["ranked_centers"] = cand[order]
+            inter["ranked_scores"] = svals[order]
+
+        if injected:
+            # (3)-(5) the pair list is given: the cover stages would only
+            # feed the pair generation
+            stages.next("pairs")
+            pairs = np.asarray(params.selected_patch_pairs, dtype=np.uint32)
+        else:
+            # (3) greedy cover (4) thin-out set cover, on each patch's
+            # pixels thinned with sample < 1 (one keep mask, drawn as the
+            # JAX package's host path draws it)
+            stages.next("cover")
+            given = params.selected_patches is not None or params.skipSelection
+            thin = not (given or params.skipThinCover)
+            cover_affs = affs
+            if params.sample < 1.0 and not given:
+                keep = np.random.RandomState(params.seed).rand(
+                    *affs.shape) < params.sample
+                cover_affs = torch.where(torch.as_tensor(keep, device=dev),
+                                         affs, 0.0)
+                del keep
+            if params.selected_patches is not None:
+                selected = [(np.asarray(c), 1.0)
+                            for c in params.selected_patches]
+            elif params.skipSelection:
+                selected = ranked
+            elif (params.score_threshold is not None
+                  or params.select_patches_overlap_neighborhood
+                  or params.mark_close_neighboorhood):
+                # the options of the host loop: one copy of the stack
+                selected, _ = ref.foreground_cover_reference(
+                    cover_affs.cpu().numpy(), mask_to_cover, ranked, ps,
+                    fc_threshold=params.fc_threshold, overlap=overlap_mask,
+                    sparse_data=params.select_patches_for_sparse_data,
+                    score_threshold=params.score_threshold,
+                    overlap_neighborhood=(
+                        params.select_patches_overlap_neighborhood),
+                    mark_close=params.mark_close_neighboorhood)
+            else:
+                selected, _ = greedy_cover_device(
+                    cover_affs, mask_to_cover, ranked, ps,
+                    fc_threshold=params.fc_threshold, overlap=overlap_mask,
+                    sparse_data=params.select_patches_for_sparse_data,
+                    mesh=mesh)
+            inter["cover_centers"] = np.array([c for c, _ in selected])
+            stages.next("thin_cover")
+            if thin and selected:
+                selected = thin_out_cover_device(
+                    cover_affs, mask_to_cover, selected, ps,
+                    fc_threshold=params.fc_threshold)
+            del cover_affs
+            inter["thin_centers"] = np.array([c for c, _ in selected])
+            stages.next("pairs")
+            # (5) patch pairs (host)
+            pairs, _ = ref.patch_pairs_reference(
+                selected, ps,
+                max_ps_dist=params.max_total_patch_distance_in_ps_multiples,
+                include_singleton=params.includeSinglePatchCCS)
+        if pairs is None or len(pairs) == 0:
+            return nothing()
+        stages.next("graph")
+        # patch-graph weights (device)
+        sym = symmetrize_half(cons, ccfg)
+        del cons
+        weights = patch_graph_weights(
+            affs, sym, pairs, ccfg,
+            drop_intersection=params.removeIntersection, mesh=mesh)
+        del sym
+        inter["pairs"], inter["weights"] = pairs, weights
+        if params.return_intermediates:
+            return pairs, weights
+        stages.next("mws_paint")
+
+        # (6) components (host mutex watershed, or label propagation on the
+        # device) -> painting
+        comps = _components(pairs, weights, params, dev)
+        instances = _paint(comps, affs, ps, vol_shape, params)
+        inter["n_components"] = len(comps)
     return _maybe_unpad(instances, foreground, rad, params)
 
 

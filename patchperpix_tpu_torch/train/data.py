@@ -33,6 +33,7 @@ import numpy as np
 from scipy import ndimage
 
 from ..utils import io as vio
+from ..utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -301,7 +302,7 @@ class CropSampler:
         # augmentation grids, then center-crop each to its own shape
         big = np.maximum(np.array(cfg.input_shape),
                          np.array(self.label_shape))
-        for _ in range(20):  # Reject node equivalent
+        for drawn in range(1, 21):  # Reject node equivalent
             si = self.rng.randint(len(self.samples))
             s = self.samples[si]
             center = self._choose_center(si)
@@ -323,6 +324,8 @@ class CropSampler:
         c = big // 2
         raw = self._crop_at(raw, c, np.array(cfg.input_shape))
         labels_out = self._crop_at(labels, c, np.array(self.label_shape))
+        trace.count("train.crops_drawn", drawn)
+        trace.count("train.crops")
         return (raw.astype(np.float32), labels_out,
                 s.partly or overlay_partly)
 
@@ -347,7 +350,15 @@ class CropSampler:
 
 
 class Prefetcher:
-    """Background thread keeping a queue of ready batches (gp.PreCache)."""
+    """Background thread keeping a queue of ready batches (gp.PreCache).
+
+    While a profiler runs in the thread that calls ``next`` (the loop),
+    the spans ``train.data_wait`` (the loop blocked on the queue) and
+    ``train.sample`` (the thread producing one batch), and the counters
+    ``train.crops_drawn`` (the draws of ``min_masked``'s rejection loop,
+    counted with the crop they gave) and ``train.crops`` (each crop
+    returned) are recorded (``utils/trace.py``); the thread's share is
+    clipped to the loop's traced interval."""
 
     def __init__(self, sampler: CropSampler, cache_size: int = 8,
                  max_gt_channels: int = 6, with_partly: bool = False):
@@ -365,8 +376,9 @@ class Prefetcher:
             # inside the try would recompute and discard a full augmented
             # batch on every queue.Full, busy-burning host CPU)
             try:
-                batch = self.sampler.batch(self.max_gt_channels,
-                                           with_partly=self.with_partly)
+                with trace.span("train.sample"):
+                    batch = self.sampler.batch(
+                        self.max_gt_channels, with_partly=self.with_partly)
             except Exception as e:  # propagate instead of deadlocking
                 batch = e
             while not self._stop.is_set():
@@ -379,7 +391,8 @@ class Prefetcher:
                 return
 
     def next(self):
-        batch = self.queue.get()
+        with trace.span("train.data_wait"):
+            batch = self.queue.get()
         if isinstance(batch, Exception):
             # the sampler thread died; surface its error in the caller
             # (a silent dead thread would block next() forever)

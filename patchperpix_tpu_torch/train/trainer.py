@@ -60,6 +60,7 @@ from ..models.ppp import PPPConfig, PPPModel
 from ..ops.affinities import (gather_at, gt_affinities_dense,
                               gt_affinities_sampled, sample_fg_corners)
 from ..parallel import sharded
+from ..utils import trace
 from ..utils.device import resolve_device
 from .. import weights
 
@@ -336,15 +337,36 @@ def make_train_step(model: PPPModel, mcfg: PPPConfig, tcfg: TrainConfig,
     partly=None, corners=None) -> metrics`` (0-dim tensors on the
     device).  ``step`` updates the model's parameters in place and
     advances the schedule; neither synchronises with the host.  With a
-    ``mesh`` both run data-parallel (``forward_heads``)."""
+    ``mesh`` both run data-parallel (``forward_heads``).
+
+    While a profiler runs, ``step`` records the spans (``utils/trace.py``)
+    ``train.step`` (the whole step; its step id is the count of calls,
+    and the device time between two steps, its ``gap_s``, holds the
+    batch's copy to the device and the host's gaps), and inside it
+    ``train.forward`` (the gradients dropped, heads, codes, decoder,
+    losses, summaries), ``train.backward`` (autograd's kernels run on the
+    caller's stream, so the events there bound them) and
+    ``train.optimizer`` (the update and the schedule).  They are timed on the parameters' device; with a
+    mesh, the other devices' work shows only where that device waits
+    for it."""
+    dev = next(model.parameters()).device
+    calls = 0
+
     def step(raw, labels, generator=None, partly=None, corners=None):
-        optimizer.zero_grad(set_to_none=True)
-        loss, mets = compute_losses(model, mcfg, tcfg, raw, labels,
-                                    generator, partly, corners, mesh)
-        loss.backward()
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        nonlocal calls
+        calls += 1
+        with trace.span("train.step", dev, step=calls):
+            with trace.span("train.forward", dev):
+                optimizer.zero_grad(set_to_none=True)
+                loss, mets = compute_losses(model, mcfg, tcfg, raw, labels,
+                                            generator, partly, corners,
+                                            mesh)
+            with trace.span("train.backward", dev):
+                loss.backward()
+            with trace.span("train.optimizer", dev):
+                optimizer.step()
+                if scheduler is not None:
+                    scheduler.step()
         return mets
 
     @torch.no_grad()
