@@ -14,7 +14,7 @@ under 400 voxels go.  Phases, each printed as one JSON line:
 1. device: the card, and nvidia-smi's name and power limit (also printed
    alone on its own line); then the libraries the blosc decoder binds
    (libzstd.so.1, liblz4.so.1 and their version numbers, or null);
-2. build: nvcc of every source under csrc/ (seven kernels), in parallel,
+2. build: nvcc of every source under csrc/ (eight kernels), in parallel,
    and g++ of the host thinning (native/thinning.cpp) beside them;
 3. f32 main path (TF32 off): a warm-up run, then the counted run with
    per-stage times; each CUDA kernel is held against its plain PyTorch
@@ -49,7 +49,16 @@ under 400 voxels go.  Phases, each printed as one JSON line:
 6. probe: the row-window probe's twelve cases and one that stages past
    48 KB (``ops/probe.py``), kernel against plain version, max error <
    1e-4; the case W = 768, n_slab = 3 timed against the plain version and
-   against ``F.conv2d`` along the rows;
+   against ``F.conv2d`` along the rows; then conv_wgrad
+   (``run_conv_wgrad``): the weight-gradient kernel of the U-Net's valid
+   3x3x3 convolutions (``ops/conv_kernels.py``) at each convolution of
+   the published FlyLight ppp+dec U-Net at batch 2 of 140^3
+   (``WGRAD_SHAPES``), against its plain version in float64 (largest
+   error under 1e-5 of the largest value), equal bits from a second
+   call, timed like phase 3 beside its bound, the plain
+   version in float32 and cuDNN's exact-f32 weight gradient by its
+   heuristic and its best algorithm (library_ms, the yardstick); its
+   launches are counted in phase 12's valid step, not here;
 7. path2d: the 2D assembly at full width, the worm image (16 worms, seed
    0) at 520x696 with 25x25 patches through ``to_instance_seg`` in f32
    under settings (A) (the 2D bench's: pt 0.5, mws, sparse-data cover) and
@@ -147,7 +156,11 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    each gradient leaf's norm and 256 seeded entries within 1e-4 relative
    L2, or within twice the JAX f32 step's own error against the JAX
    package's float64 step where that is larger (stored beside it), capped
-   at 1e-4 / 5e-3; (b) four batches of the device
+   at 1e-4 / 5e-3; then, under the same limits against
+   parity/torch_port_train_valid_ref_f32.npz, the code branch with valid
+   padding on 52^3 crops at the same centres, whose U-Net's nine narrow
+   valid 3x3x3 convolutions take their weight gradient from W1 (nine
+   launches, the kernels line's count); (b) four batches of the device
    sampler (the config's crops and augmentations) against the host
    sampler's numpy on the same decisions (raw 1e-6, labels equal), then
    train_until with the device sampler, f32, 200 steps, constant lr 1e-3,
@@ -224,7 +237,8 @@ under 400 voxels go.  Phases, each printed as one JSON line:
    with ``training.num_devices = 2`` (batch 4, the host sampler), 20
    steps, finite losses; (e) (a) and (d) across real cards where there
    are two, else a printed skip;
-16. the script's wall, the kernels line (K1-K4, P1, K5, K6, each row
+16. the script's wall, the kernels line (K1-K4, P1, K5, K6, the weight
+   gradient (its row the sum over ``WGRAD_SHAPES``), each row
    with its launches by counted phase), then the contract's last line.
 
 Any failure raises and exits non-zero before the last line; with no CUDA
@@ -319,6 +333,20 @@ TRAIN_DENSE_CONFIG = os.path.join(REPO, "configs", "flylight_crop.toml")
 TRAIN_SEED = 0          # batch centres, dense weights, gradient samples
 TRAIN_CORNER_KEY = 7    # the JAX step's PRNGKey (its code corners)
 TRAIN_GRAD_SAMPLES = 256
+# gate (a)'s valid branch: the code branch's model and trained parameters
+# with valid padding, on 52^3 crops at the same centres (output 12^3,
+# labels 18^3), held against the JAX package's CPU step
+# (scripts/export_torch_fixtures.py --train-valid); its U-Net's valid
+# 3x3x3 convolutions with fewer than 128 channels on one side (3 -> 20, 20
+# -> 20, 20 -> 60, 60 -> 60, 60 -> 180, and the decoder's 120 -> 60, 60 ->
+# 60, 40 -> 20, 20 -> 20) take their weight gradient from W1
+# (ops/conv_kernels.py), one launch each
+TRAIN_VALID_REF_NPZ = os.path.join(REPO, "parity",
+                                   "torch_port_train_valid_ref_f32.npz")
+TRAIN_VALID_REF_JSON = os.path.join(REPO, "parity",
+                                    "torch_port_train_valid_ref_f32.json")
+TRAIN_VALID_EXTENT = (52, 12)
+TRAIN_VALID_ROUTED = 9
 # gate (a) widens a limit to twice the JAX f32 step's own error against
 # the JAX float64 step (on this batch up to 2.5e-3 on the trained code
 # model's leaves, 2e-5 on the dense loss_patch), never past these caps
@@ -662,14 +690,15 @@ def train_model_config(mod, path, **widths):
          "dtype": "float32"}), **widths)
 
 
-def train_batch(data_mod, centres=None):
+def train_batch(data_mod, centres=None, extent=(40, 40)):
     """The fixed batch of the train phase through ``data_mod`` (either
     package's train/data.py, numpy in both): the crop loaded as the CLI
-    loads it (clipmax 1500), then per centre the 40^3 raw crop and the
-    46^3 label crop (7^3 patch context) as CropSampler crops them, no
-    augmentation.  Without ``centres``, three foreground voxels drawn with
-    TRAIN_SEED.  Returns (raw (3, 3, 40^3) f32, labels (3, 3, 46^3) int32,
-    centres, the sample)."""
+    loads it (clipmax 1500), then per centre the raw crop of the input
+    extent and the label crop of the output extent plus the 7^3 patch
+    context (``extent``: 40^3 and 46^3 by default) as CropSampler crops
+    them, no augmentation.  Without ``centres``, three foreground voxels
+    drawn with TRAIN_SEED.  Returns (raw (3, 3, 40^3) f32, labels (3, 3,
+    46^3) int32, centres, the sample)."""
     import numpy as np
 
     s = data_mod.load_sample(FIXTURE, "volumes/raw", "volumes/gt_instances",
@@ -680,9 +709,10 @@ def train_batch(data_mod, centres=None):
             len(pts), 3, replace=False)]
     crop = data_mod.CropSampler([s], data_mod.SamplerConfig(
         input_shape=(40,) * 3, output_shape=(40,) * 3, patchshape=(7,) * 3))
-    raw = np.stack([crop._crop_at(s.raw, c, np.array((40,) * 3))
+    raw = np.stack([crop._crop_at(s.raw, c, np.array((extent[0],) * 3))
                     for c in centres])
-    labels = np.stack([crop._crop_at(s.labels, c, np.array((46,) * 3))
+    labels = np.stack([crop._crop_at(s.labels, c,
+                                     np.array((extent[1] + 6,) * 3))
                        for c in centres])
     return raw.astype(np.float32), labels.astype(np.int32), \
         np.asarray(centres, np.int64), s
@@ -1042,6 +1072,121 @@ def run_probe(dev):
                      bound_ms(nbytes, 2 * n_start * want.numel()),
                      t["library_ms"])
     row["launches"] = launches
+    return row
+
+
+# the conv_wgrad phase: the valid 3x3x3 convolutions of the published
+# FlyLight ppp+dec U-Net (portbench/configs/flylight_ppp_dec.json: 20 / 60
+# / 180 / 540 maps, up factors 1.2) at batch 2 of 140^3, as (input
+# channels, output channels, input extent); the output extent is 2 less
+WGRAD_SHAPES = ((3, 20, 140), (20, 20, 138), (20, 60, 68), (60, 60, 66),
+                (60, 180, 32), (180, 180, 30), (180, 540, 14),
+                (540, 540, 12), (396, 216, 20), (216, 216, 18),
+                (132, 72, 32), (72, 72, 30), (44, 24, 56), (24, 24, 54))
+WGRAD_BATCH = 2
+WGRAD_TOL = 1e-5       # of the largest |dW| or |dB|: float32 sums in
+                       # split-K order against float64
+
+
+def wgrad_inputs(ci, co, e, dev, seed=0):
+    """Seeded x (2, ci, e, e, e) and dy (2, co, e - 2, ...) on ``dev``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((WGRAD_BATCH, ci, e, e, e), generator=gen, device=dev)
+    dy = torch.randn((WGRAD_BATCH, co) + (e - 2,) * 3, generator=gen,
+                     device=dev)
+    return x, dy
+
+
+def cudnn_wgrad(x, dy):
+    """cuDNN's weight and bias gradient of the same convolution (the
+    library's yardstick; the port's routed path never calls it)."""
+    import torch
+
+    w = torch.empty((dy.shape[1], x.shape[1], 3, 3, 3), device=x.device)
+    return torch.ops.aten.convolution_backward(
+        dy, x, w, [dy.shape[1]], [1, 1, 1], [0, 0, 0], [1, 1, 1], False,
+        [0, 0, 0], 1, [False, True, True])[1:]
+
+
+def wgrad_shape_row(ci, co, e, dev) -> dict:
+    """One shape of the conv_wgrad phase: the kernel against its plain
+    version in float64 (largest error over the largest |value|, for dW
+    and dB), a second call's bits, and ms of the kernel, the plain
+    version in float32 and cuDNN's exact-f32 weight gradient by its
+    heuristic and by its best algorithm (``cudnn.benchmark``, after one
+    call that chooses it), each in turns with the kernel
+    (``time_pair``)."""
+    import torch
+
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    x, dy = wgrad_inputs(ci, co, e, dev)
+    N, _, D, H, W = x.shape
+    gflop = 2.0 * co * ci * 27 * dy[:, 0].numel() / 1e9
+    plan = CK.device_plan(N, ci, co, D, H, W, x.device)
+    row = {"ci": ci, "co": co, "extent": e, "gflop": gflop,
+           "bound_ms": bound_ms(0, gflop * 1e9)[0], "plan": plan._asdict()}
+    dw, db = CK.conv3d_wgrad_cuda(x, dy)
+    rw, rb = CK.conv3d_wgrad_plain(x.double(), dy.double())
+    row["err_w"] = float((dw.double() - rw).abs().max() / rw.abs().max())
+    row["err_b"] = float((db.double() - rb).abs().max() / rb.abs().max())
+    del rw, rb
+    dw2, db2 = CK.conv3d_wgrad_cuda(x, dy)
+    row["same_bits"] = bool(torch.equal(dw, dw2) and torch.equal(db, db2))
+
+    def kernel():
+        CK.conv3d_wgrad_cuda(x, dy)
+
+    row["ms"], row["plain_ms"] = time_pair(
+        lambda: CK.conv3d_wgrad_plain(x, dy), kernel, dev)
+    bench = torch.backends.cudnn.benchmark
+    with exact_f32():
+        try:
+            torch.backends.cudnn.benchmark = False
+            _, row["library_ms"] = time_pair(lambda: cudnn_wgrad(x, dy),
+                                             kernel, dev)
+            torch.backends.cudnn.benchmark = True
+            cudnn_wgrad(x, dy)
+            _, row["library_best_ms"] = time_pair(
+                lambda: cudnn_wgrad(x, dy), kernel, dev)
+        finally:
+            torch.backends.cudnn.benchmark = bench
+    return row
+
+
+def run_conv_wgrad(dev, shapes=WGRAD_SHAPES):
+    """Phase conv_wgrad: the weight-gradient kernel
+    (``ops/conv_kernels.py``) at each of ``shapes``, one line per shape
+    (``wgrad_shape_row``), gated on the error and equal bits; the kernel
+    row sums the shapes (the published U-Net's weight gradients of a
+    training step), its library_ms cuDNN's best, its launches those of
+    phase train's valid step (none where that has not run)."""
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+
+    rows = []
+    for ci, co, e in shapes:
+        row = wgrad_shape_row(ci, co, e, dev)
+        emit({"phase": "conv_wgrad", **row})
+        rows.append(row)
+    bad = [r for r in rows if not (r["err_w"] <= WGRAD_TOL
+                                   and r["err_b"] <= WGRAD_TOL
+                                   and r["same_bits"])]
+    if bad:
+        raise AssertionError(f"the weight-gradient kernel disagrees: {bad}")
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                       "library_best_ms", "gflop")}
+    emit({"phase": "conv_wgrad_total", **total})
+    row = kernel_row(CK.WGRAD, max(max(r["err_w"], r["err_b"])
+                                   for r in rows),
+                     total["ms"], total["plain_ms"],
+                     bound_ms(0, total["gflop"] * 1e9),
+                     total["library_best_ms"])
+    row["launches"] = LAUNCHES.get("train_step_valid", {}).get(
+        CK.WGRAD.name)
     return row
 
 
@@ -2539,12 +2684,16 @@ def check_train_step(dev, ref, meta, raw, labels):
     """Gate (a): one f32 step of both branches at full width against the
     JAX package's, under ``step_errors``' limits (on the trained model's
     cancelling leaves XLA's f32 sums are off by up to 2.5e-3, on the dense
-    loss_patch, a mean of 66M terms, by 2e-5)."""
+    loss_patch, a mean of 66M terms, by 2e-5); then the valid branch, its
+    U-Net's narrow valid 3x3x3 convolutions on W1, whose launches in that
+    step the kernels line takes (``TRAIN_VALID_ROUTED``)."""
     import numpy as np
     import torch
 
     from patchperpix_tpu_torch import models, weights
     from patchperpix_tpu_torch.models.init import flax_leaves
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+    from patchperpix_tpu_torch.train import data as td
 
     res = {}
     for branch, path in (("code", CLI_CONFIG), ("dense", TRAIN_DENSE_CONFIG)):
@@ -2556,8 +2705,29 @@ def check_train_step(dev, ref, meta, raw, labels):
         res[branch] = step_errors(dev, branch, cfg, tree, raw, labels,
                                   meta["branches"][branch], ref,
                                   corners=corners)
+
+    vref = np.load(TRAIN_VALID_REF_NPZ)
+    vmeta = json.load(open(TRAIN_VALID_REF_JSON))
+    vraw, vlabels, _, _ = train_batch(td, vref["centres"],
+                                      TRAIN_VALID_EXTENT)
+    if int(vlabels.astype(np.int64).sum()) != \
+            vmeta["batch"]["labels_sum"] or \
+            float(vraw.astype(np.float64).sum()) != vmeta["batch"]["raw_sum"]:
+        raise AssertionError("the valid batch differs from the JAX run's")
+    CK.WGRAD.launches = 0
+    res["valid"] = step_errors(
+        dev, "valid", train_model_config(models, CLI_CONFIG,
+                                         padding="valid"),
+        weights.load_npz(), vraw, vlabels, vmeta["branches"]["valid"], vref,
+        corners=torch.from_numpy(vref["corners"].astype(np.int64)))
+    res["valid"]["launches"] = count_launches("train_step_valid",
+                                              (CK.WGRAD,))
     emit({"phase": "train_step_vs_jax_f32", **res})
     gate_step(res)
+    if res["valid"]["launches"][CK.WGRAD.name] != TRAIN_VALID_ROUTED:
+        raise AssertionError(f"W1 launches in the valid step: "
+                             f"{res['valid']['launches']}, not "
+                             f"{TRAIN_VALID_ROUTED}")
 
 
 def check_sampler_alignment(ds, samples, data_mod, draws=4):
@@ -3959,6 +4129,7 @@ def main() -> int:
             and all(os.path.exists(f) for f in (REF_NPZ, REF2D_NPZ,
                                                 MODEL2D_NPZ, BW_REF_NPZ,
                                                 CLI_REF_NPZ, TRAIN_REF_NPZ,
+                                                TRAIN_VALID_REF_NPZ,
                                                 ISBI_REF_NPZ, ISBI_DATA,
                                                 ISBI_ZLIB, JAX_RESULT,
                                                 SWIN_REF_NPZ, VIZ_REF_NPZ))):
@@ -4088,6 +4259,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels.append(run_probe(dev))
+    kernels.append(run_conv_wgrad(dev))
+    torch.cuda.empty_cache()
     cap2d = CoverCapture()
     launches2d, affs2d, full2d = run_path2d(
         dev, (K.CONSENSUS2D, K.RANK2D, CK.COVER_CASCADE, CK.THIN_COVER),

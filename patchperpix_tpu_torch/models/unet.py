@@ -7,6 +7,13 @@ kernel sizes and factors given (``Conv2d`` / ``ConvTranspose2d`` /
 Flax package's auto-generated names (``ConvPass_0``, ``Conv_1``,
 ``Upsample_0`` ...) so that ``weights.py`` maps a parameter tree onto
 this module name for name.
+
+``ConvPass`` builds its 3D convolutions as ``Conv3d``, an ``nn.Conv3d``
+with the same parameters whose weight gradient, where the call shows an
+exact-float32 training step of a valid 3x3x3 convolution on the card
+(``Conv3d.routed``), comes from the hand-written kernel of
+``ops/conv_kernels.py`` instead of cuDNN; the forward and the input's
+gradient stay on cuDNN.
 """
 
 from __future__ import annotations
@@ -14,7 +21,11 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ..ops.conv_kernels import conv3d_wgrad, serves
+from ..utils import trace
 
 
 def center_crop_spatial(x: torch.Tensor, target_spatial) -> torch.Tensor:
@@ -40,6 +51,76 @@ _CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
 _MAX_POOL = {2: nn.functional.max_pool2d, 3: nn.functional.max_pool3d}
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` lies on a CUDA card (a seam the CPU tests replace to
+    run the route on the host)."""
+    return x.is_cuda
+
+
+class _HandWgrad(torch.autograd.Function):
+    """A valid 3x3x3 convolution whose backward takes the input's gradient
+    from cuDNN (``convolution_backward`` asked for that alone) and the
+    weight's and bias's from ``conv3d_wgrad``; once differentiable (a
+    second derivative through it raises)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return F.conv3d(x, weight, bias)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        want_x, want_w, want_b = ctx.needs_input_grad
+        gy = gy.contiguous()
+        gx = gw = gb = None
+        if want_x:
+            gx = torch.ops.aten.convolution_backward(
+                gy, x, weight, None, [1, 1, 1], [0, 0, 0], [1, 1, 1], False,
+                [0, 0, 0], 1, [True, False, False])[0]
+        if want_w or want_b:
+            gw, gb = conv3d_wgrad(x.contiguous(), gy)
+        return gx, gw if want_w else None, gb if want_b else None
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` (same parameters, same names) whose weight gradient
+    comes from ``ops/conv_kernels.py`` where ``routed`` holds; every other
+    call is ``nn.Conv3d``'s.  While a profiler runs, each call that wants
+    a weight gradient counts ``conv.wgrad_hand`` or ``conv.wgrad_cudnn``
+    (``utils/trace.py``)."""
+
+    def routed(self, x: torch.Tensor) -> bool:
+        """Exact-f32 training of a valid 3x3x3 convolution on the card:
+        CUDA float32 tensors outside autocast with cuDNN's TF32 off, a
+        3x3x3 kernel of stride 1, dilation 1, no padding and one group, a
+        batched input of a shape the kernel serves (``serves``: rows that
+        fit its shared memory, and fewer than 128 input or output
+        channels), and a weight gradient wanted."""
+        return (_on_card(x) and x.dim() == 5 and x.dtype == torch.float32
+                and self.weight.dtype == torch.float32
+                and not torch.backends.cudnn.allow_tf32
+                and not torch.is_autocast_enabled(x.device.type)
+                and self.kernel_size == (3, 3, 3)
+                and self.stride == (1, 1, 1) and self.padding == (0, 0, 0)
+                and self.dilation == (1, 1, 1) and self.groups == 1
+                and torch.is_grad_enabled() and self.weight.requires_grad
+                and serves(self.in_channels, self.out_channels,
+                           x.shape[-1]))
+
+    def forward(self, x):
+        if self.routed(x):
+            trace.count("conv.wgrad_hand")
+            return _HandWgrad.apply(x, self.weight, self.bias)
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            trace.count("conv.wgrad_cudnn")
+        return super().forward(x)
+
+
+_PASS_CONV = {2: nn.Conv2d, 3: Conv3d}
+
+
 def _act(name):
     return {"relu": torch.relu, None: None}[name]
 
@@ -54,7 +135,7 @@ class ConvPass(nn.Module):
         self.activation = _act(activation)
         pad = _padding(padding, kernel_size)
         for i in range(num_repetitions):
-            self.add_module(f"Conv_{i}", _CONV[len(kernel_size)](
+            self.add_module(f"Conv_{i}", _PASS_CONV[len(kernel_size)](
                 in_channels if i == 0 else features, features,
                 tuple(kernel_size), padding=pad))
         self.num_repetitions = num_repetitions

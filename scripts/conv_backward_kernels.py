@@ -1,0 +1,126 @@
+"""Which device kernels compute the backward of each convolution of the
+benchmark's training step (``flylight_ppp_dec.train``): the cell's own
+set-up and step (``portbench/drivers/train_host_sampler.py``
+``Session``), float32 with TF32 off, profiled with ``record_shapes``
+over a few steps after warm steps.  Each kernel is charged to the
+convolution whose backward launched it: the ``aten::convolution_backward``
+call above it (cuDNN's weight and data gradients), or the route's
+autograd Function (the weight-gradient kernel of ``ops/conv_kernels.py``,
+launched from ``_HandWgradBackward``).  Prints the card's name and power
+limit and one JSON line per convolution (input and weight shapes, the
+kernels with their ms per step) and a total per kernel name.
+
+``--root DIR`` runs the package and benchmark of another checkout (an
+earlier commit unpacked with ``git archive``), with this script.
+
+Run: python scripts/conv_backward_kernels.py [--root DIR] [--steps 3]
+"""
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WARM = 4
+
+
+def conv_of(evt):
+    """The convolution a backward call serves, from its recorded shapes:
+    (input shape, weight shape), or None for another call."""
+    if evt.name == "aten::convolution_backward":
+        return tuple(evt.input_shapes[1]), tuple(evt.input_shapes[2])
+    return None
+
+
+def charge(events) -> dict:
+    """{(input shape, weight shape) or the call's name: {kernel: ms}} over
+    the trees of ``events``: each kernel under the nearest convolution
+    backward above it, else under the nearest call named ``*Backward*``
+    (an autograd Function's backward)."""
+    out = collections.defaultdict(lambda: collections.defaultdict(float))
+
+    def walk(evt, key):
+        own = conv_of(evt)
+        if own is not None:
+            key = own
+        elif key is None and "Backward" in evt.name:
+            key = evt.name
+        for k in evt.kernels:
+            out[key if key is not None else "other"][k.name] += \
+                k.duration / 1e3
+        for c in evt.cpu_children:
+            walk(c, key)
+
+    for evt in events:
+        if evt.cpu_parent is None:
+            walk(evt, None)
+    return out
+
+
+class _NoSpans:
+    def span(self, name):
+        import contextlib
+
+        return contextlib.nullcontext()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=REPO)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=4170000101)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    from portbench import harness
+    from portbench.drivers import train_host_sampler as drv
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    if not torch.cuda.is_available():
+        print("conv_backward_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    bench = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    cell = harness.Cell.find(bench, "flylight_ppp_dec.train", root=os.path.join(root, "portbench"))
+    dev = torch.device("cuda", 0)
+    ses = drv.Session(cell.config, root, dev, args.seed, _NoSpans())
+    try:
+        with exact_f32():
+            for _ in range(WARM):
+                ses.one()
+            torch.cuda.synchronize(dev)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA],
+                    record_shapes=True) as prof:
+                for _ in range(args.steps):
+                    ses.one()
+                torch.cuda.synchronize(dev)
+    finally:
+        ses.close()
+    table = charge(prof.events())
+    totals = collections.defaultdict(float)
+    for key, kernels in sorted(table.items(), key=lambda kv: str(kv[0])):
+        per_step = {k: v / args.steps for k, v in sorted(
+            kernels.items(), key=lambda kv: -kv[1])}
+        for k, v in per_step.items():
+            totals[k] += v
+        if isinstance(key, tuple):
+            row = {"input": key[0], "weight": key[1]}
+        else:
+            row = {"call": key}
+        print(json.dumps({**row, "ms_per_step": per_step}), flush=True)
+    print(json.dumps({"total_ms_per_step": dict(sorted(
+        totals.items(), key=lambda kv: -kv[1]))}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -76,6 +76,12 @@ Writes, from the repository's own files (nothing is downloaded):
   (chip_smoke.py's gate (a) allows twice that where it exceeds its 1e-5 /
   1e-4 limits, up to TRAIN_WIDEN_CAP), and the float64 step's gradient
   norms and entries.
+- ``parity/torch_port_train_valid_ref_f32.npz`` / ``.json``
+  (``--train-valid``): the code branch's step with valid padding on 52^3
+  crops at the same centres (labels 18^3; the port routes its U-Net's
+  narrow valid 3x3x3 convolutions to its own weight-gradient kernel on
+  the card), stored as ``--train`` stores a branch, then its float64
+  witness (``--train-f64 --valid``).
 
 - ``data/synth_isbi_zlib/{train,val,test}/*.zarr`` and
   ``parity/torch_port_isbi_ref_f32.npz`` / ``.json`` (``--isbi [PART
@@ -118,7 +124,7 @@ Writes, from the repository's own files (nothing is downloaded):
 
 Usage: JAX_PLATFORMS=cpu python scripts/export_torch_fixtures.py
        [--params-only | --2d [H W] | --model2d | --blockwise [S] | --cli
-        | --bf16 | --train | --train-step | --train-f64
+        | --bf16 | --train | --train-step | --train-f64 | --train-valid
         | --isbi [a b c d e] | --isbi-f64 | --swin | --swin-f64 | --viz]
 """
 
@@ -151,6 +157,10 @@ BF16_NPZ = os.path.join(ROOT, "parity", "torch_port_ref_bf16.npz")
 BF16_JSON = os.path.join(ROOT, "parity", "torch_port_ref_bf16.json")
 TRAIN_NPZ = os.path.join(ROOT, "parity", "torch_port_train_ref_f32.npz")
 TRAIN_JSON = os.path.join(ROOT, "parity", "torch_port_train_ref_f32.json")
+TRAIN_VALID_NPZ = os.path.join(ROOT, "parity",
+                               "torch_port_train_valid_ref_f32.npz")
+TRAIN_VALID_JSON = os.path.join(ROOT, "parity",
+                                "torch_port_train_valid_ref_f32.json")
 ISBI_SRC = os.path.join(ROOT, "data", "synth_isbi")
 
 
@@ -816,7 +826,7 @@ def _f64_record(want, out, branch, grads, mets, source):
           max(err["grads"].items(), key=lambda kv: kv[1]), flush=True)
 
 
-def export_train_f64():
+def export_train_f64(valid=False):
     """The JAX f32 step's own rounding error, measured by the JAX package
     alone: the stored step's batch and corners through the same
     ``make_train_step`` with ``jax_enable_x64``, a float64 model and
@@ -824,7 +834,9 @@ def export_train_f64():
     branch's loss parts' and gradient leaves' relative error of the f32
     step against this one (gradients compared as chip_smoke.leaf_rel_err
     compares them) as ``float64_err``, and the float64 step's leaf norms
-    and seeded entries beside the f32 ones."""
+    and seeded entries beside the f32 ones.  ``valid``: the valid
+    branch's fixture (``--train-valid``) instead of the code and dense
+    branches'."""
     import jax
 
     jax.config.update("jax_enable_x64", True)
@@ -835,30 +847,116 @@ def export_train_f64():
     from patchperpix_tpu.train import data as jd
     from patchperpix_tpu_torch.weights import load_npz, seeded_tree
 
-    with open(TRAIN_JSON) as f:
+    npz, js = (TRAIN_VALID_NPZ, TRAIN_VALID_JSON) if valid else \
+        (TRAIN_NPZ, TRAIN_JSON)
+    with open(js) as f:
         meta = json.load(f)
-    with np.load(TRAIN_NPZ) as z:
+    with np.load(npz) as z:
         out = dict(z)
-    raw, labels, _, _ = cs.train_batch(jd, out["centres"].astype(np.int64))
+    raw, labels, _, _ = cs.train_batch(
+        jd, out["centres"].astype(np.int64),
+        cs.TRAIN_VALID_EXTENT if valid else (40, 40))
     key = jax.random.PRNGKey(meta["corner_key"])
-    for branch, path in (("code", cs.CLI_CONFIG),
-                         ("dense", cs.TRAIN_DENSE_CONFIG)):
-        cfg = cs.train_model_config(jm, path)
-        if branch == "code":
+    for branch, path in ((("valid", cs.CLI_CONFIG),) if valid else
+                         (("code", cs.CLI_CONFIG),
+                          ("dense", cs.TRAIN_DENSE_CONFIG))):
+        cfg = cs.train_model_config(
+            jm, path, **({"padding": "valid"} if valid else {}))
+        if branch != "dense":
             flat = load_npz()
         else:
             flat = seeded_tree(_leaves(jm.PPPModel(cfg), (1, 3, 8, 8, 8)),
                                cs.TRAIN_SEED)
         grads, mets = _step_f64(
             cfg, flat, raw, labels, key,
-            corners=out["corners"] if branch == "code" else None)
+            corners=out["corners"] if branch != "dense" else None)
         _f64_record(meta["branches"][branch], out, branch, grads, mets,
                     "the JAX package in float64 on the CPU "
                     "(jax_enable_x64, scripts/export_torch_fixtures.py"
                     " --train-f64)")
-    np.savez_compressed(TRAIN_NPZ, **out)
-    with open(TRAIN_JSON, "w") as f:
+    np.savez_compressed(npz, **out)
+    with open(js, "w") as f:
         json.dump(meta, f, indent=1)
+
+
+def export_train_valid():
+    """Gate (a)'s valid branch: the code branch's model
+    (configs/flylight_crop_dec.toml, the trained parameters) with valid
+    padding, one JAX float32 train step on the CPU on 52^3 crops at the
+    stored train batch's centres (labels 18^3): the code corners the step
+    draws under PRNGKey(7), the loss parts, each gradient leaf's L2 norm
+    and 256 seeded entries of it, as ``--train`` stores a branch."""
+    import jax
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.train import data as jd
+    from patchperpix_tpu_torch.weights import load_npz
+
+    with np.load(TRAIN_NPZ) as z:
+        centres = z["centres"].astype(np.int64)
+    raw, labels, _, _ = cs.train_batch(jd, centres, cs.TRAIN_VALID_EXTENT)
+    key = jax.random.PRNGKey(cs.TRAIN_CORNER_KEY)
+    cfg = cs.train_model_config(jm, cs.CLI_CONFIG, padding="valid")
+    out = {"centres": centres.astype(np.int16)}
+    meta = {"source": "scripts/export_torch_fixtures.py --train-valid: JAX "
+                      "package, CPU, float32",
+            "batch": _batch_meta(raw, labels),
+            "corner_key": cs.TRAIN_CORNER_KEY,
+            "branches": {"valid": _export_step(
+                cfg, _nest(load_npz()), raw, labels, key, out, "valid",
+                config=os.path.relpath(cs.CLI_CONFIG, ROOT)
+                + ", padding valid",
+                weights="parity/bench_ckpt_params.npz")}}
+    np.savez_compressed(TRAIN_VALID_NPZ, **out)
+    with open(TRAIN_VALID_JSON, "w") as f:
+        json.dump(meta, f, indent=1)
+
+
+def _batch_meta(raw, labels):
+    """The sums and shapes chip_smoke.py checks its batch against."""
+    import numpy as np
+
+    return {"raw_sum": float(raw.astype(np.float64).sum()),
+            "labels_sum": int(labels.astype(np.int64).sum()),
+            "raw_shape": list(raw.shape), "labels_shape": list(labels.shape)}
+
+
+def _export_step(cfg, params, raw, labels, key, out, branch, **record):
+    """One JAX float32 train step of ``cfg`` on the CPU: its code corners
+    (a code model's, drawn under ``key``) and each gradient leaf's seeded
+    entries into ``out`` (keyed ``<branch>/<leaf>``); returns the branch's
+    record, ``record`` with the metrics, the leaf norms and the seconds."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    import chip_smoke as cs
+    from patchperpix_tpu import models as jm
+    from patchperpix_tpu.ops.affinities import sample_fg_corners
+    from patchperpix_tpu.train import trainer as jt
+
+    step, _ = jt.make_train_step(jm.PPPModel(cfg), cfg, jt.TrainConfig(),
+                                 _grads_as_state())
+    t0 = time.perf_counter()
+    _, grads, mets = step(params, params, jnp.asarray(raw),
+                          jnp.asarray(labels), key)
+    grads = {k: np.asarray(v, np.float32) for k, v in flatten(grads).items()}
+    sec = time.perf_counter() - t0
+    if cfg.train_code:
+        ninst = (labels[:, :, 3:-3, 3:-3, 3:-3] > 0).sum(1)
+        corners, _ = sample_fg_corners(key, jnp.asarray(ninst == 1),
+                                       cfg.num_code_samples)
+        out["corners"] = np.asarray(corners).astype(np.int16)
+    norms = {}
+    for name, g in sorted(grads.items()):
+        idx = cs.grad_sample_index(name, g.size)
+        out[f"{branch}/{name}"] = g.reshape(-1)[idx]
+        norms[name] = float(np.linalg.norm(g.astype(np.float64)))
+    record.update(metrics={k: float(v) for k, v in mets.items()},
+                  grad_norms=norms, step_s_with_compile=round(sec, 1))
+    print(branch, json.dumps(record["metrics"]), flush=True)
+    return record
 
 
 def export_train(with_runs=True):
@@ -869,12 +967,10 @@ def export_train(with_runs=True):
     import tempfile
 
     import jax
-    import jax.numpy as jnp
     import numpy as np
 
     import chip_smoke as cs
     from patchperpix_tpu import models as jm
-    from patchperpix_tpu.ops.affinities import sample_fg_corners
     from patchperpix_tpu.train import data as jd
     from patchperpix_tpu.train import trainer as jt
     from patchperpix_tpu.train.device_data import DeviceSampler
@@ -885,47 +981,22 @@ def export_train(with_runs=True):
     out = {"centres": centres.astype(np.int16)}
     meta = {"source": "scripts/export_torch_fixtures.py --train: JAX "
                       "package, CPU, float32",
-            "batch": {"raw_sum": float(raw.astype(np.float64).sum()),
-                      "labels_sum": int(labels.astype(np.int64).sum()),
-                      "raw_shape": list(raw.shape),
-                      "labels_shape": list(labels.shape)},
+            "batch": _batch_meta(raw, labels),
             "corner_key": cs.TRAIN_CORNER_KEY, "branches": {}}
     for branch, path in (("code", cs.CLI_CONFIG),
                          ("dense", cs.TRAIN_DENSE_CONFIG)):
         cfg = cs.train_model_config(jm, path)
-        model = jm.PPPModel(cfg)
         if branch == "code":
             params = _nest(load_npz())
         else:
-            params = _nest(seeded_tree(_leaves(model, (1, 3, 8, 8, 8)),
+            params = _nest(seeded_tree(_leaves(jm.PPPModel(cfg),
+                                               (1, 3, 8, 8, 8)),
                                        cs.TRAIN_SEED))
-        step, _ = jt.make_train_step(model, cfg, jt.TrainConfig(),
-                                     _grads_as_state())
-        t0 = time.perf_counter()
-        _, grads, mets = step(params, params, jnp.asarray(raw),
-                              jnp.asarray(labels), key)
-        grads = {k: np.asarray(v, np.float32)
-                 for k, v in flatten(grads).items()}
-        sec = time.perf_counter() - t0
-        if branch == "code":
-            ninst = (labels[:, :, 3:-3, 3:-3, 3:-3] > 0).sum(1)
-            corners, _ = sample_fg_corners(key, jnp.asarray(ninst == 1),
-                                           cfg.num_code_samples)
-            out["corners"] = np.asarray(corners).astype(np.int16)
-        norms = {}
-        for name, g in sorted(grads.items()):
-            idx = cs.grad_sample_index(name, g.size)
-            out[f"{branch}/{name}"] = g.reshape(-1)[idx]
-            norms[name] = float(np.linalg.norm(g.astype(np.float64)))
-        meta["branches"][branch] = {
-            "config": os.path.relpath(path, ROOT),
-            "weights": ("parity/bench_ckpt_params.npz" if branch == "code"
-                        else f"weights.seeded_tree(leaves, "
-                             f"{cs.TRAIN_SEED})"),
-            "metrics": {k: float(v) for k, v in mets.items()},
-            "grad_norms": norms, "step_s_with_compile": round(sec, 1)}
-        print(branch, json.dumps(meta["branches"][branch]["metrics"]),
-              flush=True)
+        meta["branches"][branch] = _export_step(
+            cfg, params, raw, labels, key, out, branch,
+            config=os.path.relpath(path, ROOT),
+            weights=("parity/bench_ckpt_params.npz" if branch == "code"
+                     else f"weights.seeded_tree(leaves, {cs.TRAIN_SEED})"))
 
     if not with_runs and os.path.exists(TRAIN_JSON):
         with open(TRAIN_JSON) as f:
@@ -1505,7 +1576,14 @@ def main():
                      if a in "abcde"])
         return
     if "--train-f64" in sys.argv:
-        export_train_f64()
+        export_train_f64(valid="--valid" in sys.argv)
+        return
+    if "--train-valid" in sys.argv:
+        import subprocess
+
+        export_train_valid()
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--train-f64", "--valid"], check=True)
         return
     if "--train" in sys.argv or "--train-step" in sys.argv:
         import subprocess

@@ -24,6 +24,7 @@
 
 #include <algorithm>
 #include <chrono>
+#include <cmath>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdlib>
@@ -62,6 +63,9 @@ struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

@@ -24,6 +24,7 @@ import torch
 from patchperpix_tpu_torch.ops import consensus as C
 from patchperpix_tpu_torch.ops import consensus_kernels as K
 from patchperpix_tpu_torch.ops import probe as PR
+from chip_smoke import REPO, WGRAD_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -460,9 +461,15 @@ def test_visualize_on_the_card(dev, crop_cli):
 
 # -- training -------------------------------------------------------------------
 
-def _small_train(seed=0):
-    """A narrow crop-like code model and a batch of 2 crops of 12^3 with
-    5^3 patches (labels with the patch context)."""
+# the U-Net of _small_train with valid padding: its 3x3x3 convolutions,
+# each of which takes the weight-gradient kernel in exact-f32 training
+SMALL_VALID_CONVS = 6
+
+
+def _small_train(seed=0, padding="same"):
+    """A narrow crop-like code model and a batch of 2 crops with 5^3
+    patches (labels with the patch context) and 12^3 outputs: crops of
+    12^3 with same padding, of 28^3 with valid padding."""
     from patchperpix_tpu_torch.models import PPPConfig
 
     cfg = PPPConfig(patchshape=(5, 5, 5), num_channels=3, num_fmaps=8,
@@ -470,9 +477,10 @@ def _small_train(seed=0):
                     downsample_factors=((2, 2, 2),), train_code=True,
                     code_units=16, ae_code_fmaps=2, ae_num_fmaps=(8, 16),
                     num_code_samples=64, overlapping_inst=True,
-                    padding="same")
+                    padding=padding)
     rng = np.random.RandomState(seed)
-    raw = rng.rand(2, 3, 12, 12, 12).astype(np.float32)
+    size = 12 if padding == "same" else 28
+    raw = rng.rand(2, 3, size, size, size).astype(np.float32)
     labels = np.zeros((2, 2, 16, 16, 16), np.int32)
     labels[:, 0, 2:12, 3:13, 2:14] = 1
     labels[:, 1, 7:15, 5:12, 6:13] = 2
@@ -481,41 +489,49 @@ def _small_train(seed=0):
 
 def test_train_step_on_the_card_equals_the_cpu(dev):
     """One f32 step (TF32 off) with the same corners on the card and on
-    the CPU: loss parts and every gradient leaf within 1e-4 relative."""
+    the CPU: loss parts and every gradient leaf within 1e-4 relative; with
+    same padding (cuDNN throughout) and with valid padding, where the
+    card's step takes each U-Net weight gradient from the kernel
+    (``ops/conv_kernels.py``) and the CPU's from nn.Conv3d."""
     from patchperpix_tpu_torch import weights
     from patchperpix_tpu_torch.models import PPPModel
     from patchperpix_tpu_torch.models.init import init_tree
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
     from patchperpix_tpu_torch.ops.affinities import sample_fg_corners
     from patchperpix_tpu_torch.train.trainer import (TrainConfig,
                                                      compute_losses)
     from patchperpix_tpu_torch.utils.device import exact_f32
 
-    cfg, raw, labels = _small_train()
-    tree = init_tree(cfg, torch.Generator().manual_seed(0))
-    gt_fg = torch.from_numpy((labels[:, :, 2:-2, 2:-2, 2:-2] > 0).sum(1)
-                             == 1)
-    corners, _ = sample_fg_corners(gt_fg, cfg.num_code_samples,
-                                   torch.Generator().manual_seed(1))
-    out = {}
-    for d in (torch.device("cpu"), dev):
-        model = PPPModel(cfg)
-        model.load_state_dict(weights.to_state_dict(tree))
-        model.to(d)
-        with exact_f32():
-            loss, mets = compute_losses(
-                model, cfg, TrainConfig(), torch.from_numpy(raw).to(d),
-                torch.from_numpy(labels).to(d), corners=corners.to(d))
-            loss.backward()
-        out[d.type] = ({k: float(v) for k, v in mets.items()},
-                       {n: p.grad.cpu().numpy()
-                        for n, p in model.named_parameters()})
-    (m0, g0), (m1, g1) = out["cpu"], out["cuda"]
-    for k in ("loss", "loss_patch", "loss_fg"):
-        assert abs(m1[k] - m0[k]) <= 1e-4 * abs(m0[k]), k
-    for n in g0:
-        err = np.linalg.norm(g1[n] - g0[n]) / max(np.linalg.norm(g0[n]),
-                                                  1e-30)
-        assert err <= 1e-4, (n, err)
+    for padding, routed in (("same", 0), ("valid", SMALL_VALID_CONVS)):
+        cfg, raw, labels = _small_train(padding=padding)
+        tree = init_tree(cfg, torch.Generator().manual_seed(0))
+        gt_fg = torch.from_numpy((labels[:, :, 2:-2, 2:-2, 2:-2] > 0)
+                                 .sum(1) == 1)
+        corners, _ = sample_fg_corners(gt_fg, cfg.num_code_samples,
+                                       torch.Generator().manual_seed(1))
+        out = {}
+        for d in (torch.device("cpu"), dev):
+            model = PPPModel(cfg)
+            model.load_state_dict(weights.to_state_dict(tree))
+            model.to(d)
+            n0 = CK.WGRAD.launches
+            with exact_f32():
+                loss, mets = compute_losses(
+                    model, cfg, TrainConfig(), torch.from_numpy(raw).to(d),
+                    torch.from_numpy(labels).to(d), corners=corners.to(d))
+                loss.backward()
+            assert CK.WGRAD.launches - n0 == (routed if d.type == "cuda"
+                                              else 0), padding
+            out[d.type] = ({k: float(v) for k, v in mets.items()},
+                           {n: p.grad.cpu().numpy()
+                            for n, p in model.named_parameters()})
+        (m0, g0), (m1, g1) = out["cpu"], out["cuda"]
+        for k in ("loss", "loss_patch", "loss_fg"):
+            assert abs(m1[k] - m0[k]) <= 1e-4 * abs(m0[k]), (padding, k)
+        for n in g0:
+            err = np.linalg.norm(g1[n] - g0[n]) / max(
+                np.linalg.norm(g0[n]), 1e-30)
+            assert err <= 1e-4, (padding, n, err)
 
 
 def test_device_sampler_on_the_card_repeats_under_a_seed(dev):
@@ -565,20 +581,24 @@ def test_bf16_step_keeps_f32_parameters_and_adam_state(dev):
 def test_device_loop_step_makes_no_host_sync(dev):
     """What the device loop runs per step (a batch drawn and augmented on
     the card, the step with its code corners, Adam, the schedule) under
-    torch's sync debug mode set to raise on any host synchronisation."""
+    torch's sync debug mode set to raise on any host synchronisation; a
+    valid U-Net in exact f32, so that each step's weight gradients come
+    from the kernel (``ops/conv_kernels.py``) and are held to it too."""
     import chip_smoke
     from patchperpix_tpu_torch.models import PPPModel
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
     from patchperpix_tpu_torch.train import data as td
     from patchperpix_tpu_torch.train.device_data import DeviceSampler
     from patchperpix_tpu_torch.train.trainer import (TrainConfig,
                                                      make_optimizer,
                                                      make_train_step)
+    from patchperpix_tpu_torch.utils.device import exact_f32
 
-    cfg, _, _ = _small_train()
+    cfg, _, _ = _small_train(padding="valid")
     s = td.load_sample(chip_smoke.FIXTURE, "volumes/raw",
                        "volumes/gt_instances", clipmax=1500)
     ds = DeviceSampler([s], td.SamplerConfig(
-        input_shape=(12,) * 3, output_shape=(12,) * 3, patchshape=(5,) * 3,
+        input_shape=(28,) * 3, output_shape=(12,) * 3, patchshape=(5,) * 3,
         batch_size=2), max_gt_channels=2, device=dev)
     model = PPPModel(cfg).to(dev)
     tcfg = TrainConfig(lr=1e-3, lr_schedule="cosine", warmup_steps=2,
@@ -586,17 +606,125 @@ def test_device_loop_step_makes_no_host_sync(dev):
     opt, sched = make_optimizer(tcfg, model.parameters())
     step, _ = make_train_step(model, cfg, tcfg, opt, sched)
     gen = torch.Generator(device=dev).manual_seed(0)
-    raw, labels, _ = ds.sample_batch(gen)
-    step(raw, labels, gen)                     # first step: lazy state
-    torch.cuda.synchronize(dev)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for _ in range(3):
-            raw, labels, _ = ds.sample_batch(gen)
-            mets = step(raw, labels, gen)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    with exact_f32():
+        raw, labels, _ = ds.sample_batch(gen)
+        step(raw, labels, gen)                 # first step: lazy state
+        torch.cuda.synchronize(dev)
+        n0 = CK.WGRAD.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                raw, labels, _ = ds.sample_batch(gen)
+                mets = step(raw, labels, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert CK.WGRAD.launches - n0 == 3 * SMALL_VALID_CONVS
     assert np.isfinite(float(mets["loss"]))
+
+
+# -- the weight gradient of the U-Net's convolutions ----------------------------
+
+@pytest.mark.parametrize("ci,co,e", WGRAD_SHAPES)
+def test_conv_wgrad_kernel_matches_plain_at_the_cells_shapes(dev, ci, co, e):
+    """The kernel against its plain version in float64 at each valid 3x3x3
+    convolution of the published FlyLight U-Net at batch 2 of 140^3: dW
+    and dB within 1e-5 of their largest value (float32 sums of up to 5 M
+    products each in split-K order, which read 1e-6 to 5e-6 there), and
+    the same bits from a second call (a fixed order of summation)."""
+    import chip_smoke
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+
+    x, dy = chip_smoke.wgrad_inputs(ci, co, e, dev)
+    n0 = CK.WGRAD.launches
+    dw, db = CK.conv3d_wgrad(x, dy)
+    assert CK.WGRAD.launches == n0 + 1
+    rw, rb = CK.conv3d_wgrad_plain(x.double(), dy.double())
+    for got, want in ((dw, rw), (db, rb)):
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        assert err <= chip_smoke.WGRAD_TOL, err
+    dw2, db2 = CK.conv3d_wgrad(x, dy)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+def test_conv_wgrad_wrapper_checks_inputs(dev):
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+
+    x = torch.zeros(1, 2, 5, 5, 5, device=dev)
+    dy = torch.zeros(1, 3, 3, 3, 3, device=dev)
+    with pytest.raises(ValueError):
+        CK.conv3d_wgrad_cuda(x.double(), dy.double())
+    with pytest.raises(ValueError):
+        CK.conv3d_wgrad_cuda(x.transpose(2, 3), dy)
+    with pytest.raises(ValueError):
+        CK.conv3d_wgrad_cuda(x, dy[:, :, :2])
+    with pytest.raises(ValueError):
+        CK.conv3d_wgrad_cuda(torch.zeros(1, 2, 5, 5, 40000, device=dev),
+                             torch.zeros(1, 3, 3, 3, 39998, device=dev))
+
+
+def test_conv_wgrad_takes_each_served_convolution_of_the_published_step(dev):
+    """Forward and backward of the published FlyLight model at batch 2 of
+    140^3 in exact f32 under a profiler: one kernel call for each U-Net
+    convolution it serves (9 of 14: the five with 128 or more channels
+    on both sides stay on cuDNN), counted by the wrapper and by the
+    route's counters beside the decoder's five convolutions."""
+    import json
+
+    from patchperpix_tpu_torch.models import PPPConfig, PPPModel, unet
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+    from patchperpix_tpu_torch.utils import trace
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    with open(os.path.join(REPO, "portbench", "configs",
+                           "flylight_ppp_dec.json")) as f:
+        cfg = PPPConfig.from_config(json.load(f)["model"])
+    model = PPPModel(cfg).to(dev)
+    served = [m for m in model.unet.modules()
+              if isinstance(m, unet.Conv3d)
+              and CK.serves(m.in_channels, m.out_channels, 140)]
+    assert len(served) == 9
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.rand((2, 3, 140, 140, 140), generator=gen, device=dev)
+    codes = torch.rand((64, cfg.code_units), generator=gen, device=dev)
+    trace.summary()
+    n0 = CK.WGRAD.launches
+    with exact_f32(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with trace.span("test.step"):
+            h1, h2 = model(raw)
+            (h1.sum() + h2.sum() + model.decode(codes).sum()).backward()
+    counts = trace.summary()["counts"]
+    assert CK.WGRAD.launches - n0 == 9
+    assert counts["conv.wgrad_hand"] == 9
+    assert counts["conv.wgrad_cudnn"] == 5 + 5
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_conv_wgrad_routed_valid_step_equals_jax(dev):
+    """chip_smoke.py's valid branch of gate (a): the trained crop code
+    model with valid padding on 52^3 crops, one exact-f32 step on the card
+    with its nine narrow valid 3x3x3 convolutions on the kernel, against
+    the JAX package's CPU step (parity/torch_port_train_valid_ref_f32.*)
+    under chip_smoke's step limits."""
+    import json
+
+    import chip_smoke as cs
+    from patchperpix_tpu_torch import models, weights
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+    from patchperpix_tpu_torch.train import data as td
+
+    ref = np.load(cs.TRAIN_VALID_REF_NPZ)
+    meta = json.load(open(cs.TRAIN_VALID_REF_JSON))
+    raw, labels, _, _ = cs.train_batch(td, ref["centres"],
+                                       cs.TRAIN_VALID_EXTENT)
+    n0 = CK.WGRAD.launches
+    res = cs.step_errors(
+        dev, "valid", cs.train_model_config(models, cs.CLI_CONFIG,
+                                            padding="valid"),
+        weights.load_npz(), raw, labels, meta["branches"]["valid"], ref,
+        corners=torch.from_numpy(ref["corners"].astype(np.int64)))
+    assert CK.WGRAD.launches - n0 == cs.TRAIN_VALID_ROUTED
+    cs.gate_step({"valid": res})
 
 
 # -- the ISBI 2012 slice -------------------------------------------------------

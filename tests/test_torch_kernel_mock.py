@@ -2,8 +2,9 @@
 (``csrc/consensus.cu``, ``csrc/rank.cu``, with ``csrc/pack_codes.cuh``) and
 2D (``csrc/consensus2d.cu``, ``csrc/rank2d.cu``), with
 ``csrc/fill_zero.cuh``, of the row-window probe (``csrc/probe_window.cu``)
-and of the cover loops (``csrc/cover_cascade.cu``, ``csrc/thin_cover.cu``,
-with ``csrc/cover_window.cuh``): compiled by g++ against the small mock of
+of the cover loops (``csrc/cover_cascade.cu``, ``csrc/thin_cover.cu``,
+with ``csrc/cover_window.cuh``) and of the convolutions' weight gradient
+(``csrc/conv3d_wgrad.cu``): compiled by g++ against the small mock of
 the CUDA headers in ``tests/cuda_mock/`` and run on the CPU, the grid as
 loops and one host thread per CUDA thread of a block, against their plain
 versions at tiny shapes.
@@ -19,7 +20,9 @@ relative (2^-7 relative for a bf16 half), rank 1e-3 absolute / 1e-4
 relative, the probe 1e-4 absolute (it sums in the plain version's order,
 so it is also held to equal bits); the pack pass's words and planes are
 compared exactly, and so are the cover loops' selections and
-still-uncovered volumes (their counts are integers).
+still-uncovered volumes (their counts are integers); the weight gradient
+within 1e-5 of its largest value against the plain version in float64
+(float32 sums in split-K order), and equal bits from two runs.
 """
 
 import ctypes
@@ -35,6 +38,7 @@ import torch
 
 from patchperpix_tpu_torch.ops import consensus as C
 from patchperpix_tpu_torch.ops import consensus_kernels as K
+from patchperpix_tpu_torch.ops import conv_kernels as WG
 from patchperpix_tpu_torch.ops import cover as COV
 from patchperpix_tpu_torch.ops import cover_kernels as CK
 from patchperpix_tpu_torch.ops import probe as PR
@@ -108,7 +112,8 @@ def libs(tmp_path_factory):
                              ("cover_cascade", "cover_cascade", []),
                              ("thin_cover", "thin_cover", []),
                              ("thin_cover_list2", "thin_cover",
-                              ["-DPPP_THIN_LIST=2"])):
+                              ["-DPPP_THIN_LIST=2"]),
+                             ("conv3d_wgrad", "conv3d_wgrad", [])):
         so = out / f"lib{name}_host.so"
         subprocess.run(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", *flags,
@@ -951,3 +956,57 @@ def test_cover_routes_to_the_sources_on_host(libs, monkeypatch):
     assert 0 < len(thin_w) < len(want)
     np.testing.assert_array_equal([c for c, _ in thin_g],
                                   [c for c, _ in thin_w])
+
+
+# (N, Ci, Co, D, H, W, config, splits, P): every tile instance, ragged
+# channel tiles, one chunk and several per plane, shares that end
+# inside a walk down z, and a plane whose last chunk runs past it
+_WGRAD_CASES = [(1, 3, 5, 5, 6, 7, 0, 1, None), (2, 5, 7, 6, 5, 9, 1, 3, 8),
+                (1, 9, 11, 5, 7, 6, 2, 2, 12), (2, 33, 35, 5, 6, 5, 3, 4, 16),
+                (1, 4, 6, 7, 9, 10, 3, 5, 20)]
+
+
+@pytest.mark.parametrize("case", _WGRAD_CASES)
+def test_conv3d_wgrad_source_matches_plain_on_host(libs, case):
+    N, Ci, Co, D, H, W, config, splits, P = case
+    if P is None:
+        P = WG._chunk(config, H, W)[0]
+    xstr, dstr = WG._strides(P, W)
+    g = torch.Generator().manual_seed(Ci)
+    x = torch.randn((N, Ci, D, H, W), generator=g)
+    dy = torch.randn((N, Co, D - 2, H - 2, W - 2), generator=g)
+    nw = Co * Ci * 27
+    fn = libs["conv3d_wgrad"].ppp_conv3d_wgrad
+    fn.argtypes = WG.WGRAD.argtypes
+    fn.restype = ctypes.c_int
+    outs = []
+    for _ in range(2):
+        out = torch.full((nw + Co,), 7.0)
+        ws = torch.full((splits * (nw + Co),), 9.0)
+        assert fn(_ptr(x), _ptr(dy), _ptr(ws), _ptr(out), N, Ci, Co, D, H,
+                  W, config, P, xstr, dstr, splits, None) == 0
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    dw, db = WG.conv3d_wgrad_plain(x.double(), dy.double())
+    for got, want in ((outs[0][:nw].view(dw.shape), dw),
+                      (outs[0][nw:], db)):
+        err = float((got.double() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def test_conv3d_wgrad_source_refuses_a_bad_plan(libs):
+    fn = libs["conv3d_wgrad"].ppp_conv3d_wgrad
+    fn.argtypes = WG.WGRAD.argtypes
+    fn.restype = ctypes.c_int
+    x, dy, o = torch.zeros(1, 1, 4, 4, 4), torch.zeros(1, 1, 2, 2, 2), \
+        torch.zeros(28)
+    # N, Ci, Co, D, H, W, then the plan: config, P, xstr, dstr, splits
+    # (at most the 4 chunk-planes: 2 output planes of 2 chunks)
+    ok = dict(N=1, Ci=1, Co=1, D=4, H=4, W=4, config=0, P=4, xstr=15,
+              dstr=4, splits=1)
+    assert fn(_ptr(x), _ptr(dy), _ptr(o), _ptr(o), *ok.values(), None) == 0
+    for key, bad in (("config", 4), ("P", 6), ("xstr", 14), ("dstr", 8),
+                     ("splits", 5)):
+        args = dict(ok, **{key: bad})
+        assert fn(_ptr(x), _ptr(dy), _ptr(o), _ptr(o), *args.values(),
+                  None) != 0, key

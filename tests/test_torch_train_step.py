@@ -6,7 +6,11 @@ JAX step's own: ``sample_fg_corners`` under the key the JAX step received,
 fed to the port through ``corners=``.  The JAX step runs with an optax
 transformation that returns the gradients as its state, so they are read
 exactly.  Code and dense branches, ``overlapping_inst`` true and false, the
-partly-labeled mask on and off.  Limits: loss parts rtol 1e-5, per-leaf
+partly-labeled mask on and off, same and valid padding; the valid U-Net's
+3x3x3 convolutions take the port's exact-f32 route on the card
+(``unet.Conv3d.routed``: the weight gradient from ``conv3d_wgrad``, here
+its plain version), with the card's test replaced by the seam
+``unet._on_card`` and TF32 off.  Limits: loss parts rtol 1e-5, per-leaf
 relative L2 error of the gradients <= 1e-5 (XLA-CPU's and torch's float32
 sums run in other orders).  Every metric of the dict within 1e-5.
 """
@@ -24,34 +28,46 @@ from patchperpix_tpu.ops.affinities import sample_fg_corners as j_corners
 from patchperpix_tpu.train.trainer import TrainConfig as JTrainConfig
 from patchperpix_tpu.train.trainer import make_train_step as j_make_step
 from patchperpix_tpu_torch import weights
-from patchperpix_tpu_torch.models import PPPConfig, PPPModel
+from patchperpix_tpu_torch.models import PPPConfig, PPPModel, unet
 from patchperpix_tpu_torch.train.trainer import (TrainConfig,
                                                  compute_losses,
                                                  make_optimizer,
                                                  make_train_step)
+from patchperpix_tpu_torch.utils.device import exact_f32
 
 torch.set_num_threads(1)
 
-B, S, PS = 2, 8, 5
+B, PS = 2, 5
+# input and output extents: same padding keeps 8; the valid U-Net (one
+# level of 2, two convolutions a level) takes 20 to 16, 8, 4, 8 and 4
+EXTENT = {"same": (8, 8), "valid": (20, 4)}
+# the valid U-Net's six 3x3x3 convolutions (2 -> 4, 4 -> 4, 4 -> 8, 8 ->
+# 8, 12 -> 4, 4 -> 4), all routed
+N_ROUTED = 6
 
 
-def _kw(code, ov):
+def _kw(code, ov, padding="same"):
     return dict(patchshape=(PS,) * 3, num_channels=2, num_fmaps=4,
                 fmap_inc_factors=(2,), fmap_dec_factors=(1.0,),
                 downsample_factors=((2, 2, 2),), train_code=code,
                 code_units=16, ae_code_fmaps=2, ae_num_fmaps=(4, 8),
                 num_code_samples=16, overlapping_inst=ov, max_num_inst=2,
-                padding="same")
+                padding=padding)
 
 
-def _batch():
+def _batch(padding="same"):
+    """Raw (B, 2, S_in^3) and labels (B, 2, (S_out + 2 r)^3): two
+    overlapping boxes, the second item's first rows unlabeled."""
+    s_in, s_out = EXTENT[padding]
     rng = np.random.RandomState(0)
-    raw = rng.rand(B, 2, S, S, S).astype(np.float32)
+    raw = rng.rand(B, 2, s_in, s_in, s_in).astype(np.float32)
     r = PS // 2
-    labels = np.zeros((B, 2) + (S + 2 * r,) * 3, np.int32)
-    labels[:, 0, 2:8, 3:9, 2:10] = 1
-    labels[:, 1, 5:11, 4:10, 5:9] = 2
-    labels[1, :, :, :6] = 0
+    n = s_out + 2 * r
+    labels = np.zeros((B, 2) + (n,) * 3, np.int32)
+    box = lambda a, b: slice(a * n // 12, b * n // 12)
+    labels[:, 0, box(2, 8), box(3, 9), box(2, 10)] = 1
+    labels[:, 1, box(5, 11), box(4, 10), box(5, 9)] = 2
+    labels[1, :, :, :n // 2] = 0
     return raw, labels
 
 
@@ -84,24 +100,35 @@ def _jax_step(kw, partly, raw, labels, key):
         {k: float(v) for k, v in mets.items()}, corners
 
 
+@pytest.mark.parametrize("padding", ["same", "valid"])
 @pytest.mark.parametrize("partly", [False, True])
 @pytest.mark.parametrize("ov", [True, False])
 @pytest.mark.parametrize("code", [True, False])
-def test_train_step_equals_jax(code, ov, partly):
-    kw = _kw(code, ov)
-    raw, labels = _batch()
+def test_train_step_equals_jax(code, ov, partly, padding, monkeypatch):
+    kw = _kw(code, ov, padding)
+    raw, labels = _batch(padding)
     pmask = np.array([True, False]) if partly else None
     params, jgrads, jmets, corners = _jax_step(
         kw, pmask, raw, labels, jax.random.PRNGKey(5))
 
     model = PPPModel(PPPConfig(**kw))
     model.load_state_dict(weights.to_state_dict(params), strict=True)
-    loss, mets = compute_losses(
-        model, model.cfg, TrainConfig(add_partly=partly, mask_bg_weight=0.1),
-        torch.from_numpy(raw), torch.from_numpy(labels),
-        partly=None if pmask is None else torch.from_numpy(pmask),
-        corners=corners)
-    loss.backward()
+    wgrad_calls, real_wgrad = [], unet.conv3d_wgrad
+
+    def wgrad(x, dy):
+        wgrad_calls.append(tuple(x.shape))
+        return real_wgrad(x, dy)
+    monkeypatch.setattr(unet, "_on_card", lambda x: True)
+    monkeypatch.setattr(unet, "conv3d_wgrad", wgrad)
+    with exact_f32():
+        loss, mets = compute_losses(
+            model, model.cfg,
+            TrainConfig(add_partly=partly, mask_bg_weight=0.1),
+            torch.from_numpy(raw), torch.from_numpy(labels),
+            partly=None if pmask is None else torch.from_numpy(pmask),
+            corners=corners)
+        loss.backward()
+    assert len(wgrad_calls) == (N_ROUTED if padding == "valid" else 0)
     grads = {k: v.numpy() for k, v in weights.from_state_dict(
         {n: p.grad for n, p in model.named_parameters()}).items()}
 
