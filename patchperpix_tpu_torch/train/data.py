@@ -17,6 +17,13 @@ same under the same seed:
   min_masked rejection;
 - a background prefetch thread stands in for gp.PreCache.
 
+The port splits a crop into its draws, taken from the sampler's
+``RandomState`` in the reference's order, and its rendering: without
+elastic augmentation each crop is written straight into its batch slot,
+only in its output windows (the labels' and raw's centres of the union
+extent), raw slab by slab; the elastic path, whose rotation and jitter
+read the window's surround, makes the crop at the union extent.
+
 ``train/device_data.py`` draws the same crops on the card for the configs
 it can reproduce.
 """
@@ -127,6 +134,53 @@ class SamplerConfig:
     seed: int = 0
 
 
+# raw is rendered in slabs of about this many bytes, so that the
+# augmentation's passes over a slab run in cache
+_SLAB_BYTES = 1 << 19
+
+
+@dataclass
+class _Draws:
+    """Every random draw of one crop (``CropSampler._draw``)."""
+    si: int                  # sample
+    center: np.ndarray
+    drawn: int               # draws of min_masked's rejection loop
+    elastic: tuple | None    # (angle, control-point grids)
+    flips: tuple             # mirror, per spatial axis
+    swap: tuple | None       # transposed pair of spatial axes
+    overlay: tuple | None    # (sample, centre) of the overlaid crop
+    perm: np.ndarray | None  # channel permutation
+    hue: float | None        # |amount| of hue's channel blend
+    scale: float             # intensity
+    shift: float
+
+
+def _window(src: np.ndarray, axes, first, steps, shape):
+    """The part of a window that lies inside ``src`` (C, *spatial).  The
+    window's voxel w (over ``shape``, in output axis order) reads ``src``
+    at index ``first[o] + steps[o] * w[o]`` along its axis ``axes[o]``
+    (steps of +-1, ``axes`` a permutation).  Returns that part as a view
+    of ``src`` in output axis order, its index in the window, and whether
+    it is the whole window (else the rest lies outside ``src``)."""
+    nd = len(shape)
+    src_idx, rev, dst_idx = [slice(0, 0)] * nd, [None] * nd, []
+    for k, f, st, n in zip(axes, first, steps, shape):
+        size = src.shape[1 + k]
+        lo, hi = ((max(0, -f), min(n, size - f)) if st > 0
+                  else (max(0, f - size + 1), min(n, f + 1)))
+        hi = max(lo, hi)
+        dst_idx.append(slice(lo, hi))
+        if hi > lo:
+            a, b = sorted((f + st * lo, f + st * (hi - 1)))
+            src_idx[k] = slice(a, b + 1)
+        rev[k] = slice(None, None, st)
+    view = src[(slice(None),) + tuple(src_idx)][(slice(None),) + tuple(rev)]
+    view = view.transpose([0] + [1 + k for k in axes])
+    inside = all(sl.start == 0 and sl.stop == n
+                 for sl, n in zip(dst_idx, shape))
+    return view, (slice(None),) + tuple(dst_idx), inside
+
+
 class CropSampler:
     """Draws augmented (raw, labels, fg, loss_mask) crops from samples."""
 
@@ -141,6 +195,21 @@ class CropSampler:
         # (gt_affinities windows index corner .. corner+ps)
         self.label_shape = tuple(int(o + 2 * (p // 2))
                                  for o, p in zip(cfg.output_shape, ps))
+        # crops are drawn at the union extent, so that raw and labels
+        # see identical augmentation grids, then cut to their windows
+        self.big = np.maximum(np.array(cfg.input_shape),
+                              np.array(self.label_shape))
+        self._big_size = int(np.prod(self.big))
+        channels = {s.raw.shape[0] for s in samples}
+        if len(channels) != 1:
+            raise ValueError(f"samples differ in raw channels: {channels}")
+        self.channels = channels.pop()
+        self.label_dtype = np.result_type(*(s.labels.dtype
+                                            for s in samples))
+        # min_masked's test counts the voxels any label covers, in this
+        # mask of each sample, without making the crop
+        self._masked = ([np.any(s.labels > 0, axis=0) for s in samples]
+                        if cfg.min_masked > 0 else None)
         self._fg_coords = [np.argwhere(s.fg_mask) for s in samples]
         # overlap pool: CSV close_to_overlap points when provided
         # (train.py:841-855), else the derived overlap mask
@@ -198,49 +267,204 @@ class CropSampler:
             out = np.pad(out, pad, mode="constant", constant_values=pad_value)
         return out
 
-    # ---- augmentations -------------------------------------------------
+    # ---- draws -----------------------------------------------------------
 
-    def _simple_augment(self, raw, labels):
-        a = self.cfg.augment
-        spatial_axes = list(range(1, 1 + self.ndim))
-        if a.mirror:
-            for ax in spatial_axes:
-                if raw.shape[ax] > 1 and self.rng.rand() < 0.5:
-                    raw = np.flip(raw, axis=ax)
-                    labels = np.flip(labels, axis=ax)
-        if a.transpose:
-            # only axes with equal extent are transposable
-            tr = [ax for ax in spatial_axes
-                  if raw.shape[ax] == raw.shape[spatial_axes[-1]]]
-            if len(tr) >= 2 and self.rng.rand() < 0.5:
-                i, j = self.rng.choice(tr, 2, replace=False)
-                order = list(range(raw.ndim))
-                order[i], order[j] = order[j], order[i]
-                raw = np.transpose(raw, order)
-                labels = np.transpose(labels, order)
-        return np.ascontiguousarray(raw), np.ascontiguousarray(labels)
+    def _box(self, spatial, origin):
+        """The part of the union extent with corner ``origin`` that lies
+        inside a volume of extent ``spatial``, and whether any of it lies
+        outside (where a crop reads zero)."""
+        lo = np.maximum(origin, 0)
+        hi = np.maximum(np.minimum(origin + self.big, spatial), lo)
+        box = tuple(slice(int(a), int(b)) for a, b in zip(lo, hi))
+        return box, bool(np.any(hi - lo != self.big))
 
-    def _elastic(self, raw, labels):
-        """Rotation (around the last two axes) + smooth jitter
-        (gp.ElasticAugment equivalent, host-side)."""
+    def _masked_share(self, si: int, center: np.ndarray) -> float:
+        """min_masked's test statistic: the share of the union-extent
+        crop at ``center`` that some label covers, counted in the
+        sample's mask without making the crop (padding covers nothing)."""
+        box, _ = self._box(self._masked[si].shape, center - self.big // 2)
+        return np.count_nonzero(self._masked[si][box]) / self._big_size
+
+    def _draw_elastic(self):
+        """ElasticAugment's draws: the rotation angle, then one grid of
+        control-point jitter per axis."""
         a = self.cfg.augment
         angle = self.rng.uniform(a.rotation_min, a.rotation_max)
+        ctrl = []
+        if any(js > 0 for js in a.jitter_sigma):
+            spatial = tuple(int(b) for b in self.big)
+            for d in range(len(spatial)):
+                n_ctrl = max(2, spatial[d] // a.control_point_spacing[
+                    min(d, len(a.control_point_spacing) - 1)] + 1)
+                ctrl.append(self.rng.randn(*([n_ctrl] * len(spatial)))
+                            * a.jitter_sigma[min(d, len(a.jitter_sigma) - 1)])
+        return angle, ctrl
+
+    def _draw(self) -> _Draws:
+        """Every random draw of one crop, in the order of the reference's
+        graph (sample and centre with min_masked's rejection, elastic,
+        mirror, transpose, OverlayAugment (train.py:276-297), permute,
+        RandomHue (neurolight), intensity); nothing is rendered."""
+        cfg, a, rng = self.cfg, self.cfg.augment, self.rng
+        big = self.big
+        for drawn in range(1, 21):  # Reject node equivalent
+            si = rng.randint(len(self.samples))
+            center = self._choose_center(si)
+            if cfg.min_masked <= 0 or \
+                    self._masked_share(si, center) >= cfg.min_masked:
+                break
+        elastic = self._draw_elastic() if a.elastic else None
+        flips = tuple(bool(a.mirror and big[k] > 1 and rng.rand() < 0.5)
+                      for k in range(self.ndim))
+        swap = None
+        if a.transpose:
+            # only axes with equal extent are transposable
+            tr = [ax for ax in range(1, 1 + self.ndim)
+                  if big[ax - 1] == big[-1]]
+            if len(tr) >= 2 and rng.rand() < 0.5:
+                i, j = rng.choice(tr, 2, replace=False)
+                swap = (int(i) - 1, int(j) - 1)
+        overlay = None
+        if rng.rand() <= a.probability_overlay:
+            osi = rng.randint(len(self.samples))
+            overlay = (osi, self._choose_center(osi))
+        perm = None
+        if self.channels >= 2 and rng.rand() <= a.probability_permute:
+            perm = rng.permutation(self.channels)
+        hue = None
+        if self.channels >= 3 and rng.rand() <= a.probability_hue:
+            hue = abs(rng.uniform(-a.hue_max_change, a.hue_max_change))
+        scale = rng.uniform(*a.intensity_scale)
+        shift = rng.uniform(*a.intensity_shift)
+        return _Draws(si, center, drawn, elastic, flips, swap, overlay,
+                      perm, hue, scale, shift)
+
+    # ---- rendering -------------------------------------------------------
+
+    def _axis_map(self, origin, start, flips, swap):
+        """Where a window of the augmented crop reads its sample: per
+        output axis, the sample's axis, the index there of the window's
+        first voxel and the step (-1 where mirrored), through the crop's
+        mirror and then transpose.  ``origin`` is the crop's corner in
+        the sample, ``start`` the window's corner in the crop."""
+        axes = list(range(self.ndim))
+        if swap is not None:
+            i, j = swap
+            axes[i], axes[j] = j, i
+        first, steps = [], []
+        for o, k in enumerate(axes):
+            if flips[k]:
+                first.append(int(origin[k] + self.big[k] - 1 - start[o]))
+                steps.append(-1)
+            else:
+                first.append(int(origin[k] + start[o]))
+                steps.append(1)
+        return axes, first, steps
+
+    def _label_max(self, s: SampleData, origin) -> int:
+        """``labels.max()`` of the union-extent crop at ``origin``, padding
+        counting as 0, reduced over a view of the sample."""
+        box, padded = self._box(s.labels.shape[1:], origin)
+        top = int(s.labels[(slice(None),) + box].max())
+        return max(top, 0) if padded else top
+
+    def _render_window(self, d: _Draws, raw_out, labels_out):
+        """Render a crop straight into its batch slots, each array only in
+        its output window of the union extent: the labels in one strided
+        copy per crop, raw slab by slab along the first axis so that
+        overlay, permute, hue and intensity run on data in cache.  The
+        same float operations as the full-extent path, in its order."""
+        nd = self.ndim
+        half = self.big // 2
+        s = self.samples[d.si]
+        origin = d.center - half
+        still = (False,) * nd
+        o = None if d.overlay is None else self.samples[d.overlay[0]]
+
+        # labels: the crop's channels, then the overlaid crop's (not
+        # mirrored) past the first's largest label; channels beyond the
+        # slot are dropped, missing ones stay zero
+        start = half - np.asarray(self.label_shape) // 2
+        cmax = labels_out.shape[0]
+        n1 = min(s.labels.shape[0], cmax)
+        view, idx, _ = _window(s.labels[:n1],
+                               *self._axis_map(origin, start, d.flips,
+                                               d.swap), self.label_shape)
+        labels_out[:n1][idx] = view
+        c1 = s.labels.shape[0]
+        n2 = 0 if o is None else min(o.labels.shape[0], cmax - c1)
+        if n2 > 0:
+            offset = self._label_max(s, origin)
+            view, idx, _ = _window(o.labels[:n2], *self._axis_map(
+                d.overlay[1] - half, start, still, None), self.label_shape)
+            labels_out[c1:c1 + n2][idx] = np.where(view > 0, view + offset,
+                                                   0)
+
+        # raw: per slab, the crop's read (zero outside the sample), its
+        # maximum with the overlaid crop's, the channels permuted, hue's
+        # blend of channels 0-2, intensity, written into the slot
+        shape = tuple(self.cfg.input_shape)
+        start = half - np.asarray(shape) // 2
+        maps = [(s.raw, self._axis_map(origin, start, d.flips, d.swap))]
+        if o is not None:
+            maps.append((o.raw, self._axis_map(d.overlay[1] - half, start,
+                                               still, None)))
+        C = self.channels
+        dtype = np.result_type(*(src.dtype for src, _ in maps))
+        h = max(1, _SLAB_BYTES // (C * int(np.prod(shape[1:]))
+                                   * dtype.itemsize))
+        slab = (C, min(h, shape[0])) + shape[1:]
+        bufs = [np.empty(slab, src.dtype) for src, _ in maps]
+        work = np.empty(slab, dtype)
+        rolled = np.empty((3,) + slab[1:], dtype) if d.hue is not None \
+            else None
+        perm = range(C) if d.perm is None else d.perm
+        for p in range(0, shape[0], h):
+            n = min(h, shape[0] - p)
+            reads = []
+            for (src, (axes, first, steps)), buf in zip(maps, bufs):
+                view, idx, inside = _window(
+                    src, axes, [first[0] + steps[0] * p] + first[1:], steps,
+                    (n,) + shape[1:])
+                if not inside:
+                    buf = buf[:, :n]
+                    buf.fill(0)
+                    buf[idx] = view
+                    view = buf
+                reads.append(view)
+            w = work[:, :n]
+            for c, pc in enumerate(perm):
+                if o is None:
+                    w[c] = reads[0][pc]
+                else:
+                    np.maximum(reads[0][pc], reads[1][pc], out=w[c])
+            if d.hue is not None:
+                r = rolled[:, :n]
+                for c in range(3):
+                    np.multiply(w[(c - 1) % 3], d.hue, out=r[c])
+                np.multiply(w[:3], 1 - d.hue, out=w[:3])
+                np.add(w[:3], r, out=w[:3])
+                np.clip(w[:3], 0, 1, out=w[:3])
+            np.multiply(w, d.scale, out=w)
+            np.add(w, d.shift, out=w)
+            np.clip(w, 0, 1, out=raw_out[:, p:p + n])
+
+    def _elastic(self, raw, labels, angle, ctrl):
+        """Rotation (around the last two axes) + smooth jitter
+        (gp.ElasticAugment equivalent, host-side), from the drawn angle
+        and control-point grids."""
         axes = (-2, -1)
         raw = ndimage.rotate(raw, angle, axes=axes, reshape=False, order=1,
                              mode="constant")
         labels = ndimage.rotate(labels, angle, axes=axes, reshape=False,
                                 order=0, mode="constant")
-        if any(js > 0 for js in a.jitter_sigma):
+        if ctrl:
             spatial = raw.shape[1:]
             grids = np.meshgrid(*[np.arange(s) for s in spatial],
                                 indexing="ij")
             coords = []
-            for d, g in enumerate(grids):
-                n_ctrl = max(2, spatial[d] // a.control_point_spacing[
-                    min(d, len(a.control_point_spacing) - 1)] + 1)
-                ctrl = self.rng.randn(*([n_ctrl] * len(spatial))) \
-                    * a.jitter_sigma[min(d, len(a.jitter_sigma) - 1)]
-                disp = ndimage.zoom(ctrl, [s / n_ctrl for s in spatial],
+            for g, c in zip(grids, ctrl):
+                disp = ndimage.zoom(c, [s / c.shape[0] for s in spatial],
                                     order=1)
                 coords.append(g + disp)
             for c in range(raw.shape[0]):
@@ -251,102 +475,79 @@ class CropSampler:
                                                     order=0, mode="constant")
         return raw, labels
 
-    def _intensity(self, raw):
-        a = self.cfg.augment
-        scale = self.rng.uniform(*a.intensity_scale)
-        shift = self.rng.uniform(*a.intensity_shift)
-        return np.clip(raw * scale + shift, 0, 1)
-
-    def _hue(self, raw):
-        """RandomHue (neurolight): rotate channels by a random blend."""
-        a = self.cfg.augment
-        if raw.shape[0] < 3 or self.rng.rand() > a.probability_hue:
-            return raw
-        amount = self.rng.uniform(-a.hue_max_change, a.hue_max_change)
-        rolled = np.roll(raw[:3], 1, axis=0)
-        out = raw.copy()
-        out[:3] = np.clip((1 - abs(amount)) * raw[:3] + abs(amount) * rolled,
-                          0, 1)
-        return out
-
-    def _permute(self, raw):
-        a = self.cfg.augment
-        if raw.shape[0] < 2 or self.rng.rand() > a.probability_permute:
-            return raw
-        perm = self.rng.permutation(raw.shape[0])
-        return raw[perm]
-
-    def _overlay(self, raw, labels):
-        """OverlayAugment: blend a second crop in to synthesize overlaps
-        (train.py:276-297, neurolight)."""
-        a = self.cfg.augment
-        if self.rng.rand() > a.probability_overlay:
-            return raw, labels, False
-        si = self.rng.randint(len(self.samples))
-        center = self._choose_center(si)
-        raw2 = self._crop_at(self.samples[si].raw, center,
-                             np.array(raw.shape[1:]))
-        labels2 = self._crop_at(self.samples[si].labels, center,
-                                np.array(labels.shape[1:]))
-        raw = np.maximum(raw, raw2)
-        offset = int(labels.max())
-        labels2 = np.where(labels2 > 0, labels2 + offset, 0)
-        labels = np.concatenate([labels, labels2], axis=0)
-        return raw, labels, self.samples[si].partly
+    def _render_full(self, d: _Draws, raw_out, labels_out):
+        """The elastic path: the crop made at the whole union extent, whose
+        surround the rotation and jitter read, then each augmentation over
+        all of it in turn and the windows cut out at the end."""
+        big = self.big
+        s = self.samples[d.si]
+        raw = self._crop_at(s.raw, d.center, big)
+        labels = self._crop_at(s.labels, d.center, big)
+        raw, labels = self._elastic(raw, labels, *d.elastic)
+        for k, f in enumerate(d.flips):
+            if f:
+                raw = np.flip(raw, axis=1 + k)
+                labels = np.flip(labels, axis=1 + k)
+        if d.swap is not None:
+            order = list(range(raw.ndim))
+            i, j = (1 + k for k in d.swap)
+            order[i], order[j] = order[j], order[i]
+            raw = np.transpose(raw, order)
+            labels = np.transpose(labels, order)
+        raw, labels = np.ascontiguousarray(raw), np.ascontiguousarray(labels)
+        if d.overlay is not None:
+            o = self.samples[d.overlay[0]]
+            raw2 = self._crop_at(o.raw, d.overlay[1], big)
+            labels2 = self._crop_at(o.labels, d.overlay[1], big)
+            raw = np.maximum(raw, raw2)
+            offset = int(labels.max())
+            labels2 = np.where(labels2 > 0, labels2 + offset, 0)
+            labels = np.concatenate([labels, labels2], axis=0)
+        if d.perm is not None:
+            raw = raw[d.perm]
+        if d.hue is not None:
+            rolled = np.roll(raw[:3], 1, axis=0)
+            raw = raw.copy()
+            raw[:3] = np.clip((1 - d.hue) * raw[:3] + d.hue * rolled, 0, 1)
+        raw = np.clip(raw * d.scale + d.shift, 0, 1)
+        c = big // 2
+        raw_out[...] = self._crop_at(raw, c, self.cfg.input_shape)
+        lab = self._crop_at(labels, c, self.label_shape)[:labels_out.shape[0]]
+        labels_out[:lab.shape[0]] = lab
 
     # ---- batch production ----------------------------------------------
 
-    def one_crop(self):
-        cfg = self.cfg
-        # crop at the union extent so raw and labels see identical
-        # augmentation grids, then center-crop each to its own shape
-        big = np.maximum(np.array(cfg.input_shape),
-                         np.array(self.label_shape))
-        for drawn in range(1, 21):  # Reject node equivalent
-            si = self.rng.randint(len(self.samples))
-            s = self.samples[si]
-            center = self._choose_center(si)
-            raw = self._crop_at(s.raw, center, big)
-            labels = self._crop_at(s.labels, center, big)
-            if cfg.min_masked <= 0 or \
-                    (labels > 0).any(axis=0).mean() >= cfg.min_masked:
-                break
-
-        a = cfg.augment
-        if a.elastic:
-            raw, labels = self._elastic(raw, labels)
-        raw, labels = self._simple_augment(raw, labels)
-        raw, labels, overlay_partly = self._overlay(raw, labels)
-        raw = self._permute(raw)
-        raw = self._hue(raw)
-        raw = self._intensity(raw)
-
-        c = big // 2
-        raw = self._crop_at(raw, c, np.array(cfg.input_shape))
-        labels_out = self._crop_at(labels, c, np.array(self.label_shape))
-        trace.count("train.crops_drawn", drawn)
+    def one_crop(self, raw_out: np.ndarray, labels_out: np.ndarray) -> bool:
+        """Draw one crop and render it into ``raw_out`` (C, *input_shape)
+        and ``labels_out`` (C_gt, *label_shape, zeros on entry); returns
+        its partly-labeled flag.  Without elastic augmentation the crop
+        is rendered only in its output windows; the elastic path makes
+        it at the union extent."""
+        d = self._draw()
+        if d.elastic is None:
+            self._render_window(d, raw_out, labels_out)
+            trace.count("train.crops_windowed")
+        else:
+            self._render_full(d, raw_out, labels_out)
+        trace.count("train.crops_drawn", d.drawn)
         trace.count("train.crops")
-        return (raw.astype(np.float32), labels_out,
-                s.partly or overlay_partly)
+        return self.samples[d.si].partly or (
+            d.overlay is not None and self.samples[d.overlay[0]].partly)
 
     def batch(self, max_gt_channels: int = 6, with_partly: bool = False):
         """One (raw, labels[, partly]) batch; gt channel count is
         padded/truncated to a fixed ``max_gt_channels`` so the jitted train
         step never recompiles.  ``with_partly`` adds the per-item
-        partly-labeled flag vector (bool (B,)) the masked losses consume."""
-        raws, labs, partly = [], [], []
-        for _ in range(self.cfg.batch_size):
-            r, l, p = self.one_crop()
-            raws.append(r)
-            labs.append(l)
-            partly.append(p)
-        cmax = max_gt_channels
-        labs = [np.pad(l[:cmax], [(0, cmax - min(l.shape[0], cmax))]
-                       + [(0, 0)] * (l.ndim - 1)) for l in labs]
-        out = (np.stack(raws), np.stack(labs))
-        if with_partly:
-            out = out + (np.array(partly, dtype=bool),)
-        return out
+        partly-labeled flag vector (bool (B,)) the masked losses consume.
+        The arrays are new for every batch: a caller may keep them."""
+        B = self.cfg.batch_size
+        raw = np.empty((B, self.channels) + tuple(self.cfg.input_shape),
+                       np.float32)
+        labels = np.zeros((B, max_gt_channels) + self.label_shape,
+                          self.label_dtype)
+        partly = np.array([self.one_crop(raw[b], labels[b])
+                           for b in range(B)], dtype=bool)
+        return (raw, labels, partly) if with_partly else (raw, labels)
 
 
 class Prefetcher:
@@ -356,9 +557,10 @@ class Prefetcher:
     the spans ``train.data_wait`` (the loop blocked on the queue) and
     ``train.sample`` (the thread producing one batch), and the counters
     ``train.crops_drawn`` (the draws of ``min_masked``'s rejection loop,
-    counted with the crop they gave) and ``train.crops`` (each crop
-    returned) are recorded (``utils/trace.py``); the thread's share is
-    clipped to the loop's traced interval."""
+    counted with the crop they gave), ``train.crops`` (each crop
+    returned) and ``train.crops_windowed`` (each crop rendered only in
+    its output windows) are recorded (``utils/trace.py``); the thread's
+    share is clipped to the loop's traced interval."""
 
     def __init__(self, sampler: CropSampler, cache_size: int = 8,
                  max_gt_channels: int = 6, with_partly: bool = False):

@@ -4,6 +4,11 @@
   port's batches equal the JAX package's draw for draw, through every
   augmentation (mirror, transpose, elastic, overlay, permute, hue,
   intensity, min_masked rejection, the point-balanced overlap pool).
+  The port renders a crop only in its output windows (elastic aside),
+  the JAX package at the union extent: equal over 2D and 3D, borders,
+  odd margins, labels wider than raw, unequal axes, 1-4 raw channels and
+  overlay channels beyond ``max_gt``; the counter
+  ``train.crops_windowed`` counts the windowed crops.
 - ``load_sample``'s partly flag and overlap CSV; the ``Prefetcher``
   surfacing a sampler error in the caller.
 - The device sampler (run here on CPU tensors) on the JAX package's
@@ -93,6 +98,108 @@ def test_crop_sampler_equals_jax_draw_for_draw(case):
     raw, labels, partly = batches[1][0]
     assert raw.shape == (3, channels, 32, 32)
     assert labels.shape == (3, 4, 20, 20) and partly.dtype == bool
+
+
+def _volume(mod, seed, shape, channels, gt_channels, partly=False):
+    """Random raw and up to ``gt_channels`` boxes of labels 1-8, one box
+    per channel, some of them touching the volume's border."""
+    rng = np.random.RandomState(seed)
+    labels = np.zeros((gt_channels,) + shape, np.int32)
+    for c in range(gt_channels):
+        lo = [rng.randint(0, s // 2) for s in shape]
+        hi = [a + rng.randint(2, s // 2 + 2) for a, s in zip(lo, shape)]
+        labels[(c,) + tuple(slice(a, b) for a, b in zip(lo, hi))] = \
+            rng.randint(1, 9)
+    raw = rng.rand(channels, *shape).astype(np.float32)
+    return mod.SampleData(raw=raw, labels=labels,
+                          fg_mask=np.any(labels > 0, axis=0),
+                          overlap_mask=np.sum(labels > 0, axis=0) > 1,
+                          partly=partly)
+
+
+# (volume, input, output, patch, raw channels, gt channels, max_gt, config)
+WINDOW_CASES = {
+    # crops at the border of volumes barely larger than the crop
+    "3d_overlay_border": ((14, 15, 16), (12, 12, 12), (6, 6, 6), (3, 3, 3),
+                          3, 2, 4, dict(min_masked=0.2, augment=dict(
+                              probability_overlay=0.5,
+                              probability_permute=0.5,
+                              probability_hue=0.5))),
+    "2d": ((30, 26), (24, 24), (12, 12), (5, 5), 1, 2, 4,
+           dict(augment=dict(probability_overlay=0.5))),
+    "label_larger": ((16, 18, 17), (10, 10, 10), (10, 10, 10), (3, 3, 3),
+                     2, 2, 4, dict(augment=dict(probability_overlay=0.5,
+                                                probability_permute=0.5))),
+    "odd_margins": ((20, 20, 20), (13, 13, 13), (6, 6, 6), (3, 3, 3), 3,
+                    1, 2, dict(augment=dict(probability_overlay=0.5,
+                                            probability_hue=1.0))),
+    "odd_margin_label_larger": ((24, 22), (9, 9), (10, 10), (3, 3), 2, 2, 4,
+                                dict(augment=dict(probability_overlay=0.5))),
+    "non_cubic": ((15, 18, 18), (8, 12, 12), (4, 8, 8), (3, 3, 3), 4, 2, 4,
+                  dict(min_masked=0.05, augment=dict(
+                      probability_overlay=0.5, probability_permute=0.5,
+                      probability_hue=0.5))),
+    # the overlaid crop's channels beyond max_gt are dropped
+    "overlay_beyond_max_gt": ((16, 16, 16), (12, 12, 12), (6, 6, 6),
+                              (3, 3, 3), 3, 2, 3,
+                              dict(augment=dict(probability_overlay=1.0,
+                                                probability_hue=0.5))),
+    "no_mirror_transpose": ((18, 18), (16, 16), (8, 8), (5, 5), 3, 2, 4,
+                            dict(augment=dict(mirror=False, transpose=False,
+                                              probability_overlay=0.5))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_windowed_crops_equal_jax_element_for_element(case):
+    """The port renders each crop only in its output windows; the JAX
+    package makes it at the union extent: over several seeds and
+    batches their batches and partly flags are equal."""
+    vol, inp, out, ps, ch, gt, max_gt, kw = WINDOW_CASES[case]
+    kw = dict(kw)
+    aug = kw.pop("augment")
+    for seed in (0, 1, 2):
+        batches = []
+        for mod in (JD, TD):
+            samples = [_volume(mod, 10 * seed, vol, ch, gt),
+                       _volume(mod, 10 * seed + 1,
+                               tuple(v + 3 for v in vol), ch, gt,
+                               partly=True)]
+            cfg = mod.SamplerConfig(
+                input_shape=inp, output_shape=out, patchshape=ps,
+                batch_size=3, seed=seed,
+                augment=mod.AugmentConfig(**aug), **kw)
+            s = mod.CropSampler(samples, cfg)
+            batches.append([s.batch(max_gt_channels=max_gt,
+                                    with_partly=True) for _ in range(3)])
+        for want, got in zip(*batches):
+            for w, g in zip(want, got):
+                assert g.shape == w.shape and g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+    label_shape = tuple(o + 2 * (p // 2) for o, p in zip(out, ps))
+    assert got[0].shape == (3, ch) + inp
+    assert got[1].shape == (3, max_gt) + label_shape
+
+
+@pytest.mark.parametrize("elastic", [False, True])
+def test_crops_windowed_counts_the_window_path(elastic):
+    from patchperpix_tpu_torch.utils import trace
+
+    aug = TD.AugmentConfig(elastic=elastic, jitter_sigma=(1.0, 1.0),
+                           control_point_spacing=(8, 8),
+                           probability_overlay=0.5)
+    cfg = TD.SamplerConfig(input_shape=(32, 32), output_shape=(16, 16),
+                           patchshape=(5, 5), batch_size=3, seed=5,
+                           min_masked=0.2, augment=aug)
+    s = TD.CropSampler([_toy(TD, 0), _toy(TD, 1)], cfg)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(2):
+            s.batch(4)
+    counts = trace.summary()["counts"]
+    assert counts["train.crops"] == 6
+    assert counts["train.crops_drawn"] >= 6
+    assert counts.get("train.crops_windowed", 0) == (0 if elastic else 6)
 
 
 def test_load_sample_partly_and_overlap_csv(tmp_path):
