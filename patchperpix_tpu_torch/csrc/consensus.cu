@@ -32,8 +32,8 @@
 // the four f32 stacks once (4 * 343 * 125000 * 4 B = 686 MB) and writes the
 // half once (1183 * 125000 * 4 B = 592 MB): 1.28 GB, 0.38 ms at 3.35 TB/s.
 // The arithmetic it needs is 15 float operations per live unordered pixel
-// pair at an eligible center (data-dependent; chip_smoke.py counts it for
-// each run: 117.3 M pairs on the crop, 0.026 ms at 67 TFLOP/s), below the
+// pair at an eligible center (data-dependent; scripts/time_kernels_3d.py
+// counts it for each run: 117.3 M pairs on the crop, 0.026 ms at 67 TFLOP/s), below the
 // byte time.  So the bound is memory bytes.
 //
 // Design.  Three kernels on one stream; their time together is the
@@ -66,8 +66,8 @@
 //     loaded, and the float masks are read by the pack pass alone.  Each
 //     output is one thread's sum in a fixed order (the list's order only
 //     decides which thread): equal bits on every launch.
-// Measured on an NVIDIA H100 80GB HBM3 at a 700 W limit (chip_smoke.py and
-// scripts/time_kernels_3d.py, FlyLight crop): 2.1 ms for the wrapper
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W limit
+// (scripts/time_kernels_3d.py, FlyLight crop): 2.1 ms for the wrapper
 // (pack 0.31, fill 0.19, tiles 1.35), against 18.0 ms for the
 // one-thread-per-output kernel it replaces, which read the float masks at
 // every (d, q, x) step.  Designs measured and dropped are in PERF.md.

@@ -36,7 +36,7 @@
 // Bound.  At 520x696 with 25x25 patches the function writes the half once
 // (1,225 * 361,920 * 4 B = 1.773 GB in f32) and reads what the data needs:
 // the target plane, the stack's mid plane and its columns at eligible
-// centers (chip_smoke.py counts them for each run).  On the 16-worm image
+// centers (scripts/time_kernels_2d.py counts them for each run).  On the 16-worm image
 // (8,215 eligible centers) that is 1.797 GB, 0.54 ms at 3.35 TB/s; its 81 M
 // eligible pair terms at 15 float operations are 0.02 ms at 67 TFLOP/s.  The
 // bound is memory bytes, and 99.7 % of the half is zero.

@@ -27,7 +27,7 @@
 // once (2 * 343 * 125000 * 4 B = 343 MB) and the half once (592 MB), and
 // writes 0.5 MB: 0.94 GB, 0.28 ms at 3.35 TB/s.  Its arithmetic is 7 float
 // operations per live (q, r) term at an eligible center (data-dependent,
-// counted by chip_smoke.py: 117.3 M terms on the crop, 0.012 ms at 67
+// counted by scripts/time_kernels_3d.py: 117.3 M terms on the crop, 0.012 ms at 67
 // TFLOP/s), far below that: the bound is memory bytes.
 //
 // Design.  Two kernels on one stream; their time together is the kernel's.
@@ -51,8 +51,8 @@
 //     shared memory and one thread per center adds its items in order: no
 //     atomics, equal bits on every launch.  Where a run holds more items
 //     than the list (4,096, or P if larger) it takes its lanes in groups.
-// Measured on an NVIDIA H100 80GB HBM3 at a 700 W limit (chip_smoke.py and
-// scripts/time_kernels_3d.py, FlyLight crop): 1.5-1.7 ms for the wrapper
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W limit
+// (scripts/time_kernels_3d.py, FlyLight crop): 1.5-1.7 ms for the wrapper
 // (pack 0.12-0.14, blocks 1.27; 1.11 with a bf16 half), against 29.8 ms
 // for the one-thread-per-center kernel it replaces.  The S reads, 4 bytes
 // at scattered addresses, take 1.0 of the 1.27 ms.  Designs measured and

@@ -27,7 +27,7 @@
 // Bound.  The function reads what the data needs: the target plane, the
 // stack's mid plane and its columns at eligible centers, and the half's live
 // entries (both ends target-eligible; every other entry is zero and is never
-// read), and writes one plane; chip_smoke.py counts them for each run.  On
+// read), and writes one plane; scripts/time_kernels_2d.py counts them.  On
 // the 16-worm 520x696 image at 25x25 (8,215 eligible centers, 1.19 M live
 // entries of 4.4e8) that is 29.6 MB, 0.009 ms at 3.35 TB/s; its arithmetic,
 // 7 operations per eligible pair term (81 M terms), is 0.008 ms at 67

@@ -17,7 +17,7 @@ away, whose votes involve centers up to 2*rad and targets up to 3*rad.
 
 ``local_devices(kind)`` lists the devices a mesh is built from: every
 card for ``"cuda"``, the one CPU device for ``"cpu"``.  It is the one
-hook the tests and ``chip_smoke.py`` replace to lay n shards on the CPU
+hook the tests replace to lay n shards on the CPU
 or on one card (``tests/conftest.py`` gives JAX 8 virtual CPU devices the
 same way).
 """

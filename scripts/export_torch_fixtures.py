@@ -15,8 +15,8 @@ Writes, from the repository's own files (nothing is downloaded):
 
 - ``parity/torch_port_ref2d_f32.npz`` / ``.json`` (``--2d [H W]``): the
   JAX package's float32 CPU run (``engine="jax"``: the XLA scan) of the 2D
-  path chip_smoke.py drives, the worm image at 25x25 patches under settings
-  (A) and (B) (``chip_smoke.PATH2D``), staged like the 3D run: instance
+  path the card tests drive, the worm image at 25x25 patches under settings
+  (A) and (B) (``parity.cases.PATH2D``), staged like the 3D run: instance
   maps, ranked candidate scores, cover / thin-cover centers, pairs and
   weights.  H W is the top-left crop of the 520x696 image the run is cut
   to (multiples of 8); the JSON names it.
@@ -58,7 +58,7 @@ Writes, from the repository's own files (nothing is downloaded):
 - ``parity/torch_port_train_ref_f32.npz`` / ``.json`` (``--train``): the
   JAX package's float32 train step on the CPU (``make_train_step``, its
   gradients read through an optax transformation that keeps them as its
-  state) on chip_smoke.py's fixed batch (three crops of the FlyLight crop
+  state) on the parity cases' fixed batch (three crops of the FlyLight crop
   at seeded foreground centres, no augmentation): for the code branch
   (configs/flylight_crop_dec.toml's model with the trained
   ``bench_ckpt_params.npz``; the code corners the step draws under
@@ -67,15 +67,15 @@ Writes, from the repository's own files (nothing is downloaded):
   ``weights.seeded_tree`` weights): the loss parts, each gradient leaf's
   L2 norm and 256 seeded entries of it.  Then two 200-step
   ``train_until`` runs of the code model cut in width to
-  ``chip_smoke.TRAIN_RUN_WIDTHS`` (device sampler, constant lr 1e-3,
+  ``parity.cases.TRAIN_RUN_WIDTHS`` (device sampler, constant lr 1e-3,
   float32, seeds 0 and 1): every step's loss, the mean over the last 50
   steps, and the wall seconds (~45 min in all).  ``--train-step`` redoes
   the step part only and keeps the stored runs.  Both then run
   ``--train-f64``, which adds the JAX f32 step's own error against the
   same step in float64, by the JAX package under ``jax_enable_x64``
-  (chip_smoke.py's gate (a) allows twice that where it exceeds its 1e-5 /
-  1e-4 limits, up to TRAIN_WIDEN_CAP), and the float64 step's gradient
-  norms and entries.
+  (``parity.cases.step_errors`` allows twice that where it exceeds its
+  1e-5 / 1e-4 limits, up to TRAIN_LOSS_CAP / TRAIN_GRAD_CAP), and the
+  float64 step's gradient norms and entries.
 - ``parity/torch_port_train_valid_ref_f32.npz`` / ``.json``
   (``--train-valid``): the code branch's step with valid padding on 52^3
   crops at the same centres (labels 18^3; the port routes its U-Net's
@@ -89,18 +89,19 @@ Writes, from the repository's own files (nothing is downloaded):
   blosc stores, read by the JAX package's tensorstore reader) under the
   same keys, chunks and types, which the port's store reads (only
   without PART); then the JAX package's CPU float32 runs of
-  chip_smoke.py's isbi phase, by part (all five without PART): ``a``
+  the ISBI cases of ``parity/cases.py``, by part (all five without PART): ``a``
   ``to_instance_seg`` of ``configs/isbi_rehearsal.toml``'s
   [vote_instances] on the ideal 25x25 affinities of both test samples at
   512^2 (instance maps, kept candidates, metric dicts; ~10 min and ~12 GB
   per sample); ``b`` ``keep_single_slice``, the sparse grid and the ISBI
-  boundary filter on chip_smoke's seeded three-slice stack; ``c`` the JAX
-  CLI's ``mknet predict label evaluate cross_validate`` with the
-  rehearsal config on the zlib copy, float32, from a seeded checkpoint
-  (``chip_smoke.isbi_seeded_tree``; four 512^2 labels, ~25-35 min); ``d`` the full-width ``configs/isbi2012.toml`` model
+  boundary filter on the seeded three-slice stack (``isbi_stack``);
+  ``c`` the JAX CLI's ``mknet predict label evaluate cross_validate``
+  with the rehearsal config on the zlib copy, float32, from a seeded
+  checkpoint (``parity.cases.isbi_seeded_tree``; four 512^2 labels,
+  ~25-35 min); ``d`` the full-width ``configs/isbi2012.toml`` model
   (seeded) on one 512^2 test window: sampled affinities and foreground,
   per-channel means; ``e`` one float32 train step of the rehearsal model
-  on chip_smoke's fixed batch (loss parts, gradient samples), then in a
+  on the cases' fixed batch (loss parts, gradient samples), then in a
   subprocess ``--isbi-f64``, the same step in float64 by the JAX package.
   Each part is merged into the stored files, the others kept.
 
@@ -135,6 +136,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+from parity import cases as cs  # noqa: E402
 
 PARAMS_NPZ = os.path.join(ROOT, "parity", "bench_ckpt_params.npz")
 REF_NPZ = os.path.join(ROOT, "parity", "torch_port_ref_f32.npz")
@@ -346,14 +349,13 @@ def export_reference_2d(crop):
     """Settings (A) and (B) of the 2D path through the JAX package."""
     import numpy as np
 
-    import chip_smoke
     from patchperpix_tpu.assembly import VoteInstancesParams, to_instance_seg
 
     # the staged run equals one to_instance_seg call (checked on a small
     # crop, where both are cheap)
-    for name in chip_smoke.PATH2D:
-        inp = chip_smoke.path2d_inputs(name, (96, 432))
-        vp = VoteInstancesParams(engine="jax", **chip_smoke.PATH2D[name])
+    for name in cs.PATH2D:
+        inp = cs.path2d_inputs(name, (96, 432))
+        vp = VoteInstancesParams(engine="jax", **cs.PATH2D[name])
         st = staged_assembly(inp["affs"], inp["fg"], inp["numinst"], vp)
         call, _ = to_instance_seg(inp["affs"], inp["fg"], inp["fg"].copy(),
                                   inp["numinst"], vp)
@@ -365,12 +367,12 @@ def export_reference_2d(crop):
 
     arrays, meta = {}, {
         "source": "scripts/export_torch_fixtures.py --2d: JAX package, CPU, "
-                  "float32, engine jax (XLA scan), chip_smoke.PATH2D on "
+                  "float32, engine jax (XLA scan), parity.cases.PATH2D on "
                   "worm_labels(520, 696, 16, seed 0) at (1, 25, 25)",
-        "crop": [int(c) for c in crop], "full": list(chip_smoke.IMG2D)}
-    for name in chip_smoke.PATH2D:
-        inp = chip_smoke.path2d_inputs(name, crop)
-        vp = VoteInstancesParams(engine="jax", **chip_smoke.PATH2D[name])
+        "crop": [int(c) for c in crop], "full": list(cs.IMG2D)}
+    for name in cs.PATH2D:
+        inp = cs.path2d_inputs(name, crop)
+        vp = VoteInstancesParams(engine="jax", **cs.PATH2D[name])
         t0 = time.perf_counter()
         st = staged_assembly(inp["affs"], inp["fg"], inp["numinst"], vp)
         inst = st["inst_assembled"]
@@ -401,19 +403,18 @@ def export_model_2d():
     import jax.numpy as jnp
     import numpy as np
 
-    import chip_smoke
     from patchperpix_tpu.infer.fused import predict_volume_device
     from patchperpix_tpu.models import PPPConfig, PPPModel
     from patchperpix_tpu_torch.weights import seeded_tree
 
-    cfg = PPPConfig(**chip_smoke.BBBC010_MODEL)
+    cfg = PPPConfig(**cs.BBBC010_MODEL)
     model = PPPModel(cfg)
     shapes = jax.eval_shape(
         lambda: model.init(jax.random.PRNGKey(0),
                            jnp.zeros((1, 1, 32, 32), jnp.float32),
                            method=model.full_init))
     leaves = [[k, list(v.shape)] for k, v in sorted(flatten(shapes).items())]
-    flat = seeded_tree(leaves, chip_smoke.MODEL2D_SEED)
+    flat = seeded_tree(leaves, cs.MODEL2D_SEED)
     params = {}
     for key, val in flat.items():
         node = params
@@ -422,8 +423,8 @@ def export_model_2d():
             node = node.setdefault(part, {})
         node[parts[-1]] = jnp.asarray(val)
 
-    raw, pos = chip_smoke.model2d_sample()
-    win = chip_smoke.MODEL2D_WINDOW
+    raw, pos = cs.model2d_sample()
+    win = cs.MODEL2D_WINDOW
     t0 = time.perf_counter()
     code, prob = predict_volume_device(model, params, raw, cfg, win, win)
     code = np.asarray(code, np.float32).reshape(cfg.code_units, -1)[:, pos]
@@ -440,7 +441,7 @@ def export_model_2d():
             "source": "scripts/export_torch_fixtures.py --model2d: JAX "
                       "package, CPU, float32, configs/bbbc010.toml widths, "
                       "weights from weights.seeded_tree(leaves, seed)",
-            "seed": chip_smoke.MODEL2D_SEED, "n_positions": int(len(pos)),
+            "seed": cs.MODEL2D_SEED, "n_positions": int(len(pos)),
             "n_parameters": int(sum(v.size for v in flat.values())),
             "leaves": leaves}, f)
 
@@ -804,7 +805,6 @@ def _f64_record(want, out, branch, grads, mets, source):
     branch's record) and the float64 gradient samples into ``out``."""
     import numpy as np
 
-    import chip_smoke as cs
 
     err = {"loss": {}, "grads": {}, "source": source}
     for k in ("loss", "loss_patch", "loss_fg"):
@@ -832,7 +832,7 @@ def export_train_f64(valid=False):
     ``make_train_step`` with ``jax_enable_x64``, a float64 model and
     float64 parameters, its heads and losses in float64.  Stores each
     branch's loss parts' and gradient leaves' relative error of the f32
-    step against this one (gradients compared as chip_smoke.leaf_rel_err
+    step against this one (gradients compared as cs.leaf_rel_err
     compares them) as ``float64_err``, and the float64 step's leaf norms
     and seeded entries beside the f32 ones.  ``valid``: the valid
     branch's fixture (``--train-valid``) instead of the code and dense
@@ -842,7 +842,6 @@ def export_train_f64(valid=False):
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu import models as jm
     from patchperpix_tpu.train import data as jd
     from patchperpix_tpu_torch.weights import load_npz, seeded_tree
@@ -889,7 +888,6 @@ def export_train_valid():
     import jax
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu import models as jm
     from patchperpix_tpu.train import data as jd
     from patchperpix_tpu_torch.weights import load_npz
@@ -915,7 +913,7 @@ def export_train_valid():
 
 
 def _batch_meta(raw, labels):
-    """The sums and shapes chip_smoke.py checks its batch against."""
+    """The sums and shapes the card tests check their batch against."""
     import numpy as np
 
     return {"raw_sum": float(raw.astype(np.float64).sum()),
@@ -931,7 +929,6 @@ def _export_step(cfg, params, raw, labels, key, out, branch, **record):
     import jax.numpy as jnp
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu import models as jm
     from patchperpix_tpu.ops.affinities import sample_fg_corners
     from patchperpix_tpu.train import trainer as jt
@@ -969,7 +966,6 @@ def export_train(with_runs=True):
     import jax
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu import models as jm
     from patchperpix_tpu.train import data as jd
     from patchperpix_tpu.train import trainer as jt
@@ -1064,7 +1060,6 @@ def export_swin():
     import jax.numpy as jnp
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu import models as jm
     from patchperpix_tpu.infer.fused import predict_volume_device
     from patchperpix_tpu.train import data as jd
@@ -1172,7 +1167,6 @@ def export_swin_f64():
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu import models as jm
     from patchperpix_tpu.train import data as jd
     from patchperpix_tpu_torch.weights import seeded_tree
@@ -1205,7 +1199,6 @@ def export_isbi_zlib():
 
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu.utils import io as jio
     from patchperpix_tpu_torch.utils import io as tio
 
@@ -1234,7 +1227,6 @@ def _isbi_part_a():
     samples at full size."""
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu.assembly import isbi_hacks as jh
     from patchperpix_tpu.assembly.vote_instances import (VoteInstancesParams,
                                                          to_instance_seg)
@@ -1274,7 +1266,6 @@ def _isbi_part_b():
     lies in the rings of the 0.33 * 625 patches it takes to drop it."""
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu.assembly import isbi_hacks as jh
 
     affs, fg = cs.isbi_stack()
@@ -1307,7 +1298,6 @@ def _isbi_part_c():
 
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu import cli as jcli
     from patchperpix_tpu import models as jm
     from patchperpix_tpu.train.trainer import checkpoint_path, save_checkpoint
@@ -1368,7 +1358,6 @@ def _isbi_part_d():
     """(d) the full-width isbi2012 model, seeded, on one 512^2 window."""
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu import models as jm
     from patchperpix_tpu.infer.fused import predict_volume_device
     from patchperpix_tpu.train import data as jd
@@ -1404,7 +1393,6 @@ def _isbi_part_e():
     import jax.numpy as jnp
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu import models as jm
     from patchperpix_tpu.train import data as jd
     from patchperpix_tpu.train import trainer as jt
@@ -1426,7 +1414,7 @@ def _isbi_part_e():
             name, g.size)]
         norms[name] = float(np.linalg.norm(g.astype(np.float64)))
     rec = {"config": os.path.relpath(cs.ISBI_CONFIG, ROOT),
-           "weights": "chip_smoke.isbi_seeded_tree",
+           "weights": "parity.cases.isbi_seeded_tree",
            "batch": {"raw_sum": float(raw.astype(np.float64).sum()),
                      "labels_sum": int(labels.astype(np.int64).sum())},
            "metrics": {k: float(v) for k, v in mets.items()},
@@ -1439,7 +1427,6 @@ def _isbi_store(arrays, meta):
     """Merge one part's arrays and records into the stored fixture."""
     import numpy as np
 
-    import chip_smoke as cs
 
     out, old = {}, {}
     if os.path.exists(cs.ISBI_REF_NPZ):
@@ -1479,7 +1466,6 @@ def export_isbi_f64():
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 
-    import chip_smoke as cs
     from patchperpix_tpu import models as jm
     from patchperpix_tpu.train import data as jd
 
@@ -1501,39 +1487,38 @@ def export_isbi_f64():
 
 
 def export_viz():
-    """The JAX package's renders of ``chip_smoke.viz_inputs()`` (the same
+    """The JAX package's renders of ``parity.cases.viz_inputs()`` (the same
     numpy arrays the port renders on the card)."""
     import numpy as np
 
-    import chip_smoke
     from patchperpix_tpu.assembly.debug_viz import (render_graph_edges,
                                                     render_patch_tiles)
     from patchperpix_tpu.visualize.instances import render_instances
     from patchperpix_tpu.visualize.patches import patch_mosaic
 
     t0 = time.perf_counter()
-    inp = chip_smoke.viz_inputs()
-    ps = chip_smoke.VIZ_PS
+    inp = cs.viz_inputs()
+    ps = cs.VIZ_PS
     out = {
         "inst_plain": render_instances(inp["inst"]),
         "inst_raw": render_instances(inp["inst"], raw=inp["raw"]),
         "inst_outline": render_instances(inp["inst"], raw=inp["raw"],
                                          outline=True),
         "mosaic": patch_mosaic(inp["affs"], ps),
-        "mosaic_z": patch_mosaic(inp["affs"], ps, z=chip_smoke.VIZ_Z,
+        "mosaic_z": patch_mosaic(inp["affs"], ps, z=cs.VIZ_Z,
                                  selected=inp["selected"]),
         "tiles": render_patch_tiles(inp["affs"], inp["fg"], ps),
         "edges": render_graph_edges(inp["pairs"], inp["weights"],
                                     inp["fg"].shape, ps),
     }
-    np.savez_compressed(chip_smoke.VIZ_REF_NPZ, **out)
+    np.savez_compressed(cs.VIZ_REF_NPZ, **out)
     meta = {"source": "scripts/export_torch_fixtures.py --viz: JAX package "
-                      "renders (CPU) of chip_smoke.viz_inputs()",
+                      "renders (CPU) of parity.cases.viz_inputs()",
             "shapes": {k: list(v.shape) for k, v in out.items()},
             "dtypes": {k: str(v.dtype) for k, v in out.items()},
             "nonzero": {k: int(np.count_nonzero(v)) for k, v in out.items()},
             "seconds": time.perf_counter() - t0}
-    with open(chip_smoke.VIZ_REF_JSON, "w") as f:
+    with open(cs.VIZ_REF_JSON, "w") as f:
         json.dump(meta, f, indent=1)
     print(json.dumps(meta))
 
@@ -1545,10 +1530,8 @@ def main():
     if "--2d" in sys.argv:
         rest = [int(a) for a in sys.argv[sys.argv.index("--2d") + 1:]
                 if a.isdigit()]
-        import chip_smoke
-
         export_reference_2d(tuple(rest[:2]) if len(rest) >= 2
-                            else chip_smoke.IMG2D)
+                            else cs.IMG2D)
         return
     if "--model2d" in sys.argv:
         export_model_2d()

@@ -3,15 +3,15 @@
 
     python3 scripts/profile_torch_path.py [--trace PATH] [--2d]
 
-Runs chip_smoke.py's main path (the trained crop model on the 50^3
-FlyLight fixture) in float32 and then in bfloat16, as chip_smoke.py does:
-for each, once to warm up and once under ``torch.profiler`` (CPU and
-CUDA activities).  With ``--2d`` it runs chip_smoke.py's 2D path instead
-(the 520x696 worm image at 25x25 patches, float32, settings A and B).
+Runs the main path of ``parity/cases.py`` (the trained crop model on the
+50^3 FlyLight fixture) in float32 and then in bfloat16: for each, once to
+warm up and once under ``torch.profiler`` (CPU and CUDA activities).
+With ``--2d`` it runs the cases' 2D path instead (the 520x696 worm image
+at 25x25 patches, float32, settings A and B).
 Prints one JSON line per dtype (per setting with ``--2d``):
 
 - ``device`` and ``nvidia_smi``: the card, its name and power limit;
-- ``stages``: for each stage of ``chip_smoke.run_path``, its wall seconds
+- ``stages``: for each stage of ``cases.run_path``, its wall seconds
   in the profiled run, the seconds the device was busy in it (kernel,
   memcpy and memset intervals of the trace, merged), its idle share, its
   number of kernels, and the seconds and count of Python's garbage
@@ -117,12 +117,9 @@ def main() -> int:
         print("profile_torch_path: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    import numpy as np
-
-    import chip_smoke as cs
+    from parity import cases as cs
     from patchperpix_tpu_torch.ops import _build
     from patchperpix_tpu_torch.ops.consensus_kernels import KERNELS
-    from patchperpix_tpu_torch.utils.io import IoZarr
     from patchperpix_tpu_torch.weights import build_model
 
     dev = torch.device("cuda", 0)
@@ -169,8 +166,7 @@ def main() -> int:
                 f"float32, 2D setting {s}", kind, smi)), flush=True)
             del prof
         return 0
-    raw = np.clip(IoZarr(cs.FIXTURE).read(key="volumes/raw").astype(
-        np.float32), 0, 1500.0) / 1500.0
+    raw = cs.crop_raw()
     for dtype in ("float32", "bfloat16"):
         cfg = cs.crop_config(dtype)
         model = build_model(cfg, device=dev)

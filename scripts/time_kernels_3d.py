@@ -3,8 +3,8 @@
 
     python3 scripts/time_kernels_3d.py [--rounds N]
 
-Runs the f32 main path of ``chip_smoke.py`` once on one NVIDIA GPU (the
-trained crop model on the 50^3 FlyLight fixture) to get the path's decoded
+Runs the f32 main path (``parity/cases.py``: the trained crop model on the
+50^3 FlyLight fixture) once on one NVIDIA GPU to get the path's decoded
 affinities and masks, then times ``consensus_half_cuda`` and
 ``rank_acc_cuda`` on them, with an f32 and a bf16 half:
 
@@ -13,7 +13,12 @@ affinities and masks, then times ``consensus_half_cuda`` and
   after one warm-up;
 - ``device_ms``: each device kernel and memset of one launch by name, from
   a ``torch.profiler`` trace (median over the rounds), which splits the
-  pack pass from the kernel proper.
+  pack pass from the kernel proper;
+- ``rows``: K1's and K2's rows of the kernel table in PERF.md (f32 half):
+  the largest error against the plain version, the kernel's and the plain
+  version's ms (CUDA events, medians of plain, kernel, kernel, plain) and
+  the bound (``kernel_timing.bound_ms``) of the bytes and pair terms
+  this input needs.
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -22,51 +27,13 @@ import argparse
 import dataclasses
 import json
 import os
-import statistics
 import subprocess
 import sys
-from collections import defaultdict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-
-def event_ms(fn, dev, rounds):
-    import torch
-
-    fn()
-    out = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize(dev)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize(dev)
-        out.append(start.elapsed_time(end))
-    return {"median": statistics.median(out), "min": min(out)}
-
-
-def device_ms(fn, dev, rounds):
-    """Median device time of each kernel / memset name over ``rounds``
-    profiled launches (a name launched k times in one call counts k
-    times its median)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    by_name = defaultdict(list)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        for _ in range(rounds):
-            fn()
-        torch.cuda.synchronize(dev)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name].append(e.device_time if hasattr(e, "device_time")
-                                   else e.cuda_time)
-    return {n[:80]: statistics.median(v) * len(v) / rounds / 1e3
-            for n, v in by_name.items()}
+import kernel_timing as kt  # noqa: E402
 
 
 def main() -> int:
@@ -74,16 +41,14 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=10)
     args = ap.parse_args()
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("time_kernels_3d: no CUDA device", file=sys.stderr)
         return 2
-    import chip_smoke as cs
+    from parity import cases as cs
     from patchperpix_tpu_torch.ops import consensus as C
     from patchperpix_tpu_torch.ops import consensus_kernels as K
-    from patchperpix_tpu_torch.utils.io import IoZarr
     from patchperpix_tpu_torch.weights import build_model
 
     dev = torch.device("cuda", 0)
@@ -92,10 +57,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi, flush=True)
-    raw = np.clip(IoZarr(cs.FIXTURE).read(key="volumes/raw").astype(
-        np.float32), 0, 1500.0) / 1500.0
     cfg = cs.crop_config("float32")
-    run = cs.run_path(build_model(cfg, device=dev), cfg, raw, dev)
+    run = cs.run_path(build_model(cfg, device=dev), cfg, cs.crop_raw(), dev)
     ccfg = cs.vote_params().consensus_config()
     dec = run["dec"]
     hi, lo, _ = C._masks(dec, ccfg,
@@ -106,6 +69,30 @@ def main() -> int:
     res = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "rounds": args.rounds, "volume": list(hi.shape[1:]),
            "eligible_centers": int(((hi != 0) | (lo != 0)).any(0).sum())}
+
+    # the table's rows: bytes each input read once and each output written
+    # once; operations over the pair terms this input needs
+    half = K.consensus_half_cuda(a, b, hi, lo, ccfg)
+    acc = K.rank_acc_cuda(hi, lo, half, ccfg)
+    err_c = float((half - C.consensus_half_plain(dec, hi, lo, ccfg))
+                  .abs().max())
+    err_r = float((acc - C.rank_acc_plain(hi, lo, half, ccfg)).abs().max())
+    ms_c, plain_c = kt.time_pair(
+        lambda: C.consensus_half_plain(dec, hi, lo, ccfg),
+        lambda: K.consensus_half_cuda(a, b, hi, lo, ccfg), dev)
+    ms_r, plain_r = kt.time_pair(
+        lambda: C.rank_acc_plain(hi, lo, half, ccfg),
+        lambda: K.rank_acc_cuda(hi, lo, half, ccfg), dev)
+    terms = kt.pair_terms(hi, lo)
+    f4 = 4 * hi.numel()
+    out_c = half.numel() * half.element_size()
+    res["pair_terms"] = terms
+    res["rows"] = [
+        kt.kernel_row(K.CONSENSUS, err_c, ms_c, plain_c, kt.bound_ms(
+            4 * f4 + out_c, kt.CONS_OPS_PER_TERM * terms)),
+        kt.kernel_row(K.RANK, err_r, ms_r, plain_r, kt.bound_ms(
+            2 * f4 + out_c + 4 * acc.numel(), kt.RANK_OPS_PER_TERM * terms))]
+    del half, acc
     for name, bf16 in (("f32", False), ("bf16", True)):
         c = dataclasses.replace(ccfg, cons_bf16=bf16)
         half = K.consensus_half_cuda(a, b, hi, lo, c)
@@ -117,10 +104,9 @@ def main() -> int:
             return K.rank_acc_cuda(hi, lo, half, c)
 
         res[name] = {
-            "consensus": {"wrapper_ms": event_ms(cons, dev, args.rounds),
-                          "device_ms": device_ms(cons, dev, args.rounds)},
-            "rank": {"wrapper_ms": event_ms(rank, dev, args.rounds),
-                     "device_ms": device_ms(rank, dev, args.rounds)}}
+            name: {"wrapper_ms": kt.event_ms(fn, dev, args.rounds),
+                   "device_ms": kt.device_ms(fn, dev, args.rounds)}
+            for name, fn in (("consensus", cons), ("rank", rank))}
         del half
     print(json.dumps(res), flush=True)
     return 0

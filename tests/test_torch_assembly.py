@@ -4,7 +4,7 @@ The instance maps must be identical up to relabelling.  Their inputs
 agree to ~1e-6 (float32 on both sides, sums in another order), and at
 these sizes no threshold, rank order or graph edge order flips on that;
 the full-size run on the card is held against the stored JAX reference
-by chip_smoke.py with the gates stated there.
+by tests/test_torch_cuda.py under the limits of parity/cases.py.
 """
 
 import dataclasses
@@ -235,7 +235,7 @@ import patchperpix_tpu_torch
 for m in pkgutil.walk_packages(patchperpix_tpu_torch.__path__,
                                "patchperpix_tpu_torch."):
     __import__(m.name)
-import chip_smoke
+from parity import cases
 from patchperpix_tpu_torch.models import PPPConfig
 from patchperpix_tpu_torch.weights import build_model
 from patchperpix_tpu_torch.infer.fused import predict_volume_device
@@ -253,7 +253,7 @@ import runpy
 probe = runpy.run_path("scripts/probe_window_cuda.py", run_name="probe")
 sys.argv = ["probe_window_cuda.py", "cpu"]
 assert probe["main"]() == 0
-cfg2 = PPPConfig(**{**chip_smoke.BBBC010_MODEL, "num_fmaps": 4,
+cfg2 = PPPConfig(**{**cases.BBBC010_MODEL, "num_fmaps": 4,
                     "downsample_factors": ((1, 2, 2),) * 2,
                     "fmap_inc_factors": (2, 2),
                     "fmap_dec_factors": (1.0, 1.0)})
@@ -270,7 +270,7 @@ labels = synthetic.worm_labels(72, 176, 2, seed=1)
 inst, _ = to_instance_seg(
     synthetic.labels_to_affinities(labels, (1, 9, 9)), labels > 0,
     labels > 0, (labels > 0).astype(np.uint8),
-    VoteInstancesParams(**{**chip_smoke.PATH2D["B"],
+    VoteInstancesParams(**{**cases.PATH2D["B"],
                            "patchshape": (1, 9, 9)}), device="cpu")
 assert len(np.unique(inst)) == 3
 # the out-of-core slice: predict to a store, decode it, TTA, blockwise

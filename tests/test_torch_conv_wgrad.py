@@ -15,13 +15,13 @@ wrapper's checks and the launch plan.  The kernel itself runs in
 
 import jax
 import jax.numpy as jnp
-from chip_smoke import WGRAD_SHAPES as SHAPES
 import numpy as np
 import pytest
 import torch
 
 from patchperpix_tpu.models import PPPConfig as JConfig
 from patchperpix_tpu.models import PPPModel as JModel
+from parity.cases import WGRAD_SHAPES as SHAPES
 from patchperpix_tpu_torch import weights
 from patchperpix_tpu_torch.models import PPPConfig, PPPModel, unet
 from patchperpix_tpu_torch.ops import conv_kernels as CK

@@ -1,32 +1,102 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port on the card: its CUDA kernels against their plain PyTorch
+versions, and the parity cases (``parity/cases.py``) against the JAX
+package's stored runs of them.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no JAX, so it runs
 on the GPU machine, which has none:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
-        tests/test_torch_cuda.py
+        tests/test_torch_cuda.py tests/test_torch_trace.py
 
 Tolerances: consensus 1e-4 absolute and relative, rank 1e-3 absolute /
 1e-4 relative (the JAX package's own kernel tolerances, 3D and 2D); a bf16
 half within one rounding step of the stored type (2^-7 relative); the
 row-window probe 1e-4 absolute; the cover kernels K5 / K6 equal to their
-host loops bit for bit (integer counts).  The CLI on the FlyLight crop holds its
-map against chip_smoke.py's f32 main path under chip_smoke.py's phase 4
-limits (the CLI stages the heads and affinities through float16 stores).
+host loops bit for bit (integer counts); the weight gradient within 1e-5
+of its largest value against float64.  An instance map is held to a
+stored one by ``cases.gate_agreement`` (foreground agreement >= 99.9 %,
+the same instance count, >= 99 % of foreground voxels agreeing after
+best-IoU matching), a training step by ``cases.gate_step`` and scores to
+0.01 (``cases.SCORE_TOL``).
 """
 
+import dataclasses
+import json
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
+from parity import cases as cs
 from patchperpix_tpu_torch.ops import consensus as C
 from patchperpix_tpu_torch.ops import consensus_kernels as K
+from patchperpix_tpu_torch.ops import cover_kernels as CK
 from patchperpix_tpu_torch.ops import probe as PR
-from chip_smoke import REPO, WGRAD_SHAPES
 
 pytestmark = pytest.mark.cuda
+
+
+class counted:
+    """The launches of ``kernels`` while the block runs, by name (``.n``
+    once it has run)."""
+
+    def __init__(self, *kernels):
+        self.kernels = kernels
+
+    def __enter__(self):
+        self.n0 = [k.launches for k in self.kernels]
+        return self
+
+    def __exit__(self, *exc):
+        self.n = {k.name: k.launches - n0
+                  for k, n0 in zip(self.kernels, self.n0)}
+
+
+class on_mesh:
+    """Within the block, ``parallel/sharded.py``'s ``local_devices`` lists
+    ``devices`` (n shards of one card, or several cards)."""
+
+    def __init__(self, devices):
+        self.devices = list(devices)
+
+    def __enter__(self):
+        from patchperpix_tpu_torch.parallel import sharded
+
+        self.saved = sharded.local_devices
+        sharded.local_devices = lambda kind="cuda": list(self.devices)
+        return self.devices
+
+    def __exit__(self, *exc):
+        from patchperpix_tpu_torch.parallel import sharded
+
+        sharded.local_devices = self.saved
+
+
+def _json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _log_rows(train_dir):
+    with open(os.path.join(train_dir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f if '"loss"' in line]
+
+
+def _crop_override(work, name, extra=""):
+    """An override TOML under ``work`` pointing every data folder at a
+    folder holding only the crop, after ``extra`` (TOML text)."""
+    data = os.path.join(work, "data")
+    if not os.path.isdir(data):
+        os.makedirs(data)
+        os.symlink(cs.FIXTURE, os.path.join(data, os.path.basename(
+            cs.FIXTURE)))
+    override = os.path.join(work, name)
+    with open(override, "w") as f:
+        f.write(extra + "[data]\n" + "".join(
+            f'{k}_data = "{data}"\n' for k in ("train", "val", "test")))
+    return override
 
 
 @pytest.fixture(scope="module")
@@ -357,71 +427,130 @@ def test_probe_kernel_matches_plain(dev, mode, n_slab, W):
     assert torch.equal(got, PR.probe_window(x, n_slab, mode))
 
 
+def test_probe_library_yardstick_matches_plain(dev):
+    """The one PyTorch call the probe is timed against
+    (``scripts/probe_window_cuda.py``: a convolution along the rows with
+    the weights s + 1) gives the plain version's sums within 1e-3."""
+    import runpy
+
+    case = runpy.run_path(os.path.join(cs.REPO, "scripts",
+                                       "probe_window_cuda.py"))
+    _, want, fns = case["probe_timed_case"](PR, dev)
+    assert float((fns["library"]() - want).abs().max()) < 1e-3
+
+
+# -- the 3D main path ---------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def main_path(dev):
+    """The f32 main path on the crop (``cases.run_path``): a warm-up whose
+    cover inputs ``CoverCapture`` keeps, then the run whose launches of
+    K1, K2 and K6 are counted."""
+    from patchperpix_tpu_torch.weights import build_model
+
+    cfg = cs.crop_config("float32")
+    model = build_model(cfg, device=dev)
+    raw = cs.crop_raw()
+    with cs.CoverCapture() as cap:
+        cs.run_path(model, cfg, raw, dev)
+    with counted(K.CONSENSUS, K.RANK, CK.THIN_COVER) as c:
+        run = cs.run_path(model, cfg, raw, dev)
+    return {"model": model, "cfg": cfg, "raw": raw, "cap": cap, "run": run,
+            "launches": c.n}
+
+
+def test_main_path_matches_the_jax_f32_run(main_path):
+    """The f32 main path launches K1, K2 and K6, and its map agrees with
+    the JAX package's f32 CPU run (parity/torch_port_ref_f32.npz)."""
+    run = main_path["run"]
+    assert all(n >= 1 for n in main_path["launches"].values()), \
+        main_path["launches"]
+    ref, meta = np.load(cs.REF_NPZ), _json(cs.REF_JSON)
+    cs.gate_agreement(cs.map_agreement(run["inst"], ref["inst"], run["fg"],
+                                       ref["fg"], meta["n_instances"]),
+                      "the f32 main path vs the JAX run")
+
+
+def test_kernels_match_plain_on_the_main_path(dev, main_path):
+    """K1 and K2 against their plain versions on the f32 main path's own
+    decoded affinities (the crop, 7^3 patches, 343 channels, overlaps
+    where numinst > 1); a second launch of each gives the same bits."""
+    run = main_path["run"]
+    cfg = cs.vote_params().consensus_config()
+    dec = run["dec"]
+    hi, lo, _ = C._masks(dec, cfg, torch.as_tensor(run["numinst"] > 1,
+                                                   device=dev))
+    a, b = dec * hi, (1.0 - dec) * lo
+    half = K.consensus_half_cuda(a, b, hi, lo, cfg)
+    torch.testing.assert_close(half, C.consensus_half_plain(dec, hi, lo, cfg),
+                               atol=1e-4, rtol=1e-4)
+    assert torch.equal(half, K.consensus_half_cuda(a, b, hi, lo, cfg))
+    acc = K.rank_acc_cuda(hi, lo, half, cfg)
+    torch.testing.assert_close(acc, C.rank_acc_plain(hi, lo, half, cfg),
+                               atol=1e-3, rtol=1e-4)
+    assert torch.equal(acc, K.rank_acc_cuda(hi, lo, half, cfg))
+
+
 # -- the CLI on the card -----------------------------------------------------
 
 @pytest.fixture(scope="module")
-def crop_cli(dev, tmp_path_factory):
+def crop_cli(dev, cli_chain, tmp_path_factory):
     """The port's CLI on the FlyLight crop on the card, f32, at
-    chip_smoke.run_path's assembly settings (pt 0.6, no skeleton, rm 400):
-    ``predict decode label evaluate`` and, in a second experiment,
-    ``infer_fused``; returns the experiments' paths."""
-    import chip_smoke
+    ``cases.run_path``'s assembly settings (pt 0.6, no skeleton, rm 400),
+    which differ from the config's that ``cli_chain`` runs and the JAX
+    CLI run is stored under: ``label`` on a copy of the chain's
+    prediction stores (its ``predict decode``, whose settings are the
+    same) and, in a second experiment, ``infer_fused``; returns the
+    experiments' paths and ``label``'s launches of K1 and K2."""
     from patchperpix_tpu_torch import cli, weights
 
     root = tmp_path_factory.mktemp("cli")
-    data = root / "data"
-    data.mkdir()
-    os.symlink(chip_smoke.FIXTURE,
-               data / os.path.basename(chip_smoke.FIXTURE))
-    over = root / "over.toml"
-    over.write_text(f'[model]\ndtype = "float32"\n[data]\n'
-                    f'test_data = "{data}"\n')
-    argv = ["-c", chip_smoke.CLI_CONFIG, "-c", str(over), "--root",
-            str(root), "--checkpoint", "1",
+    over = _crop_override(str(root), "over.toml",
+                          '[model]\ndtype = "float32"\n')
+    argv = ["-c", cs.CLI_CONFIG, "-c", over, "--root",
+            str(root), "--checkpoint", str(cs.CLI_STEP),
             "--set", "vote_instances.patch_threshold=0.6",
             "--set", "vote_instances.skeletonize_foreground=False",
             "--set", "vote_instances.remove_small_comps=400"]
-    for expid in ("label", "fused"):
-        weights.write_checkpoint(weights.load_npz(),
-                                 str(root / expid / "train"), 1)
-    n1, n2 = K.CONSENSUS.launches, K.RANK.launches
-    label = cli.main(argv + ["-id", "label", "-d", "predict", "decode",
-                             "label", "evaluate"])
-    launches = (K.CONSENSUS.launches - n1, K.RANK.launches - n2)
+    step = str(cs.CLI_STEP)
+    shutil.copytree(os.path.join(cli_chain["paths"]["test_processed"], step),
+                    os.path.join(cli.create_folders(str(root), "label")[
+                        "test_processed"], step))
+    weights.write_checkpoint(weights.load_npz(), str(root / "fused" /
+                                                     "train"), cs.CLI_STEP)
+    with counted(K.CONSENSUS, K.RANK) as c:
+        label = cli.main(argv + ["-id", "label", "-d", "label"])
     fused = cli.main(argv + ["-id", "fused", "-d", "infer_fused"])
-    return label, fused, launches
+    return label, fused, c.n
 
 
-def _result(paths):
-    import chip_smoke
+SAMPLE = os.path.splitext(os.path.basename(cs.FIXTURE))[0]
+
+
+def _result(paths, mode="test_instanced"):
     from patchperpix_tpu_torch.utils.io import IoHDF5
 
-    sample = os.path.splitext(os.path.basename(chip_smoke.FIXTURE))[0]
-    return IoHDF5(os.path.join(paths["test_instanced"], "1",
-                               sample + ".hdf"))
+    return IoHDF5(os.path.join(paths[mode], str(cs.CLI_STEP),
+                               SAMPLE + ".hdf"))
 
 
-def test_cli_on_the_card_agrees_with_run_path(dev, crop_cli):
+def _metrics(paths):
+    return _json(os.path.join(paths["test_evaluated"], str(cs.CLI_STEP),
+                              SAMPLE + ".json"))
+
+
+def test_cli_on_the_card_agrees_with_run_path(dev, crop_cli, main_path):
     """The CLI's staged path (f16 stores between the tasks) against
-    chip_smoke.run_path's device-resident f32 run, under chip_smoke's
-    phase 4 limits; K1 and K2 run inside the CLI."""
-    import chip_smoke
-    from patchperpix_tpu_torch.utils.io import IoZarr
-    from patchperpix_tpu_torch.weights import build_model
-
+    ``cases.run_path``'s device-resident f32 run, under the map limits;
+    K1 and K2 run inside the CLI."""
     label, _, launches = crop_cli
-    assert launches[0] >= 1 and launches[1] >= 1
+    assert all(n >= 1 for n in launches.values()), launches
     res = _result(label)
-    inst = res.read(key="vote_instances")
-    cfg = chip_smoke.crop_config("float32")
-    raw = np.clip(IoZarr(chip_smoke.FIXTURE).read(key="volumes/raw")
-                  .astype(np.float32), 0, 1500.0) / 1500.0
-    run = chip_smoke.run_path(build_model(cfg, device=dev), cfg, raw, dev)
-    fg = res.read(key="vote_foreground") > 0
-    assert np.mean(fg == run["fg"]) >= 0.999
-    assert chip_smoke.n_instances(inst) == chip_smoke.n_instances(
-        run["inst"])
-    assert chip_smoke.match_agreement(inst, run["inst"])[0] >= 0.99
+    run = main_path["run"]
+    cs.gate_agreement(cs.map_agreement(
+        res.read(key="vote_instances"), run["inst"],
+        res.read(key="vote_foreground") > 0, run["fg"]),
+        "the CLI vs run_path")
 
 
 def test_infer_fused_writes_the_label_keys(dev, crop_cli):
@@ -459,7 +588,609 @@ def test_visualize_on_the_card(dev, crop_cli):
                           mosaic_png(mosaic))
 
 
-# -- training -------------------------------------------------------------------
+class HdfWrites:
+    """While entered, keeps the last array ``IoHDF5`` was given for each
+    (file, key), whole as it will be written; ``check()`` reads each back
+    from its file: {"<file>:<key>": equal}."""
+
+    def __init__(self):
+        from patchperpix_tpu_torch.utils.io import IoHDF5
+
+        self.cls, self.real, self.arrays = IoHDF5, IoHDF5.write, {}
+
+    def __enter__(self):
+        real = self.real
+
+        def write(io, out, bb=None, *, key, attrs=None):
+            real(io, out, bb, key=key, attrs=attrs)
+            self.arrays[(os.path.abspath(io.path), key.strip("/"))] = \
+                io.read(key=key)
+
+        self.cls.write = write
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.write = self.real
+
+    def check(self) -> dict:
+        equal = {}
+        for (path, key), want in self.arrays.items():
+            io = self.cls(path)
+            got = io.read(key=key)
+            io.close()
+            equal[f"{os.path.basename(path)}:{key}"] = bool(
+                got.dtype == want.dtype and np.array_equal(got, want))
+        return equal
+
+
+@pytest.fixture(scope="module")
+def cli_chain(dev, tmp_path_factory):
+    """The reference CLI's chain through the port's CLI in-process, as
+    users run it: configs/flylight_crop_dec.toml in float32 (pt 0.5, mws,
+    skeletonize_foreground, rm 60; evaluation under clDice, greedy,
+    keep_gt_shape, rm 60) on the crop from the trained checkpoint,
+    ``mknet predict decode label evaluate postprocess``.  Keeps the
+    launches of K1, K2 and K6, every array given to ``IoHDF5``
+    (``HdfWrites``) and each skeleton ``label`` made."""
+    from patchperpix_tpu_torch import cli, weights
+    from patchperpix_tpu_torch.assembly import vote_instances as TV
+
+    work = str(tmp_path_factory.mktemp("cli_chain"))
+    override = _crop_override(work, "override.toml",
+                              '[model]\ndtype = "float32"\n')
+    exps = os.path.join(work, "exps")
+    weights.write_checkpoint(weights.load_npz(),
+                             os.path.join(exps, "f32", "train"), cs.CLI_STEP)
+    argv = ["-c", cs.CLI_CONFIG, "-c", override, "--root", exps,
+            "--checkpoint", str(cs.CLI_STEP)]
+    skeletons, real = [], TV.skeletonize
+
+    def record(volume, *a, **kw):
+        skeletons.append(real(volume, *a, **kw))
+        return skeletons[-1]
+
+    TV.skeletonize = record
+    try:
+        with counted(K.CONSENSUS, K.RANK, CK.THIN_COVER) as c, \
+                HdfWrites() as writes:
+            paths = cli.main(argv + ["-id", "f32", "-d", "mknet", "predict",
+                                     "decode", "label", "evaluate",
+                                     "postprocess"])
+    finally:
+        TV.skeletonize = real
+    return {"argv": argv, "exps": exps, "work": work, "paths": paths,
+            "launches": c.n, "writes": writes, "skeletons": skeletons}
+
+
+def test_cli_chain_matches_the_jax_cli_run(cli_chain):
+    """Against the JAX package's CPU run of the same chain
+    (parity/torch_port_cli_ref_f32.npz): K1, K2 and K6 launched; the map
+    under the map limits; label skeletonizes the mask to cover once, and
+    the port's thinning of the stored foreground equals the stored
+    skeleton bit for bit (the run's own too where its foreground equals
+    the stored one); avg_f1_cov within 0.01 of the JAX run's."""
+    from patchperpix_tpu_torch.utils.skeleton import skeletonize
+
+    assert all(n >= 1 for n in cli_chain["launches"].values()), \
+        cli_chain["launches"]
+    res = _result(cli_chain["paths"])
+    inst = res.read(key="vote_instances")
+    fg = res.read(key="vote_foreground") > 0
+    ref, meta = np.load(cs.CLI_REF_NPZ), _json(cs.CLI_REF_JSON)
+    shape = tuple(int(s) for s in ref["shape"])
+
+    def unpack(key):
+        n = int(np.prod(shape))
+        return np.unpackbits(ref[key])[:n].reshape(shape).astype(bool)
+
+    ref_fg, ref_skel = unpack("fg"), unpack("skel")
+    cs.gate_agreement(cs.map_agreement(inst, ref["inst"], fg, ref_fg,
+                                       meta["n_instances"]),
+                      "the CLI chain vs the JAX run")
+    assert len(cli_chain["skeletons"]) == 1
+    assert np.array_equal(skeletonize(ref_fg) > 0, ref_skel)
+    if np.array_equal(fg, ref_fg):
+        assert np.array_equal(cli_chain["skeletons"][0] > 0, ref_skel)
+    score = _metrics(cli_chain["paths"])["general"]["avg_f1_cov_score"]
+    assert abs(score - meta["avg_f1_cov_score"]) <= cs.SCORE_TOL, score
+
+
+def test_cli_chain_hdf_results_read_back(cli_chain):
+    """Every array the chain gave ``IoHDF5`` reads back from its
+    ``<sample>.hdf`` equal bit for bit; postprocess's
+    ``vote_instances_rm_60`` and the JAX package's attributes."""
+    from patchperpix_tpu_torch.utils.postprocess import (
+        relabel, remove_small_components)
+
+    back = cli_chain["writes"].check()
+    assert back and all(back.values()), back
+    res = _result(cli_chain["paths"])
+    inst = res.read(key="vote_instances")
+    rm = res.read(key="vote_instances_rm_60")
+    assert rm.dtype == np.uint16
+    assert np.array_equal(rm, relabel(remove_small_components(inst, 60)))
+    assert {k: np.asarray(v).tolist() for k, v in res.attrs(
+        "vote_instances").items()} == {"offset": [0, 0, 0],
+                                        "resolution": [1, 1, 1]}
+
+
+def test_jax_result_file_through_the_ports_evaluate(cli_chain):
+    """The JAX package's own result file of the chain (h5py,
+    parity/torch_port_jax_result.hdf) through the port's ``evaluate``:
+    avg_f1_cov within 0.01 of JAX's, the same prediction and instance
+    counts."""
+    from patchperpix_tpu_torch import cli
+    from patchperpix_tpu_torch.utils.io import IoHDF5
+
+    jax_meta = _json(cs.JAX_RESULT_JSON)
+    inst_dir = os.path.join(cli.create_folders(cli_chain["exps"],
+                                               "jax_result")[
+        "test_instanced"], str(cs.CLI_STEP))
+    os.makedirs(inst_dir, exist_ok=True)
+    shutil.copyfile(cs.JAX_RESULT, os.path.join(inst_dir, SAMPLE + ".hdf"))
+    got = _metrics(cli.main(cli_chain["argv"] + ["-id", "jax_result", "-d",
+                                                 "evaluate"]))["general"]
+    want = jax_meta["metrics"]["general"]
+    assert abs(got["avg_f1_cov_score"] - want["avg_f1_cov_score"]) <= \
+        cs.SCORE_TOL
+    assert got["Num Pred"] == want["Num Pred"]
+    assert cs.n_instances(IoHDF5(cs.JAX_RESULT).read(
+        key=jax_meta["res_key"])) == jax_meta["n_instances"]
+
+
+def test_visualize_renders_equal_the_jax_renders(dev):
+    """The port's renders on the card (``render_instances`` plain, over
+    the raw, outlined; ``patch_mosaic`` twice; ``render_patch_tiles``;
+    ``render_graph_edges``) of ``cases.viz_inputs()`` equal the JAX
+    package's in parity/torch_port_viz_ref.npz bit for bit."""
+    from patchperpix_tpu_torch.assembly import debug_viz as DV
+    from patchperpix_tpu_torch.visualize import instances as VI
+    from patchperpix_tpu_torch.visualize import patches as VP
+
+    inp, ref = cs.viz_inputs(), np.load(cs.VIZ_REF_NPZ)
+    got = {
+        "inst_plain": VI.render_instances(inp["inst"], device=dev),
+        "inst_raw": VI.render_instances(inp["inst"], raw=inp["raw"],
+                                        device=dev),
+        "inst_outline": VI.render_instances(inp["inst"], raw=inp["raw"],
+                                            outline=True, device=dev),
+        "mosaic": VP.patch_mosaic(inp["affs"], cs.VIZ_PS, device=dev),
+        "mosaic_z": VP.patch_mosaic(inp["affs"], cs.VIZ_PS, z=cs.VIZ_Z,
+                                    selected=inp["selected"], device=dev),
+        "tiles": DV.render_patch_tiles(inp["affs"], inp["fg"], cs.VIZ_PS,
+                                       device=dev),
+        "edges": DV.render_graph_edges(inp["pairs"], inp["weights"],
+                                       inp["fg"].shape, cs.VIZ_PS),
+    }
+    for k, v in got.items():
+        assert v.shape == ref[k].shape and v.dtype == ref[k].dtype, k
+        assert np.array_equal(v, ref[k]), k
+
+
+def test_visualize_label_with_vote_debug(dev, cli_chain):
+    """``label`` on the chain's experiment, plain and with vote_debug,
+    save_mip and save_tif: K1 / K2 once per label (vote_debug's second
+    pass labels the given graph), the vote_debug map equal to the plain
+    one and to the chain's, (7 * 50)^2 finite canvases, the MIPs and the
+    relabelled uint16 TIF."""
+    from patchperpix_tpu_torch import cli
+    from patchperpix_tpu_torch.utils.io import read_png, read_tif
+
+    argv = cli_chain["argv"] + ["-id", "f32"]
+    for key, extra in (("viz_plain", []), ("viz_debug", [
+            "--set", "vote_instances.vote_debug=true",
+            "--set", "vote_instances.save_mip=true",
+            "--set", "vote_instances.save_tif=true"])):
+        with counted(K.CONSENSUS, K.RANK) as c:
+            cli.main(argv + ["--set", f"vote_instances.res_key={key}"]
+                     + extra + ["-d", "label"])
+        assert all(n == 1 for n in c.n.values()), (key, c.n)
+    res = _result(cli_chain["paths"])
+    maps = {k: res.read(key=k) for k in ("vote_instances", "viz_plain",
+                                         "viz_debug")}
+    assert np.array_equal(maps["viz_debug"], maps["viz_plain"])
+    assert np.array_equal(maps["viz_debug"], maps["vote_instances"])
+    inst = maps["vote_instances"]
+    side = cs.VIZ_PS[1] * inst.shape[1]
+    for k in ("vote_debug", "vote_debug2"):
+        canvas = res.read(key=k)
+        assert list(canvas.shape) == [side, side], k
+        assert np.count_nonzero(canvas) > 0 and np.isfinite(canvas).all()
+    stem = res.path[:-len(".hdf")]
+    tif = read_tif(stem + ".tif")
+    assert tif.shape == inst.shape and tif.dtype == np.uint16
+    assert int(tif.max()) == cs.n_instances(maps["viz_debug"])
+    for f in (".png", "_cleaned.png"):
+        assert read_png(stem + f).shape == inst.shape[1:] + (3,), f
+
+
+def test_visualize_2d_vote_debug(dev, tmp_path):
+    """2D vote_debug through ``do_all`` on a 128^2 crop of the worm image,
+    setting (A): K3 / K4 once each, (25 * 128)^2 canvases, the map equal
+    to ``to_instance_seg``'s without vote_debug."""
+    from patchperpix_tpu_torch.assembly import VoteInstancesParams
+    from patchperpix_tpu_torch.assembly import vote_instances as TV
+    from patchperpix_tpu_torch.ops.synthetic import labels_to_affinities
+    from patchperpix_tpu_torch.utils.io import IoHDF5, IoZarr
+
+    y0, x0, n = cs.VIZ_CROP2D
+    labels = cs.path2d_inputs("A")["labels"][:, y0:y0 + n, x0:x0 + n]
+    fg = labels > 0
+    affs = labels_to_affinities(labels, np.array(cs.PS2D))
+    store = str(tmp_path / "worms.zarr")
+    out = IoZarr(store, mode="w")
+    for key, arr in (("volumes/pred_affs", affs),
+                     ("volumes/pred_fgbg", fg.astype(np.float32))):
+        out.create(key, arr.shape, np.float32)
+        out.write(arr, key=key)
+    out.close()
+    vp = VoteInstancesParams(**cs.PATH2D["A"], fg_key="volumes/pred_fgbg",
+                             vote_debug=True)
+    with counted(K.CONSENSUS2D, K.RANK2D) as c:
+        res = IoHDF5(TV.do_all(store, vp, str(tmp_path / "inst"),
+                               device=dev))
+    assert all(v == 1 for v in c.n.values()), c.n
+    plain, _ = TV.to_instance_seg(affs, fg, fg.copy(), fg.astype(np.uint8),
+                                  VoteInstancesParams(**cs.PATH2D["A"]),
+                                  device=dev)
+    plain[~fg] = 0
+    inst = res.read(key="vote_instances")
+    assert np.array_equal(inst, plain) and cs.n_instances(inst) >= 2
+    side = cs.PS2D[1] * n
+    for k in ("vote_debug", "vote_debug2"):
+        canvas = res.read(key=k)
+        assert list(canvas.shape) == [side, side] and np.count_nonzero(
+            canvas) > 0, k
+
+
+# -- the 2D path --------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def path2d(dev):
+    """The 2D path on the whole worm image under both settings: warm-up
+    runs ((B)'s cover inputs kept by ``CoverCapture``), then the runs whose
+    launches of K3, K4, K5 and K6 are counted."""
+    full = {s: cs.path2d_inputs(s) for s in cs.PATH2D}
+    affs = torch.as_tensor(full["A"]["affs"], device=dev)  # same in A, B
+    cs.assemble_2d("A", full["A"], affs, dev)
+    with cs.CoverCapture() as cap:
+        cs.assemble_2d("B", full["B"], affs, dev)
+    with counted(K.CONSENSUS2D, K.RANK2D, CK.COVER_CASCADE,
+                 CK.THIN_COVER) as c:
+        runs = {s: cs.assemble_2d(s, full[s], affs, dev) for s in cs.PATH2D}
+    return {"inputs": full, "runs": runs, "launches": c.n, "cap": cap}
+
+
+def test_path2d_launches_every_2d_kernel(path2d):
+    assert all(n >= 1 for n in path2d["launches"].values()), \
+        path2d["launches"]
+
+
+def test_path2d_a_matches_each_worm_once(path2d):
+    """Setting (A): every ground-truth worm is matched by exactly one
+    predicted instance with IoU >= 0.5."""
+    counts = cs.gt_match_counts(path2d["runs"]["A"][0],
+                                path2d["inputs"]["A"]["labels"])
+    assert all(c == 1 for c in counts.values()), counts
+
+
+@pytest.mark.parametrize("setting", sorted(cs.PATH2D))
+def test_path2d_matches_the_jax_f32_run(dev, path2d, setting):
+    """Each setting against the JAX package's f32 CPU run
+    (parity/torch_port_ref2d_f32.npz, at the size stored there) under the
+    map limits."""
+    ref, meta = np.load(cs.REF2D_NPZ), _json(cs.REF2D_JSON)
+    crop = tuple(meta["crop"])
+    if crop == cs.IMG2D:
+        inst = path2d["runs"][setting][0]
+    else:
+        inp = cs.path2d_inputs(setting, crop)
+        inst, _ = cs.assemble_2d(setting, inp, torch.as_tensor(
+            inp["affs"], device=dev), dev)
+    want = ref[f"{setting}_inst"]
+    cs.gate_agreement(cs.map_agreement(inst, want, inst > 0, want > 0,
+                                       meta[setting]["n_instances"]),
+                      f"2D ({setting}) vs the JAX run")
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("case", ["A", "B", "dense2d"])
+def test_kernels_2d_match_plain_on_the_path2d_inputs(dev, path2d, case,
+                                                     bf16):
+    """K3 and K4 against their plain versions on the 2D path's 520x696
+    affinities under settings (A) and (B) (overlaps on the crossings under
+    (B)), and on the 64-worm dense2d image under (A)'s configuration, with
+    an f32 and a bf16 half; a second launch of each gives the same
+    bits."""
+    from patchperpix_tpu_torch.assembly import VoteInstancesParams
+
+    setting = "A" if case == "dense2d" else case
+    cfg = dataclasses.replace(VoteInstancesParams(
+        **cs.PATH2D[setting]).consensus_config(), cons_bf16=bf16)
+    if case == "dense2d":
+        ag, tgt = C.gated_stack_2d(torch.as_tensor(cs.dense2d_affs(),
+                                                   device=dev), cfg)
+    else:
+        inp = path2d["inputs"][case]
+        ag, tgt = C.gated_stack_2d(
+            torch.as_tensor(inp["affs"], device=dev), cfg,
+            torch.as_tensor(inp["numinst"] > 1, device=dev))
+    half = K.consensus_half_2d_cuda(ag, tgt, cfg)
+    torch.testing.assert_close(
+        half.float(), C.consensus_half_2d_plain(ag, tgt, cfg).float(),
+        atol=1e-4, rtol=2.0 ** -7 if bf16 else 1e-4)
+    assert torch.equal(half, K.consensus_half_2d_cuda(ag, tgt, cfg))
+    acc = K.rank_acc_2d_cuda(ag, tgt, half, cfg)
+    torch.testing.assert_close(
+        acc, C.rank_acc_2d_plain(ag, tgt, half, cfg), atol=1e-3, rtol=1e-4)
+    assert torch.equal(acc, K.rank_acc_2d_cuda(ag, tgt, half, cfg))
+
+
+def _model2d_close(code, prob, dec, pos, n_code, ref, prefix=""):
+    """Code, numinst and decoded 25x25 patches at the flat positions
+    ``pos`` within 1e-4 + 1e-4 |x| of the stored JAX outputs."""
+    pos_t = torch.as_tensor(pos, device=code.device)
+    got = {"code": code.reshape(n_code, -1)[:, pos_t].T,
+           "prob": prob.reshape(3, -1)[:, pos_t].T,
+           "patches": dec.reshape(625, -1)[:, pos_t].T.reshape(-1, 25, 25)}
+    for key, val in got.items():
+        val, want = val.cpu().numpy(), ref[prefix + key]
+        d = np.abs(val - want)
+        assert np.isfinite(val).all(), key
+        assert np.all(d <= 1e-4 + 1e-4 * np.abs(want)), (key, d.max())
+
+
+def test_model2d_matches_the_jax_outputs(dev):
+    """configs/bbbc010.toml's model (seeded weights) on one 512x512
+    window, predicted and decoded at the seeded pixel positions, against
+    parity/torch_port_model2d_ref.npz."""
+    from patchperpix_tpu_torch.infer.fused import (decode_volume_device,
+                                                   lift_2d,
+                                                   predict_volume_device)
+    from patchperpix_tpu_torch.models import PPPConfig
+    from patchperpix_tpu_torch.weights import build_model, seeded_tree
+
+    meta, ref = _json(cs.MODEL2D_JSON), np.load(cs.MODEL2D_NPZ)
+    cfg = PPPConfig(**cs.BBBC010_MODEL)
+    model = build_model(cfg, seeded_tree(meta["leaves"], meta["seed"]),
+                        device=dev)
+    raw, pos = cs.model2d_sample(meta["n_positions"])
+    win = cs.MODEL2D_WINDOW
+    code, prob = predict_volume_device(model, raw, cfg, win, win,
+                                       device=dev)
+    fg = np.zeros(win, bool)
+    fg.reshape(-1)[pos] = True
+    dec = decode_volume_device(model, code, fg, cfg, device=dev)
+    dec4, fg3 = lift_2d(dec, fg)
+    assert tuple(dec4.shape) == (625, 1) + win and fg3.shape == (1,) + win
+    _model2d_close(code, prob, dec, pos, cfg.code_units, ref)
+
+
+# -- the out-of-core sample path and meshes on one card -----------------------
+
+def _sample_params():
+    """The main path's [vote_instances] for blockwise assembly from a
+    prediction store."""
+    return dataclasses.replace(
+        cs.vote_params(), blockwise=True, numinst_key="volumes/pred_numinst",
+        chunksize=cs.SAMPLE_CHUNK)
+
+
+@pytest.fixture(scope="module")
+def sample(dev, main_path, tmp_path_factory):
+    """The stand-in sample (the crop reflected to 100^3) through the
+    out-of-core path: ``predict_sample_to_zarr`` (f16, zlib), blockwise
+    from the codes through ``CodeAffReader`` (launches of K1, K2 and K6
+    counted), then ``decode_sample`` in z-slabs and blockwise from the
+    dense store (``ZarrAffReader``)."""
+    from patchperpix_tpu_torch.assembly import numinst_from_probs
+    from patchperpix_tpu_torch.assembly.blockwise import (
+        BlockStats, blockwise_vote_instances_zarr)
+    from patchperpix_tpu_torch.infer.decode import CodeDecoder, decode_sample
+    from patchperpix_tpu_torch.infer.predict import predict_sample_to_zarr
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    model, cfg = main_path["model"], main_path["cfg"]
+    work = tmp_path_factory.mktemp("sample")
+    raw = np.pad(main_path["raw"], [(0, 0)] + [(cs.SAMPLE_PAD,) * 2] * 3,
+                 mode="reflect")
+    store = str(work / "sample.zarr")
+    predict_sample_to_zarr(model, raw, cfg, cs.WIN, cs.WIN, store,
+                           batch_size=cs.SAMPLE_BATCH, device=dev)
+    vp = _sample_params()
+    numinst = numinst_from_probs(IoZarr(store).read(
+        key="volumes/pred_numinst").astype(np.float32), vp)
+    codes = BlockStats()
+    with counted(K.CONSENSUS, K.RANK, CK.THIN_COVER) as c:
+        inst_c, fg_c = blockwise_vote_instances_zarr(
+            store, vp, cs.SAMPLE_CHUNK, str(work / "codes"),
+            decoder=CodeDecoder(model, cfg, cs.DECODE_BATCH, dev),
+            device=dev, stats=codes)
+    decode_sample(model, store, cfg, batch_size=cs.DECODE_BATCH,
+                  max_ram_mb=cs.DECODE_RAM_MB, device=dev)
+    staged = BlockStats()
+    inst_s, fg_s = blockwise_vote_instances_zarr(
+        store, vp, cs.SAMPLE_CHUNK, str(work / "staged"), device=dev,
+        stats=staged)
+    return {"raw": raw, "store": store, "vp": vp, "work": work,
+            "numinst": numinst, "fg": numinst > 0,
+            "codes": (inst_c, fg_c, codes, c.n),
+            "staged": (inst_s, fg_s, staged)}
+
+
+def _dense_affs(sample, dev):
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    return torch.as_tensor(IoZarr(sample["store"]).read(
+        key="volumes/pred_affs"), device=dev).float()
+
+
+def test_sample_store_holds_the_device_heads(dev, main_path, sample):
+    """(a) The stored f16 heads equal ``predict_volume_device``'s within
+    1e-3."""
+    from patchperpix_tpu_torch.infer.fused import predict_volume_device
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    heads = predict_volume_device(main_path["model"], sample["raw"],
+                                  main_path["cfg"], cs.WIN, cs.WIN,
+                                  device=dev)
+    io = IoZarr(sample["store"])
+    for key, want in zip(("volumes/pred_code", "volumes/pred_numinst"),
+                         heads):
+        err = float((torch.as_tensor(io.read(key=key), device=dev).float()
+                     - want).abs().max())
+        assert err <= 1e-3, (key, err)
+
+
+def test_blockwise_code_reader_equals_the_staged_map(sample):
+    """(b) Each run reads through its own reader; the code reader's map
+    equals the staged map after relabelling, with equal foreground; K2
+    once per block that reached the consensus, K1 once per such block and
+    stitch window, K6 launched."""
+    from patchperpix_tpu_torch.utils.postprocess import relabel
+
+    inst_c, fg_c, st, n = sample["codes"]
+    inst_s, fg_s, st_s = sample["staged"]
+    assert (st.reader, st_s.reader) == ("CodeAffReader", "ZarrAffReader")
+    assert n[K.RANK.name] == st.blocks_consensus >= 1, (n, st.as_dict())
+    assert n[K.CONSENSUS.name] == \
+        st.blocks_consensus + st.stitch_consensus, (n, st.as_dict())
+    assert n[CK.THIN_COVER.name] >= 1, n
+    assert np.array_equal(fg_c, fg_s)
+    assert np.array_equal(relabel(inst_c), relabel(inst_s))
+
+
+def test_blockwise_matches_the_jax_f32_run(dev, main_path):
+    """(c) The blockwise map (in memory, at the stored chunksize, two
+    blocks or more per axis) of the f32 main path's decoded affinities
+    against the JAX package's blockwise run
+    (parity/torch_port_blockwise_ref_f32.npz) under the map limits."""
+    from patchperpix_tpu_torch.assembly.blockwise import (
+        BlockStats, blockwise_vote_instances)
+
+    run = main_path["run"]
+    ref, meta = np.load(cs.BW_REF_NPZ), _json(cs.BW_REF_JSON)
+    sl = tuple(slice(0, int(n)) for n in meta["size"])
+    stats = BlockStats()
+    inst, fg = blockwise_vote_instances(
+        run["dec"][(slice(None),) + sl].contiguous(), run["fg"][sl],
+        run["numinst"][sl], _sample_params(),
+        chunksize=tuple(meta["chunksize"]), device=dev, stats=stats)
+    assert stats.blocks >= 8
+    cs.gate_agreement(cs.map_agreement(inst, ref["inst"], fg > 0,
+                                       ref["fg"].astype(bool)),
+                      "blockwise vs the JAX run")
+
+
+def test_blockwise_on_the_synthetic_tubes(dev, tmp_path):
+    """(d) benchmarks/blockwise_scale.py's tube volume at 120^3, written as
+    an f16 store and assembled blockwise at chunksize 64: 12 instances,
+    each ground-truth tube matched by exactly one at IoU >= 0.5."""
+    from patchperpix_tpu_torch.assembly import VoteInstancesParams
+    from patchperpix_tpu_torch.assembly.blockwise import \
+        blockwise_vote_instances_zarr
+    from patchperpix_tpu_torch.ops.synthetic import (labels_to_affinities,
+                                                     synth_labels)
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    ps = (7, 7, 7)
+    labels = synth_labels(cs.SYNTH_EXTENT)
+    affs = labels_to_affinities(labels, np.array(ps)).astype(np.float16)
+    path = str(tmp_path / "synth.zarr")
+    io = IoZarr(path, mode="w")
+    io.create("volumes/pred_affs", affs.shape, np.float16,
+              chunks=(affs.shape[0], 32, 32, 32))
+    io.write(affs, key="volumes/pred_affs")
+    io.close()
+    # benchmarks/blockwise_scale.py's [vote_instances]
+    vp = VoteInstancesParams(
+        patchshape=ps, patch_threshold=0.5, fc_threshold=0.5, mws=True,
+        blockwise=True, chunksize=(64, 64, 64), consensus_bf16=True,
+        select_patches_for_sparse_data=True)
+    inst, _ = blockwise_vote_instances_zarr(path, vp, chunksize=(64, 64, 64),
+                                            device=dev)
+    counts = cs.gt_match_counts(inst, labels)
+    assert cs.n_instances(labels) == cs.n_instances(inst) == 12
+    assert all(c == 1 for c in counts.values()), counts
+
+
+def _mesh_consensus(affs, cfg, mesh, overlap):
+    """``sharded_consensus_and_rank`` over ``mesh`` against the
+    whole-volume K1 + K2: the half within 1e-4 + 1e-4 |x|, the scores
+    within 1e-3 + 1e-4 |x|; K1 and K2 once per shard."""
+    from patchperpix_tpu_torch.parallel import sharded
+
+    ops = K.consensus_operands(affs, cfg, overlap)
+    half1 = K.consensus_half(affs, ops, cfg)
+    sc1 = K.rank_scores(affs, half1, ops, cfg)
+    del ops
+    with counted(K.CONSENSUS, K.RANK) as c:
+        half, sc = sharded.sharded_consensus_and_rank(affs, cfg, mesh,
+                                                      overlap)
+    assert all(n == len(mesh) for n in c.n.values()), c.n
+    assert bool(((half.float() - half1.float()).abs()
+                 <= 1e-4 + 1e-4 * half1.float().abs()).all())
+    assert bool(((sc - sc1).abs() <= 1e-3 + 1e-4 * sc1.abs()).all())
+
+
+@pytest.mark.parametrize("volume", ["main_path", "sample"])
+def test_sharded_consensus_and_rank_equal_the_whole_volume(dev, main_path,
+                                                           sample, volume):
+    """Meshes of shards on the one card (``parallel/sharded.py``): 2
+    shards of the f32 main path's 50^3 decoded affinities, 4 of the
+    stand-in's 100^3 dense affinities; the first also across two cards
+    where there are two."""
+    ccfg = cs.vote_params().consensus_config()
+    if volume == "main_path":
+        affs, numinst = main_path["run"]["dec"], main_path["run"]["numinst"]
+    else:
+        affs, numinst = _dense_affs(sample, dev), sample["numinst"]
+    overlap = torch.as_tensor(numinst > 1, device=dev)
+    _mesh_consensus(affs, ccfg, [dev] * (2 if volume == "main_path" else 4),
+                    overlap)
+    if volume == "main_path" and torch.cuda.device_count() >= 2:
+        _mesh_consensus(affs, ccfg, [torch.device("cuda", i)
+                                     for i in range(2)], overlap)
+
+
+def test_sharded_assembly_and_block_devices_on_the_sample(dev, sample):
+    """On the stand-in: ``to_instance_seg(sharded_devices=4)`` with its
+    shards on the one card gives the one-device map up to relabelling,
+    the same cover and pairs and graph weights within 1e-5, K1 and K2
+    once per shard; ``block_devices = 2`` gives the ``block_devices = 0``
+    map."""
+    from patchperpix_tpu_torch.assembly import to_instance_seg
+    from patchperpix_tpu_torch.assembly.blockwise import \
+        blockwise_vote_instances_zarr
+    from patchperpix_tpu_torch.utils.postprocess import relabel
+
+    affs, fg, numinst = _dense_affs(sample, dev), sample["fg"], \
+        sample["numinst"]
+    mask = fg & (numinst <= 1)
+    one, four = {}, {}
+    inst1, _ = to_instance_seg(affs, fg, mask, numinst, cs.vote_params(),
+                               device=dev, intermediates=one)
+    with on_mesh([dev] * 4), counted(K.CONSENSUS, K.RANK) as c:
+        inst4, _ = to_instance_seg(
+            affs, fg, mask, numinst, dataclasses.replace(
+                cs.vote_params(), sharded_devices=4), device=dev,
+            intermediates=four)
+    del affs
+    assert all(n == 4 for n in c.n.values()), c.n
+    assert np.array_equal(relabel(inst4), relabel(inst1))
+    assert np.array_equal(four["cover_centers"], one["cover_centers"])
+    assert np.array_equal(four["pairs"], one["pairs"])
+    assert float(np.abs(four["weights"] - one["weights"]).max()) <= 1e-5
+    with on_mesh([dev] * 2):
+        inst_b, _ = blockwise_vote_instances_zarr(
+            sample["store"], dataclasses.replace(sample["vp"],
+                                                 block_devices=2),
+            cs.SAMPLE_CHUNK, str(sample["work"] / "block_devices"),
+            device=dev)
+    assert np.array_equal(relabel(inst_b), relabel(sample["staged"][0]))
+
+
+# -- training -----------------------------------------------------------------
 
 # the U-Net of _small_train with valid padding: its 3x3x3 convolutions,
 # each of which takes the weight-gradient kernel in exact-f32 training
@@ -535,13 +1266,12 @@ def test_train_step_on_the_card_equals_the_cpu(dev):
 
 
 def test_device_sampler_on_the_card_repeats_under_a_seed(dev):
-    import chip_smoke
     from patchperpix_tpu_torch.train import data as td
     from patchperpix_tpu_torch.train.device_data import DeviceSampler
 
-    s = td.load_sample(chip_smoke.FIXTURE, "volumes/raw",
-                       "volumes/gt_instances", clipmax=1500)
-    ds = DeviceSampler([s], chip_smoke.train_sampler_config(td),
+    s = td.load_sample(cs.FIXTURE, "volumes/raw", "volumes/gt_instances",
+                       clipmax=1500)
+    ds = DeviceSampler([s], cs.train_sampler_config(td),
                        max_gt_channels=3, device=dev)
     a = ds.sample_batch(torch.Generator(device=dev).manual_seed(3))
     b = ds.sample_batch(torch.Generator(device=dev).manual_seed(3))
@@ -553,8 +1283,6 @@ def test_device_sampler_on_the_card_repeats_under_a_seed(dev):
 
 
 def test_bf16_step_keeps_f32_parameters_and_adam_state(dev):
-    import dataclasses
-
     from patchperpix_tpu_torch.models import PPPModel
     from patchperpix_tpu_torch.train.trainer import (TrainConfig,
                                                      make_optimizer,
@@ -584,7 +1312,6 @@ def test_device_loop_step_makes_no_host_sync(dev):
     torch's sync debug mode set to raise on any host synchronisation; a
     valid U-Net in exact f32, so that each step's weight gradients come
     from the kernel (``ops/conv_kernels.py``) and are held to it too."""
-    import chip_smoke
     from patchperpix_tpu_torch.models import PPPModel
     from patchperpix_tpu_torch.ops import conv_kernels as CK
     from patchperpix_tpu_torch.train import data as td
@@ -595,8 +1322,8 @@ def test_device_loop_step_makes_no_host_sync(dev):
     from patchperpix_tpu_torch.utils.device import exact_f32
 
     cfg, _, _ = _small_train(padding="valid")
-    s = td.load_sample(chip_smoke.FIXTURE, "volumes/raw",
-                       "volumes/gt_instances", clipmax=1500)
+    s = td.load_sample(cs.FIXTURE, "volumes/raw", "volumes/gt_instances",
+                       clipmax=1500)
     ds = DeviceSampler([s], td.SamplerConfig(
         input_shape=(28,) * 3, output_shape=(12,) * 3, patchshape=(5,) * 3,
         batch_size=2), max_gt_channels=2, device=dev)
@@ -622,26 +1349,353 @@ def test_device_loop_step_makes_no_host_sync(dev):
     assert np.isfinite(float(mets["loss"]))
 
 
-# -- the weight gradient of the U-Net's convolutions ----------------------------
+@pytest.fixture(scope="module")
+def train_ref(dev):
+    """The fixed training batch (three 40^3 crops of the crop at the
+    stored centres) and the JAX package's CPU step on it
+    (parity/torch_port_train_ref_f32.*)."""
+    from patchperpix_tpu_torch.train import data as td
 
-@pytest.mark.parametrize("ci,co,e", WGRAD_SHAPES)
+    ref, meta = np.load(cs.TRAIN_REF_NPZ), _json(cs.TRAIN_REF_JSON)
+    raw, labels, _, sample = cs.train_batch(td, ref["centres"])
+    assert cs.batch_matches(raw, labels, meta["batch"])
+    return {"ref": ref, "meta": meta, "raw": raw, "labels": labels,
+            "sample": sample}
+
+
+def _train_branch(branch, ref):
+    """The model, parameters and code corners of a branch of the stored
+    step: "code" is configs/flylight_crop_dec.toml's model with the
+    trained parameters and the JAX step's corners, "dense"
+    configs/flylight_crop.toml's with seeded weights."""
+    from patchperpix_tpu_torch import models, weights
+    from patchperpix_tpu_torch.models.init import flax_leaves
+
+    if branch == "code":
+        return (cs.train_model_config(models, cs.CLI_CONFIG),
+                weights.load_npz(),
+                torch.from_numpy(ref["corners"].astype(np.int64)))
+    cfg = cs.train_model_config(models, cs.TRAIN_DENSE_CONFIG)
+    return cfg, weights.seeded_tree(flax_leaves(cfg), cs.TRAIN_SEED), None
+
+
+@pytest.mark.parametrize("branch", ["code", "dense"])
+def test_train_step_equals_jax(dev, train_ref, branch):
+    """One f32 step at full width on the fixed batch against the JAX
+    package's, under ``cases.step_errors``' limits (on the trained model's
+    cancelling leaves XLA's f32 sums are off by up to 2.5e-3, on the dense
+    loss_patch, a mean of 66M terms, by 2e-5)."""
+    cfg, tree, corners = _train_branch(branch, train_ref["ref"])
+    cs.gate_step(cs.step_errors(
+        dev, branch, cfg, tree, train_ref["raw"], train_ref["labels"],
+        train_ref["meta"]["branches"][branch], train_ref["ref"],
+        corners=corners), f"the {branch} step vs JAX")
+
+
+def test_conv_wgrad_routed_valid_step_equals_jax(dev):
+    """The trained crop code model with valid padding on 52^3 crops, one
+    exact-f32 step on the card with its nine narrow valid 3x3x3
+    convolutions on the kernel, against the JAX package's CPU step
+    (parity/torch_port_train_valid_ref_f32.*) under the step limits."""
+    from patchperpix_tpu_torch import models, weights
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+    from patchperpix_tpu_torch.train import data as td
+
+    ref = np.load(cs.TRAIN_VALID_REF_NPZ)
+    meta = _json(cs.TRAIN_VALID_REF_JSON)
+    raw, labels, _, _ = cs.train_batch(td, ref["centres"],
+                                       cs.TRAIN_VALID_EXTENT)
+    assert cs.batch_matches(raw, labels, meta["batch"])
+    n0 = CK.WGRAD.launches
+    res = cs.step_errors(
+        dev, "valid", cs.train_model_config(models, cs.CLI_CONFIG,
+                                            padding="valid"),
+        weights.load_npz(), raw, labels, meta["branches"]["valid"], ref,
+        corners=torch.from_numpy(ref["corners"].astype(np.int64)))
+    assert CK.WGRAD.launches - n0 == cs.TRAIN_VALID_ROUTED
+    cs.gate_step(res, "the valid step vs JAX")
+
+
+def test_device_sampler_3d_on_the_card_equals_the_host(dev, train_ref):
+    """Four batches of the device sampler (configs/flylight_crop_dec.toml's
+    crops and augmentations) against the host sampler's numpy on the same
+    decisions: raw within 1e-6, labels equal."""
+    from patchperpix_tpu_torch.train import data as td
+    from patchperpix_tpu_torch.train.device_data import DeviceSampler
+
+    s = train_ref["sample"]
+    ds = DeviceSampler([s], cs.train_sampler_config(td),
+                       max_gt_channels=train_ref["labels"].shape[1],
+                       device=dev)
+    cs.check_sampler_alignment(ds, [s], td)
+
+
+def test_train_run_loss_within_the_jax_band(dev, train_ref, tmp_path):
+    """``train_until`` with the device sampler (f32, TF32 off, constant lr
+    1e-3, from init_tree under seed 0; the crop model at
+    TRAIN_RUN_WIDTHS) for the JAX runs' 200 steps: the mean loss of the
+    last 50 steps lies in the band the two JAX runs span, widened below
+    by the larger of 15 % and their spread, above by the larger of 5 %
+    and their spread."""
+    from patchperpix_tpu_torch import models
+    from patchperpix_tpu_torch.train import data as td
+    from patchperpix_tpu_torch.train.device_data import DeviceSampler
+    from patchperpix_tpu_torch.train.trainer import TrainConfig, train_until
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    runs = train_ref["meta"]["runs"]
+    ds = DeviceSampler([train_ref["sample"]], cs.train_sampler_config(td),
+                       max_gt_channels=train_ref["labels"].shape[1],
+                       device=dev)
+    cfg = cs.train_model_config(models, cs.CLI_CONFIG, **cs.TRAIN_RUN_WIDTHS)
+    with exact_f32():
+        train_until(models.PPPModel(cfg), cfg, TrainConfig(
+            max_iterations=runs["steps"], checkpoints=runs["steps"],
+            snapshots=0, lr=runs["lr"], output_folder=str(tmp_path),
+            log_every=1, tensorboard=False), ds, rng_seed=0, device=dev)
+    # by step: with log_every 1 the device loop logs step 1 twice
+    by_step = {r["step"]: r["loss"] for r in _log_rows(str(tmp_path))}
+    losses = [by_step[k] for k in sorted(by_step)]
+    tail = float(np.mean(losses[-runs["tail"]:]))
+    jax_tails = [r["tail_mean_loss"] for r in runs["runs"]]
+    lo, hi = min(jax_tails), max(jax_tails)
+    band = (lo - max(cs.TRAIN_RUN_BELOW * (lo + hi) / 2, hi - lo),
+            hi + max(cs.TRAIN_RUN_ABOVE * (lo + hi) / 2, hi - lo))
+    assert len(losses) == runs["steps"]
+    assert band[0] <= tail <= band[1], (tail, band)
+
+
+# ``-d all`` on the crop: configs/flylight_crop_dec.toml's run cut to 400
+# steps, checkpoints every 200; the warmup scales with it, since optax's
+# schedule (and the port's) refuses max_iterations <= warmup_steps
+ALL_STEPS, ALL_CHECKPOINTS, ALL_WARMUP, RESUME_STEPS = 400, 200, 100, 600
+LOG_EVERY = 100   # TrainConfig's default: no config key sets it
+# the Swin's checkpoint 0: the seeded crop Swin with the numinst head's
+# class-1 bias raised, so that it has foreground to label; the run labels
+# by the numinst argmax (numinst_threshs = []): 400 steps from a seeded
+# Swin leave class 1 below the config's 0.9 everywhere (on an H100: no
+# foreground at checkpoints 200 and 400, so nothing to label)
+SWIN_ALL_SHIFT = {"params/head_fgbg_numinst/bias": (0.0, 4.0, 0.0)}
+
+
+@pytest.mark.parametrize("model", ["unet", "swin"])
+def test_cli_all_on_the_crop(dev, tmp_path, model):
+    """``-d all`` through the port's CLI in-process on the crop as users
+    run it (bf16, Adam, warmup-cosine, device sampler), 400 steps,
+    checkpoints every 200, from a checkpoint 0 without optimizer state:
+    for ``unet`` configs/flylight_crop_dec.toml from the trained
+    parameters, for ``swin`` configs/flylight_crop.toml as a Swin from the
+    seeded tree.  Log rows at steps 1, 100, ... 400 with finite losses,
+    checkpoints [0, 200, 400] all scored with a best, the final
+    evaluate's avg_f1_cov, K1 and K2 once per validated checkpoint and
+    the final label, the Adam state's update count 400; for ``unet``,
+    ``train`` resumed to 600 with the Adam state read back."""
+    from patchperpix_tpu_torch import cli, models, weights
+    from patchperpix_tpu_torch.models.init import flax_leaves
+
+    extra = (f"[training]\nmax_iterations = {ALL_STEPS}\n"
+             f"checkpoints = {ALL_CHECKPOINTS}\n"
+             f"[optimizer.optimizer]\nwarmup_steps = {ALL_WARMUP}\n")
+    if model == "unet":
+        config, tree = cs.CLI_CONFIG, weights.load_npz()
+    else:
+        config = cs.TRAIN_DENSE_CONFIG
+        tree = weights.seeded_tree(flax_leaves(cs.swin_model_config(
+            models, config)), cs.TRAIN_SEED)
+        for name, shift in SWIN_ALL_SHIFT.items():
+            tree[name] = tree[name] + np.asarray(shift, np.float32)
+        extra = ('[model]\nnetwork_style = "swinunetr"\n'
+                 "[vote_instances]\nnuminst_threshs = []\n" + extra)
+    work = str(tmp_path)
+    exps = os.path.join(work, "exps")
+    weights.write_checkpoint(tree, os.path.join(exps, "all", "train"), 0)
+    argv = ["-c", config, "-c", _crop_override(work, "all.toml", extra),
+            "--root", exps, "-id", "all"]
+    with counted(K.CONSENSUS, K.RANK) as c:
+        paths = cli.main(argv + ["-d", "all"])
+    if model == "unet":
+        cli.main(argv + ["--set", f"training.max_iterations={RESUME_STEPS}",
+                         "-d", "train"])
+
+    rows = [r for r in _log_rows(paths["train"]) if r["step"] <= ALL_STEPS]
+    assert [r["step"] for r in rows] == \
+        [1] + list(range(LOG_EVERY, ALL_STEPS + 1, LOG_EVERY))
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    counts = {cp: weights.load_checkpoint(weights.checkpoint_path(
+        paths["train"], cp)).get("opt_state", {}).get("count")
+        for cp in cli.get_checkpoint_list(paths["train"])}
+    want_cps = list(range(0, ALL_STEPS + 1, ALL_CHECKPOINTS))
+    assert [cp for cp in counts if cp <= ALL_STEPS] == want_cps, counts
+    results = _json(os.path.join(paths["base"], "results.json"))
+    assert len(results["results"]) == len(want_cps), results
+    assert results["best"] is not None
+    assert all(np.isfinite(r["score"]) for r in results["results"])
+    final = _json(os.path.join(paths["test_evaluated"], str(ALL_STEPS),
+                               SAMPLE + ".json"))
+    assert final["general"].get("avg_f1_cov_score") is not None
+    assert all(n == len(want_cps) + 1 for n in c.n.values()), c.n
+    assert counts.get(ALL_STEPS) == ALL_STEPS, counts
+    if model == "unet":
+        with open(os.path.join(paths["base"], "run.log")) as f:
+            log = f.read()
+        resumed = log[log.rfind("=== task train ==="):]
+        assert counts.get(RESUME_STEPS) == RESUME_STEPS, counts
+        assert "resuming from" in resumed
+        assert "reinitializing optimizer moments" not in resumed
+
+
+def test_mesh_step_equals_one_device_and_jax(dev, train_ref):
+    """The data-parallel f32 step with 3 shards on the one card, both
+    branches: within the JAX fixture's step limits (cuDNN on), and within
+    1e-6 relative of the one-device step when both run the same
+    convolution algorithms (cuDNN off: PyTorch's own convolutions take
+    one sample at a time; cuDNN picks other algorithms for a shard of one
+    crop than for the batch of three); across cards where there are
+    two."""
+    n = torch.cuda.device_count()
+    meshes = [[dev] * 3] + ([[torch.device("cuda", i % n)
+                              for i in range(3)]] if n >= 2 else [])
+    ref, raw, labels = train_ref["ref"], train_ref["raw"], \
+        train_ref["labels"]
+    for mesh in meshes:
+        for branch in ("code", "dense"):
+            cfg, tree, corners = _train_branch(branch, ref)
+            want = train_ref["meta"]["branches"][branch]
+            cs.gate_step(cs.step_errors(dev, branch, cfg, tree, raw, labels,
+                                        want, ref, corners=corners,
+                                        mesh=mesh),
+                         f"the {branch} step over {len(mesh)} shards")
+            one, dp = {}, {}
+            saved = torch.backends.cudnn.enabled
+            torch.backends.cudnn.enabled = False
+            try:
+                cs.step_errors(dev, branch, cfg, tree, raw, labels, want,
+                               ref, corners=corners, grads_out=one)
+                cs.step_errors(dev, branch, cfg, tree, raw, labels, want,
+                               ref, corners=corners, mesh=mesh,
+                               grads_out=dp)
+            finally:
+                torch.backends.cudnn.enabled = saved
+            errs = {k: (abs(dp[k] - one[k]) / max(abs(one[k]), 1e-30)
+                        if np.isscalar(one[k]) else cs.rel_l2(dp[k], one[k]))
+                    for k in one}
+            worst = max(errs, key=errs.get)
+            assert errs[worst] <= 1e-6, (branch, worst, errs[worst])
+
+
+def test_mesh_cli_train(dev, tmp_path):
+    """``-d train`` through the port's CLI with training.num_devices = 2,
+    both on the one card (the CLI falls back to the host sampler), 20
+    steps at batch 4 (a batch of 3 does not split over 2 devices): finite
+    losses, the checkpoint at 20."""
+    from patchperpix_tpu_torch import cli
+
+    override = _crop_override(
+        str(tmp_path), "md_train.toml",
+        "[training]\nmax_iterations = 20\ncheckpoints = 20\n"
+        "batch_size = 4\nnum_devices = 2\n"
+        "[optimizer.optimizer]\nwarmup_steps = 10\n")
+    with on_mesh([dev] * 2):
+        paths = cli.main(["-c", cs.CLI_CONFIG, "-c", override, "--root",
+                          str(tmp_path / "exps"), "-id", "dp", "-d",
+                          "train"])
+    rows = _log_rows(paths["train"])
+    assert rows and all(np.isfinite(r["loss"]) for r in rows)
+    with open(os.path.join(paths["base"], "run.log")) as f:
+        assert "falling back to the host prefetcher" in f.read()
+    assert cli.get_checkpoint_list(paths["train"]) == [20]
+
+
+# -- the Swin UNETR backbone --------------------------------------------------
+
+def test_swin_forward_equals_jax(dev):
+    """configs/flylight.toml's Swin at full width (seeded weights) on the
+    156^3 window in f32 (TF32 off): the JAX model's leaves, and each
+    head's seeded entries within 1e-4 relative L2 of the JAX run's
+    (parity/torch_port_swin_ref_f32.npz)."""
+    from patchperpix_tpu_torch import models
+    from patchperpix_tpu_torch.models.init import flax_leaves
+    from patchperpix_tpu_torch.utils.device import exact_f32
+    from patchperpix_tpu_torch.weights import build_model, seeded_tree
+
+    ref, fwd = np.load(cs.SWIN_REF_NPZ), _json(cs.SWIN_REF_JSON)["forward"]
+    cfg = cs.swin_model_config(models)
+    assert dict(flax_leaves(cfg)) == {k: tuple(v) for k, v in fwd["leaves"]}
+    model = build_model(cfg, seeded_tree(fwd["leaves"], fwd["seed"]),
+                        device=dev)
+    x = torch.as_tensor(cs.swin_window(), device=dev)
+    with exact_f32(), torch.no_grad():
+        heads = model(x)
+    for name, h in zip(("head_code_affs", "head_fgbg_numinst"), heads):
+        ch, vox = cs.swin_positions(tuple(h.shape[1:]))
+        got = h[0].reshape(h.shape[1], -1)[
+            torch.as_tensor(ch, device=dev),
+            torch.as_tensor(vox, device=dev)].cpu().numpy()
+        assert np.isfinite(got).all(), name
+        assert cs.rel_l2(got, ref[f"fwd/{name}"]) <= 1e-4, name
+
+
+def test_swin_2d_forward_equals_jax(dev):
+    """A 2D Swin at configs/bbbc010.toml's widths (seeded) on the model2d
+    window: code, numinst and decoded patches at the seeded positions
+    within 1e-4 + 1e-4 |x| of the JAX run's."""
+    from patchperpix_tpu_torch import models
+    from patchperpix_tpu_torch.infer.fused import (decode_volume_device,
+                                                   predict_volume_device)
+    from patchperpix_tpu_torch.utils.device import exact_f32
+    from patchperpix_tpu_torch.weights import build_model, seeded_tree
+
+    ref, m2 = np.load(cs.SWIN_REF_NPZ), _json(cs.SWIN_REF_JSON)["model2d"]
+    cfg = models.PPPConfig(**cs.SWIN_MODEL2D)
+    model = build_model(cfg, seeded_tree(m2["leaves"], m2["seed"]),
+                        device=dev)
+    raw, pos = cs.model2d_sample(m2["n_positions"])
+    win = cs.MODEL2D_WINDOW
+    with exact_f32():
+        code, prob = predict_volume_device(model, raw, cfg, win, win,
+                                           device=dev)
+        fg = np.zeros(win, bool)
+        fg.reshape(-1)[pos] = True
+        dec = decode_volume_device(model, code, fg, cfg, device=dev)
+    _model2d_close(code, prob, dec, pos, cfg.code_units, ref, "model2d/")
+
+
+def test_swin_step_equals_jax(dev, train_ref):
+    """One f32 step of configs/flylight_crop.toml's model as a Swin
+    (seeded) on the fixed batch under the step limits."""
+    from patchperpix_tpu_torch import models
+    from patchperpix_tpu_torch.models.init import flax_leaves
+    from patchperpix_tpu_torch.weights import seeded_tree
+
+    ref = np.load(cs.SWIN_REF_NPZ)
+    want = _json(cs.SWIN_REF_JSON)["branches"]["swin"]
+    labels = train_ref["labels"]
+    assert int(labels.astype(np.int64).sum()) == want["batch"]["labels_sum"]
+    cfg = cs.swin_model_config(models, cs.TRAIN_DENSE_CONFIG)
+    cs.gate_step(cs.step_errors(
+        dev, "swin", cfg, seeded_tree(flax_leaves(cfg), cs.TRAIN_SEED),
+        train_ref["raw"], labels, want, ref), "the Swin step vs JAX")
+
+
+# -- the weight gradient of the U-Net's convolutions --------------------------
+
+@pytest.mark.parametrize("ci,co,e", cs.WGRAD_SHAPES)
 def test_conv_wgrad_kernel_matches_plain_at_the_cells_shapes(dev, ci, co, e):
     """The kernel against its plain version in float64 at each valid 3x3x3
     convolution of the published FlyLight U-Net at batch 2 of 140^3: dW
     and dB within 1e-5 of their largest value (float32 sums of up to 5 M
     products each in split-K order, which read 1e-6 to 5e-6 there), and
     the same bits from a second call (a fixed order of summation)."""
-    import chip_smoke
     from patchperpix_tpu_torch.ops import conv_kernels as CK
 
-    x, dy = chip_smoke.wgrad_inputs(ci, co, e, dev)
+    x, dy = cs.wgrad_inputs(ci, co, e, dev)
     n0 = CK.WGRAD.launches
     dw, db = CK.conv3d_wgrad(x, dy)
     assert CK.WGRAD.launches == n0 + 1
     rw, rb = CK.conv3d_wgrad_plain(x.double(), dy.double())
     for got, want in ((dw, rw), (db, rb)):
         err = float((got.double() - want).abs().max() / want.abs().max())
-        assert err <= chip_smoke.WGRAD_TOL, err
+        assert err <= cs.WGRAD_TOL, err
     dw2, db2 = CK.conv3d_wgrad(x, dy)
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
 
@@ -668,14 +1722,12 @@ def test_conv_wgrad_takes_each_served_convolution_of_the_published_step(dev):
     convolution it serves (9 of 14: the five with 128 or more channels
     on both sides stay on cuDNN), counted by the wrapper and by the
     route's counters beside the decoder's five convolutions."""
-    import json
-
     from patchperpix_tpu_torch.models import PPPConfig, PPPModel, unet
     from patchperpix_tpu_torch.ops import conv_kernels as CK
     from patchperpix_tpu_torch.utils import trace
     from patchperpix_tpu_torch.utils.device import exact_f32
 
-    with open(os.path.join(REPO, "portbench", "configs",
+    with open(os.path.join(cs.REPO, "portbench", "configs",
                            "flylight_ppp_dec.json")) as f:
         cfg = PPPConfig.from_config(json.load(f)["model"])
     model = PPPModel(cfg).to(dev)
@@ -700,69 +1752,63 @@ def test_conv_wgrad_takes_each_served_convolution_of_the_published_step(dev):
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
-def test_conv_wgrad_routed_valid_step_equals_jax(dev):
-    """chip_smoke.py's valid branch of gate (a): the trained crop code
-    model with valid padding on 52^3 crops, one exact-f32 step on the card
-    with its nine narrow valid 3x3x3 convolutions on the kernel, against
-    the JAX package's CPU step (parity/torch_port_train_valid_ref_f32.*)
-    under chip_smoke's step limits."""
-    import json
+# -- the ISBI 2012 protocol ---------------------------------------------------
 
-    import chip_smoke as cs
-    from patchperpix_tpu_torch import models, weights
-    from patchperpix_tpu_torch.ops import conv_kernels as CK
-    from patchperpix_tpu_torch.train import data as td
+def test_isbi_blosc_reads_equal_the_zlib_copy(dev):
+    """The stand-in data as the JAX package wrote it (blosc: zstd,
+    bitshuffle), read by the port (``utils/blosc.py``): each of its 20
+    arrays bit for bit the zlib copy's."""
+    import glob
 
-    ref = np.load(cs.TRAIN_VALID_REF_NPZ)
-    meta = json.load(open(cs.TRAIN_VALID_REF_JSON))
-    raw, labels, _, _ = cs.train_batch(td, ref["centres"],
-                                       cs.TRAIN_VALID_EXTENT)
-    n0 = CK.WGRAD.launches
-    res = cs.step_errors(
-        dev, "valid", cs.train_model_config(models, cs.CLI_CONFIG,
-                                            padding="valid"),
-        weights.load_npz(), raw, labels, meta["branches"]["valid"], ref,
-        corners=torch.from_numpy(ref["corners"].astype(np.int64)))
-    assert CK.WGRAD.launches - n0 == cs.TRAIN_VALID_ROUTED
-    cs.gate_step({"valid": res})
+    from patchperpix_tpu_torch.utils.io import IoZarr
+
+    n = 0
+    for path in sorted(glob.glob(os.path.join(cs.ISBI_DATA, "*", "*.zarr"))):
+        rel = os.path.relpath(path, cs.ISBI_DATA)
+        for key in IoZarr(path).list_keys():
+            a = IoZarr(path).read(key=key)
+            b = IoZarr(os.path.join(cs.ISBI_ZLIB, rel)).read(key=key)
+            assert a.dtype == b.dtype and a.shape == b.shape, (rel, key)
+            assert a.tobytes() == b.tobytes(), (rel, key)
+            n += 1
+    assert n == 20
 
 
-# -- the ISBI 2012 slice -------------------------------------------------------
-
-def test_isbi_assembly_on_the_card_equals_the_fixture(dev):
-    """The rehearsal's assembly on the ideal affinities of isbi_test_00 at
-    512^2 (94 % foreground) on the card: the JAX package's map (identical
-    up to relabelling) and candidate count from
-    parity/torch_port_isbi_ref_f32.npz; K3 and K4 launched once each."""
-    import json
-
-    import chip_smoke as cs
+@pytest.mark.parametrize("sample", cs.ISBI_TEST)
+def test_isbi_assembly_on_the_card_equals_the_fixture(dev, sample):
+    """The rehearsal's assembly on the ideal affinities of a test sample
+    at 512^2 (94 % foreground) on the card: the JAX package's map
+    (identical up to relabelling), candidate count and metric dict from
+    parity/torch_port_isbi_ref_f32.*; K3 and K4 launched once each, K5 and
+    K6 at least once."""
     from patchperpix_tpu_torch.assembly import (VoteInstancesParams,
                                                 to_instance_seg)
+    from patchperpix_tpu_torch.evaluate import evaluate_labels
 
     ref = np.load(cs.ISBI_REF_NPZ)
-    meta = json.load(open(cs.ISBI_REF_JSON))["assembly"][cs.ISBI_TEST[0]]
-    affs, fg, _ = cs.isbi_ideal(cs.ISBI_TEST[0])
-    n0 = (K.CONSENSUS2D.launches, K.RANK2D.launches)
+    want = _json(cs.ISBI_REF_JSON)["assembly"][sample]
+    affs, fg, gt = cs.isbi_ideal(sample)
     inter = {}
-    inst, fg_out = to_instance_seg(
-        torch.from_numpy(affs).to(dev), fg, fg.copy(), fg.astype(np.uint8),
-        VoteInstancesParams.from_config(cs.isbi_vote_kwargs()), device=dev,
-        intermediates=inter)
-    assert (K.CONSENSUS2D.launches - n0[0], K.RANK2D.launches - n0[1]) == \
-        (1, 1)
+    with counted(K.CONSENSUS2D, K.RANK2D, CK.COVER_CASCADE,
+                 CK.THIN_COVER) as c:
+        inst, fg_out = to_instance_seg(
+            torch.from_numpy(affs).to(dev), fg, fg.copy(),
+            fg.astype(np.uint8),
+            VoteInstancesParams.from_config(cs.isbi_vote_kwargs()),
+            device=dev, intermediates=inter)
+    assert (c.n[K.CONSENSUS2D.name], c.n[K.RANK2D.name]) == (1, 1), c.n
+    assert c.n[CK.COVER_CASCADE.name] >= 1 and c.n[CK.THIN_COVER.name] >= 1
     inst[fg_out == 0] = 0
-    assert len(inter["ranked_centers"]) == meta["n_candidates"]
-    agree, same = cs.match_agreement(inst, ref[f"a/{cs.ISBI_TEST[0]}/inst"])
+    assert len(inter["ranked_centers"]) == want["n_candidates"]
+    agree, same = cs.match_agreement(inst, ref[f"a/{sample}/inst"])
     assert same, agree
+    assert cs.same_json(evaluate_labels(inst, gt, **cs.isbi_eval_kwargs()),
+                        want["metrics"])
 
 
 def test_kernels_2d_on_the_isbi_input(dev):
     """K3 / K4 against their plain versions on the ISBI input (dense
     foreground, 25x25), f32 and bf16 half; two launches equal."""
-    import dataclasses
-
-    import chip_smoke as cs
     from patchperpix_tpu_torch.assembly import VoteInstancesParams
 
     affs, _, _ = cs.isbi_ideal(cs.ISBI_TEST[1])
@@ -785,11 +1831,136 @@ def test_kernels_2d_on_the_isbi_input(dev):
         assert torch.equal(acc, K.rank_acc_2d_cuda(ag, tgt, half, cfg))
 
 
+def test_isbi_boundary_filter_equals_jax(dev):
+    """keep_single_slice, the sparse grid and the boundary filter on the
+    seeded three-slice stack (``cases.isbi_stack``), bit for bit the JAX
+    package's."""
+    from patchperpix_tpu_torch.assembly import isbi_hacks as H
+    from patchperpix_tpu_torch.ops.np_reference import interior
+
+    ref = np.load(cs.ISBI_REF_NPZ)
+    affs, fg = cs.isbi_stack()
+    ps = np.array([1, 25, 25])
+    keep = H.keep_single_slice(fg)
+    cand = [tuple(c) for c in np.argwhere(keep & interior(fg.shape,
+                                                          ps // 2))]
+    grid = H.sparsify_patches(cand, 20, vol_shape=fg.shape)
+    mask = H.filter_instance_boundaries_from_fg(affs, fg, cand, ps,
+                                                keep.copy())
+    n = int(np.prod(fg.shape))
+
+    def bits(key):
+        return np.unpackbits(ref[key])[:n].reshape(fg.shape).astype(bool)
+
+    assert np.array_equal(keep, bits("b/keep"))
+    assert np.array_equal(np.asarray(grid), ref["b/grid"])
+    assert np.array_equal(mask, bits("b/mask"))
+
+
+def test_isbi_cli_cross_validate_matches_jax(dev, tmp_path):
+    """The port's CLI runs ``mknet predict label evaluate cross_validate``
+    with the rehearsal config on the stand-in data, float32, from the
+    seeded checkpoint, against the JAX CLI's run: every labelled map under
+    the map limits with rand_fscore within 0.01, the same best checkpoint
+    and applied scores within 0.01 per fold, K3 / K4 once per labelled
+    sample."""
+    from patchperpix_tpu_torch import cli, models, weights
+    from patchperpix_tpu_torch.models.init import flax_leaves
+    from patchperpix_tpu_torch.utils.io import IoHDF5
+
+    ref = np.load(cs.ISBI_REF_NPZ)
+    want = _json(cs.ISBI_REF_JSON)["cli"]
+    work = str(tmp_path)
+    exps = os.path.join(work, "exps")
+    cfg = cs.train_model_config(models, cs.ISBI_CONFIG)
+    weights.write_checkpoint(cs.isbi_seeded_tree(flax_leaves(cfg)),
+                             os.path.join(exps, "port", "train"),
+                             cs.ISBI_CLI_STEP)
+    with counted(K.CONSENSUS2D, K.RANK2D) as c:
+        paths = cli.main(cs.isbi_cli_argv(
+            exps, cs.isbi_cli_override(work), "port") + [
+            "-d", "mknet", "predict", "label", "evaluate", "cross_validate"])
+    keys = sorted(k for k in ref.files if k.startswith("c/")
+                  and k.endswith("/inst"))
+    for key in keys:
+        _, mode, sample, _ = key.split("/")
+        res = IoHDF5(os.path.join(paths[f"{mode}_instanced"],
+                                  str(cs.ISBI_CLI_STEP), sample + ".hdf"))
+        inst = res.read(key="vote_instances")
+        fg = res.read(key="vote_foreground") > 0
+        ref_fg = np.unpackbits(ref[f"c/{mode}/{sample}/fg"])[
+            :fg.size].reshape(fg.shape).astype(bool)
+        cs.gate_agreement(cs.map_agreement(inst, ref[key], fg, ref_fg),
+                          f"isbi cli map {mode}/{sample}")
+        got = _json(os.path.join(paths[f"{mode}_evaluated"],
+                                 str(cs.ISBI_CLI_STEP), sample + ".json"))
+        wm = want["metrics"][f"{mode}/{sample}"]
+        assert abs(got["general"]["rand_fscore"]
+                   - wm["general"]["rand_fscore"]) <= cs.SCORE_TOL, key
+    cross = _json(os.path.join(paths["base"], "cross_val_results.json"))
+    wc = want["cross_val_results"]
+    for k in wc:
+        if k == "mean_score":
+            continue
+        assert cross[k]["best"]["checkpoint"] == wc[k]["best"]["checkpoint"]
+        assert abs(cross[k]["applied_score"] - wc[k]["applied_score"]) <= \
+            cs.SCORE_TOL, k
+    assert all(n == len(keys) for n in c.n.values()), (c.n, len(keys))
+
+
+def test_isbi2012_forward_equals_jax(dev):
+    """configs/isbi2012.toml's full-width model (seeded) on one 512^2
+    window in f32 (TF32 off): sampled affinities and foreground, and their
+    means, within 1e-4 relative L2 of the JAX run's."""
+    from patchperpix_tpu_torch import models
+    from patchperpix_tpu_torch.infer.fused import predict_volume_device
+    from patchperpix_tpu_torch.models.init import flax_leaves
+    from patchperpix_tpu_torch.train import data as td
+    from patchperpix_tpu_torch.utils.device import exact_f32
+    from patchperpix_tpu_torch.weights import build_model
+
+    ref = np.load(cs.ISBI_REF_NPZ)
+    cfg = cs.train_model_config(models, cs.ISBI2012_CONFIG)
+    model = build_model(cfg, cs.isbi_seeded_tree(flax_leaves(cfg)),
+                        device=dev)
+    win = tuple(cs.isbi_toml(cs.ISBI2012_CONFIG)["model"][
+        "test_input_shape_same"])
+    with exact_f32():
+        affs, fg = predict_volume_device(model, cs.isbi_window(td), cfg,
+                                         win, win, device=dev)
+    ch, pix = cs.isbi_forward_positions(tuple(affs.shape))
+    affs = affs.reshape(affs.shape[0], -1)
+    pix_t = torch.as_tensor(pix, device=dev)
+    got = {"affs": affs[torch.as_tensor(ch, device=dev), pix_t],
+           "fg": fg.reshape(-1)[pix_t],
+           "affs_channel_mean": affs.mean(1),
+           "fg_mean": fg.mean().reshape(1)}
+    for k, v in got.items():
+        assert cs.rel_l2(v.cpu().numpy(), ref[f"d/{k}"]) <= 1e-4, k
+
+
+def test_isbi_step_equals_jax(dev):
+    """One f32 step of the rehearsal model (seeded) on the fixed batch
+    against the JAX package's, under the step limits (its own float64
+    witness)."""
+    from patchperpix_tpu_torch import models
+    from patchperpix_tpu_torch.models.init import flax_leaves
+    from patchperpix_tpu_torch.train import data as td
+
+    ref = np.load(cs.ISBI_REF_NPZ)
+    want = _json(cs.ISBI_REF_JSON)["branches"]["isbi"]
+    raw, labels = cs.isbi_train_batch(td)
+    assert cs.batch_matches(raw, labels, want["batch"])
+    cfg = cs.train_model_config(models, cs.ISBI_CONFIG)
+    cs.gate_step(cs.step_errors(dev, "isbi", cfg,
+                                cs.isbi_seeded_tree(flax_leaves(cfg)), raw,
+                                labels, want, ref), "the isbi step vs JAX")
+
+
 def test_device_sampler_2d_on_the_card_equals_the_host(dev):
     """The 2D device sampler's batches on the card (the rehearsal's
     sampler over the stand-in's training samples) against the host
     sampler's numpy on the same decisions: raw 1e-6, labels equal."""
-    import chip_smoke as cs
     from patchperpix_tpu_torch.train import data as td
     from patchperpix_tpu_torch.train.device_data import DeviceSampler
 
@@ -800,6 +1971,46 @@ def test_device_sampler_2d_on_the_card_equals_the_host(dev):
                        max_gt_channels=1, device=dev)
     seen = cs.check_sampler_alignment(ds, samples, td, draws=6)
     assert seen["flip"] and seen["transpose"]
+
+
+def test_isbi_all_with_the_rehearsal_config(dev, tmp_path):
+    """``-d all`` with the rehearsal config as users run it (bf16, 6,000
+    steps, checkpoints every 2,000, device sampler) on the stand-in data:
+    every checkpoint validated and scored with a best, finite test
+    metrics, K3 / K4 once per labelled sample (each validated
+    checkpoint's val samples and the final test label)."""
+    import glob
+
+    from patchperpix_tpu_torch import cli
+
+    exps = str(tmp_path / "exps")
+    override = str(tmp_path / "override_all.toml")
+    with open(override, "w") as f:
+        f.write("[data]\n" + "".join(
+            f'{k}_data = "{os.path.join(cs.ISBI_DATA, k)}"\n'
+            for k in ("train", "val", "test")))
+    toml = cs.isbi_toml()
+    steps, every = (toml["training"]["max_iterations"],
+                    toml["training"]["checkpoints"])
+    n_val = len(glob.glob(os.path.join(cs.ISBI_DATA, "val", "*.zarr")))
+    n_test = len(glob.glob(os.path.join(cs.ISBI_DATA, "test", "*.zarr")))
+    with counted(K.CONSENSUS2D, K.RANK2D) as c:
+        paths = cli.main(["-c", cs.ISBI_CONFIG, "-c", override, "--root",
+                          exps, "-id", "all", "-d", "all"])
+    want_cps = list(range(every, steps + 1, every))
+    assert cli.get_checkpoint_list(paths["train"]) == want_cps
+    results = _json(os.path.join(paths["base"], "results.json"))
+    assert len(results["results"]) == len(want_cps), results
+    assert results["best"] is not None
+    assert all(np.isfinite(r["score"]) for r in results["results"])
+    keys = ("rand_fscore", "adapted_rand_error", "voi_split", "voi_merge",
+            "Num GT", "Num Pred")
+    for sample in cs.ISBI_TEST:
+        g = _json(os.path.join(paths["test_evaluated"], str(steps),
+                               sample + ".json"))["general"]
+        assert all(np.isfinite(g[k]) for k in keys), (sample, g)
+    predicted = (steps // every) * n_val + n_test
+    assert all(n == predicted for n in c.n.values()), (c.n, predicted)
 
 
 # -- several devices ---------------------------------------------------------
@@ -904,7 +2115,7 @@ def test_sharded_path_and_mesh_step_on_one_card(dev):
             float(g1[n].norm()), 1e-30), n
 
 
-# -- the cover loops (K5, K6) ---------------------------------------------------
+# -- the cover loops (K5, K6) -------------------------------------------------
 
 def _cover_equal(cap, cap_it=None):
     """K5 on ``cap``'s cascade input (where it has one) and K6 on its thin
@@ -913,7 +2124,6 @@ def _cover_equal(cap, cap_it=None):
     staged in shared memory, nothing (``smem_cap=0``), and part of it (60
     KB: the running bits, not the masks), at several block sizes and, for
     the cascade, chunks of 40."""
-    import chip_smoke as cs
     from patchperpix_tpu_torch.ops import cover as COV
     from patchperpix_tpu_torch.ops import cover_kernels as CK
 
@@ -942,20 +2152,11 @@ def _cover_equal(cap, cap_it=None):
     return int(want.sum())
 
 
-def test_cover_kernels_on_the_3d_crop_input(dev):
+def test_cover_kernels_on_the_3d_crop_input(dev, main_path):
     """K6 on the f32 main path's thin-cover input (the FlyLight crop,
     7^3 patches), uncapped and with the lazy loop capped at a quarter of
     its candidates (the full loop takes over)."""
-    import chip_smoke as cs
-    from patchperpix_tpu_torch.utils.io import IoZarr
-    from patchperpix_tpu_torch.weights import build_model
-
-    io = IoZarr(cs.FIXTURE)
-    raw = np.clip(io.read(key="volumes/raw").astype(np.float32), 0,
-                  1500.0) / 1500.0
-    cfg = cs.crop_config("float32")
-    with cs.CoverCapture() as cap:
-        run = cs.run_path(build_model(cfg, device=dev), cfg, raw, dev)
+    cap, run = main_path["cap"], main_path["run"]
     n = len(cap.thin["centers"])
     assert n == len(run["inter"]["cover_centers"]) > 1000
     kept = _cover_equal(cap)
@@ -963,15 +2164,10 @@ def test_cover_kernels_on_the_3d_crop_input(dev):
     assert _cover_equal(cap, cap_it=n // 4) == kept
 
 
-def test_cover_kernels_on_the_2d_b_input(dev):
+def test_cover_kernels_on_the_2d_b_input(dev, path2d):
     """K5 and K6 on 2D setting (B)'s inputs (the 16-worm image at 520x696,
     25x25 patches, dense-data cover, overlaps)."""
-    import chip_smoke as cs
-
-    full = cs.path2d_inputs("B")
-    with cs.CoverCapture() as cap:
-        _, inter = cs.assemble_2d("B", full, torch.as_tensor(
-            full["affs"], device=dev), dev)
+    cap, inter = path2d["cap"], path2d["runs"]["B"][1]
     assert len(cap.cascade["centers"]) == len(inter["ranked_centers"])
     assert _cover_equal(cap) == len(inter["thin_centers"])
 

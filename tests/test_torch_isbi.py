@@ -495,7 +495,7 @@ def test_device_sampler_2d_equals_host_sampler():
     """The rehearsal's 2D sampler: device batches (here on the CPU)
     against the host sampler's numpy on the same decisions (raw 1e-6,
     labels equal), flips and transposes seen."""
-    import chip_smoke as cs
+    from parity import cases as cs
     from patchperpix_tpu_torch.train import data as td
     from patchperpix_tpu_torch.train.device_data import DeviceSampler
 

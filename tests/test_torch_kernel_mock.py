@@ -12,8 +12,8 @@ versions at tiny shapes.
 This checks the kernels' indexing, gates and sums before any time on a
 card is spent; what only nvcc and the card can say (that the source
 builds for sm_90a, launch limits, the asynchronous copies, which the mock
-takes as plain loads) is left to ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.  Skips where g++ is missing.
+takes as plain loads) is left to ``tests/test_torch_cuda.py``.  Skips
+where g++ is missing.
 
 Tolerances as for the kernels on the card: consensus 1e-4 absolute and
 relative (2^-7 relative for a bf16 half), rank 1e-3 absolute / 1e-4

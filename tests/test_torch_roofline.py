@@ -112,12 +112,11 @@ def test_chip_peaks(monkeypatch):
 
 
 def test_roofline_bound_of_the_kernel_table():
-    """chip_smoke.py's bounds: bytes over the card's memory rate or
-    operations over its f32 rate, with the helper's figures."""
-    import chip_smoke
+    """The kernel table's bounds (``scripts/kernel_timing.bound_ms``):
+    bytes over the card's memory rate or operations over its f32 rate,
+    with the helper's figures."""
+    from scripts.kernel_timing import bound_ms
 
     nbytes, ops = 1.2775e9, 15 * 1.0e9
-    assert chip_smoke.bound_ms(nbytes, ops) == (nbytes / 3.35e12 * 1e3,
-                                                "bytes")
-    assert chip_smoke.bound_ms(1.0, 1e12) == (1e12 / 67e12 * 1e3,
-                                              "operations")
+    assert bound_ms(nbytes, ops) == (nbytes / 3.35e12 * 1e3, "bytes")
+    assert bound_ms(1.0, 1e12) == (1e12 / 67e12 * 1e3, "operations")

@@ -378,9 +378,9 @@ def test_partly_flag_and_weighted_overlap_pool():
 def test_apply_equals_host_numpy_on_given_decisions():
     """Decisions drawn by the device sampler, applied by it and by the host
     sampler's own crop, flip and transpose (3D, three channels, permute
-    and hue on), through chip_smoke.py's gate: raw within 1e-6, labels
-    equal."""
-    import chip_smoke
+    and hue on), through the card's gate (``cases.check_sampler_alignment``):
+    raw within 1e-6, labels equal."""
+    from parity import cases
 
     samples = [_toy3d(TD, 0), _toy3d(TD, 1, shape=(12, 15, 13))]
     aug = TD.AugmentConfig(probability_permute=0.5, probability_hue=0.5,
@@ -390,5 +390,5 @@ def test_apply_equals_host_numpy_on_given_decisions():
                            probability_fg=0.6, probability_overlap=0.2,
                            augment=aug)
     ds = DeviceSampler(samples, cfg, max_gt_channels=3, device="cpu")
-    seen = chip_smoke.check_sampler_alignment(ds, samples, TD, draws=6)
+    seen = cases.check_sampler_alignment(ds, samples, TD, draws=6)
     assert all(v > 0 for v in seen.values()), seen
