@@ -443,6 +443,41 @@ def wgrad_inputs(ci, co, e, dev, seed=0):
     return x, dy
 
 
+# -- the weight gradient as a matrix product (W2) ----------------------------
+
+# the convolutions of the published FlyLight ppp+dec step whose weight
+# gradient W2 computes, as (input channels, output channels, input extent,
+# batch, f): f = 1 a pointwise convolution, f = 2 a transposed one with
+# kernel = stride = 2: the two heads on the U-Net's 52^3 output, the
+# U-Net's three transposed convolutions, and the decoder's ConvPass_0,
+# Upsample_0.Conv_0 and Upsample_1.Conv_0 on its 2,048 codes
+GEMM_SHAPES = ((24, 176, 52, 2, 1), (24, 3, 52, 2, 1), (540, 216, 10, 2, 2),
+               (216, 72, 16, 2, 2), (72, 24, 28, 2, 2), (22, 128, 2, 2048, 1),
+               (128, 64, 4, 2048, 1), (64, 1, 8, 2048, 1))
+# the decoder's SAME 3x3x3 convolutions, routed to W1 on the input
+# zero-padded by one, as (channels in, out, extent, batch)
+SAME_SHAPES = ((64, 64, 4, 2048), (1, 1, 8, 2048))
+
+
+def gemm_inputs(ci, co, e, n, f, dev, seed=0):
+    """Seeded x (n, ci, e, e, e) and dy (n, co, f e, f e, f e) on
+    ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, ci, e, e, e), generator=gen, device=dev)
+    dy = torch.randn((n, co) + (f * e,) * 3, generator=gen, device=dev)
+    return x, dy
+
+
+def gemm_operands(ci, co, e, n, f, dev, seed=0):
+    """W2's operands (a, b) at a shape of ``GEMM_SHAPES``: dy as rows (by
+    tap for a transposed convolution, ``conv_kernels.tap_rows``) and x."""
+    from patchperpix_tpu_torch.ops.conv_kernels import tap_rows
+
+    x, dy = gemm_inputs(ci, co, e, n, f, dev, seed)
+    a = dy.reshape(n, co, -1) if f == 1 else tap_rows(dy, (f,) * 3)
+    return a, x.reshape(n, ci, -1)
+
+
 # -- training -----------------------------------------------------------------
 
 # the JAX package's f32 CPU train step and 200-step runs (TRAIN_REF_*):
@@ -460,11 +495,14 @@ TRAIN_GRAD_SAMPLES = 256
 # 18^3) (TRAIN_VALID_REF_*); its U-Net's valid 3x3x3 convolutions with
 # fewer than 128 channels on one side (3 -> 20, 20 -> 20, 20 -> 60, 60 ->
 # 60, 60 -> 180, and the decoder's 120 -> 60, 60 -> 60, 40 -> 20, 20 ->
-# 20) take their weight gradient from W1 (ops/conv_kernels.py), one
-# launch each
+# 20) and the code decoder's SAME 1 -> 1 pair on 8^3 take their weight
+# gradient from W1 (ops/conv_kernels.py), one launch each; its two heads,
+# two transposed convolutions and the code decoder's three pointwise ones
+# take theirs from W2
 TRAIN_VALID_REF_NPZ, TRAIN_VALID_REF_JSON = _stored("train_valid_ref_f32")
 TRAIN_VALID_EXTENT = (52, 12)
-TRAIN_VALID_ROUTED = 9
+TRAIN_VALID_ROUTED = 11
+TRAIN_VALID_GEMM = 7
 # a step's limits widen to twice the JAX f32 step's own error against the
 # JAX float64 step (on this batch up to 2.5e-3 on the trained code model's
 # leaves, 2e-5 on the dense loss_patch), never past these caps

@@ -19,6 +19,7 @@ does, and ``forward`` / ``decode`` cast their input to the same type.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 from .autoencoder import PatchDecoder
-from .unet import UNet
+from .unet import HEAD_UP_COUNTER, Conv3d, UNet
 
 
 @dataclass(frozen=True)
@@ -136,7 +137,6 @@ class PPPModel(nn.Module):
         # squeeze leading size-1 patch axes out of the per-level factors
         ds = tuple(tuple(f[-nd:]) for f in cfg.downsample_factors)
         ae_ds = tuple(tuple(f[-nd:]) for f in cfg.ae_downsample_factors)
-        conv = nn.Conv2d if nd == 2 else nn.Conv3d
         if cfg.network_style == "swinunetr":
             from .swin import SwinUNETR
 
@@ -163,8 +163,12 @@ class PPPModel(nn.Module):
                 f"invalid network style: {cfg.network_style!r} "
                 "(expected 'unet' or 'swinunetr')")
         feats = self.unet.out_channels
-        self.head_code_affs = conv(feats, cfg.out_channels_head1, 1)
-        self.head_fgbg_numinst = conv(feats, cfg.out_channels_head2, 1)
+        # 3D heads: unet.Conv3d, whose weight gradient in exact-f32
+        # training on the card comes from W2 (ops/conv_kernels.py)
+        head = nn.Conv2d if nd == 2 else functools.partial(
+            Conv3d, counter=HEAD_UP_COUNTER)
+        self.head_code_affs = head(feats, cfg.out_channels_head1, 1)
+        self.head_fgbg_numinst = head(feats, cfg.out_channels_head2, 1)
         if cfg.train_code:
             self.decoder = PatchDecoder(
                 cfg.patchshape_squeezed, code_units=cfg.code_units,

@@ -21,8 +21,9 @@ Counterpart of ``patchperpix_tpu/ops/pallas_consensus.py`` and
 ``KERNELS`` also lists ``ops/probe.py``'s ``PROBE`` (``csrc/
 probe_window.cu``), ``ops/cover_kernels.py``'s ``COVER_CASCADE`` and
 ``THIN_COVER`` (``csrc/cover_cascade.cu``, ``csrc/thin_cover.cu``) and
-``ops/conv_kernels.py``'s ``WGRAD`` (``csrc/conv3d_wgrad.cu``), so that
-one build and one table cover every kernel.
+``ops/conv_kernels.py``'s ``WGRAD`` and ``GEMM`` (``csrc/conv3d_wgrad.cu``,
+``csrc/conv_wgrad_gemm.cu``), so that one build and one table cover every
+kernel.
 
 On the TPU the JAX package runs the 3D pair inside
 ``consensus_and_rank_pallas_fold2x``, which only packs two z-slabs into
@@ -53,7 +54,7 @@ from .consensus import (ConsensusConfig, _masks, consensus_half_2d_plain,
                         consensus_half_plain, derive_2d, gated_stack_2d,
                         is_2d, rank_acc_2d_plain, rank_acc_plain,
                         rank_epilogue, rank_epilogue_2d)
-from .conv_kernels import WGRAD
+from .conv_kernels import GEMM, WGRAD
 from .cover_kernels import COVER_CASCADE, THIN_COVER
 from .np_reference import patch_offsets
 from .probe import PROBE
@@ -87,7 +88,7 @@ RANK2D = CudaKernel(
     "patchperpix_tpu/ops/pallas_consensus_2d.py:531 _rank2d_kernel "
     "(_rank2d_call :664, pallas_call :709)")
 KERNELS = (CONSENSUS, RANK, CONSENSUS2D, RANK2D, PROBE, COVER_CASCADE,
-           THIN_COVER, WGRAD)
+           THIN_COVER, WGRAD, GEMM)
 # csrc/consensus2d.cu's first step: the target pixels per row, so that the
 # wrapper can size the scratch of the rest
 CONSENSUS2D_COUNT = ("ppp_consensus2d_count", [_P, _I, _I, _P, _P])

@@ -1,22 +1,34 @@
-"""Weight gradient of a valid 3x3x3 float32 convolution on the card.
+"""Weight gradients of the training step's float32 convolutions on the card.
 
-``WGRAD`` (``csrc/conv3d_wgrad.cu``) computes, from a convolution's input
-``x`` (N, Ci, D, H, W) and its output's gradient ``dy`` (N, Co, D - 2,
-H - 2, W - 2), the weight gradient dW (Co, Ci, 3, 3, 3) and the bias
+Two hand-written kernels, each with a fixed order of summation (no
+atomics: two calls give the same bits), in float32 FMA.  Neither replaces
+a TPU kernel (the JAX package leaves convolutions to XLA);
+``models/unet.py`` routes convolutions to them in exact-f32 training, in
+place of cuDNN's weight gradient.
+
+W1, ``WGRAD`` (``csrc/conv3d_wgrad.cu``), computes, from a convolution's
+input ``x`` (N, Ci, D, H, W) and its output's gradient ``dy`` (N, Co, D -
+2, H - 2, W - 2), the weight gradient dW (Co, Ci, 3, 3, 3) and the bias
 gradient dB (Co,) of a valid 3x3x3 convolution with stride 1 and one
-group, in float32 FMA with a fixed order of summation (no atomics: two
-calls give the same bits).  It replaces no TPU kernel (the JAX package
-leaves convolutions to XLA); ``models/unet.py`` routes the U-Net's
-convolutions to it in exact-f32 training, in place of cuDNN's weight
-gradient.  ``conv3d_wgrad_plain`` is its plain PyTorch version (one
-product over the positions per tap), which ``conv3d_wgrad`` takes for CPU
-tensors; for a CUDA tensor it launches the kernel or raises.
+group; a SAME one is the valid one of its input zero-padded by one.
+``conv3d_wgrad_plain`` is its plain PyTorch version (one product over the
+positions per tap), which ``conv3d_wgrad`` takes for CPU tensors; for a
+CUDA tensor it launches the kernel or raises.  ``plan`` chooses, from the
+shape alone, the kernel's tile instance (``CONFIGS``), the positions a
+CTA stages per plane (``P``) and the number of shares the positions are
+split into (``splits``).
 
-``plan`` chooses, from the shape alone, the kernel's tile instance
-(``CONFIGS``), the positions a CTA stages per plane (``P``) and the
-number of shares the positions are split into (``splits``).  ``WGRAD``
-counts one launch per call, whatever the launches inside (the main
-kernel, and the sum of the shares when ``splits`` > 1).
+W2, ``GEMM`` (``csrc/conv_wgrad_gemm.cu``), computes from ``a`` (N, M, S)
+and ``b`` (N, K, S) the product dW[m, k] = sum over n, s of a[n, m, s]
+b[n, k, s] and dB[m] = sum of a[n, m, s]: the weight and bias gradient of
+a pointwise convolution (``conv1_wgrad``: a = dy, b = x) and of a
+transposed convolution whose kernel equals its stride (``conv_t_wgrad``:
+dy regrouped by tap).  ``conv_wgrad_gemm_plain`` is its plain version,
+which ``conv_wgrad_gemm`` takes for CPU tensors; ``gemm_plan`` chooses
+the tile instance (``GEMM_CONFIGS``) and the shares.
+
+Each kernel counts one launch per call, whatever the launches inside (the
+main kernel, and the sum of the shares when there are several).
 """
 
 from __future__ import annotations
@@ -51,6 +63,8 @@ _ISSUE = tuple(12 * tm * tc / (12 * tm * tc + tm + 6 * tc + 6)
 SMEM_OPTIN = 232448      # bytes a CTA may opt in to on sm_90 (H100, H200)
 MAX_P = 1024             # positions of a chunk at most
 WIDE = 128               # channels from which cuDNN's weight gradient wins
+SHORT_ROWS = (5, 8)      # input row lengths where, from NARROW channel
+NARROW = 512             # pairs (Ci * Co), cuDNN's weight gradient wins
 SM_FMA_PER_S = 128 * 1.7e9   # an SM's float32 FMA lanes per second
 HBM_BYTES_PER_S = 2.5e12     # what the sum of the shares streams at
 LAUNCH_S = 5e-6
@@ -233,14 +247,24 @@ def conv3d_wgrad_cuda(x: torch.Tensor, dy: torch.Tensor) -> tuple:
 def serves(Ci: int, Co: int, W: int) -> bool:
     """Whether a training step takes its weight gradient from the kernel
     for Ci -> Co channels on input rows of W values: some instance's chunk
-    fits in shared memory, and at least one channel count is below
-    ``WIDE``.  Where both reach it, cuDNN's exact-f32 heuristic takes its
-    implicit-GEMM weight gradient, which beat this kernel at each such
-    convolution of the published FlyLight U-Net (180 -> 180 to 540 -> 540
-    channels on 12^3 to 30^3; PERF.md section 6), while below it cuDNN
-    takes a direct kernel 1.6 to 40 times slower than this one."""
-    return min(Ci, Co) < WIDE and W >= 3 and any(
-        _chunk(c, 3, W) is not None for c in range(len(CONFIGS)))
+    fits in shared memory, at least one channel count is below ``WIDE``,
+    and on rows of 5 to 8 values (``SHORT_ROWS``) Ci * Co is below
+    ``NARROW``.  Where both channel counts reach ``WIDE``, cuDNN's
+    exact-f32 heuristic takes its implicit-GEMM weight gradient, which
+    beat this kernel at each such convolution of the published FlyLight
+    U-Net (180 -> 180 to 540 -> 540 channels on 12^3 to 30^3; PERF.md
+    section 6), while below it cuDNN takes a direct kernel 1.6 to 40 times
+    slower than this one.  On rows of 6 and 8 at batch 2,048, cuDNN's
+    implicit GEMM took 16 -> 32 to 64 -> 64 level with this kernel or up
+    to 1.57 times faster (at batch 256, between 1.47 times slower and
+    1.31 times faster), while at 1 -> 1 to 16 -> 16 its direct kernels
+    ran 1.2 to 16 times slower; on rows of 4, and of 12 or more, this
+    kernel won at every width below ``WIDE`` at batch 256 and 2,048
+    (``scripts/conv_wgrad_gemm_cuda.py --short-rows``; PERF.md section
+    6)."""
+    short = SHORT_ROWS[0] <= W <= SHORT_ROWS[1]
+    return min(Ci, Co) < WIDE and not (short and Ci * Co >= NARROW) \
+        and any(_chunk(c, 3, W) is not None for c in range(len(CONFIGS)))
 
 
 def conv3d_wgrad(x: torch.Tensor, dy: torch.Tensor) -> tuple:
@@ -250,3 +274,172 @@ def conv3d_wgrad(x: torch.Tensor, dy: torch.Tensor) -> tuple:
     if x.device.type == "cpu":
         return conv3d_wgrad_plain(x, dy)
     raise ValueError(f"conv3d_wgrad: no kernel for device {x.device}")
+
+
+# -- W2: the weight gradient as a matrix product ----------------------------
+
+GEMM = CudaKernel(
+    "conv_wgrad_gemm", "ppp_conv_wgrad_gemm",
+    [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _I, _I, _P],
+    "none (the JAX package leaves convolutions to XLA)")
+
+# The kernel's instances, as csrc/conv_wgrad_gemm.cu lists them: (TM, TN,
+# WY, WX, MINB: its __launch_bounds__ minimum of blocks).  A CTA's tile is
+# BM = TM * WY rows of a x BN = TN * WX rows of b, with WY * WX threads; a
+# thread's is TM x TN.
+GEMM_CONFIGS = ((8, 8, 16, 16, 2), (4, 4, 16, 16, 3), (8, 4, 16, 8, 3),
+                (4, 4, 16, 8, 4), (1, 2, 8, 16, 8))
+GEMM_KC = 32             # positions of a chunk
+# The share of the FMA pipes each instance can keep busy: its 4 TM TN FMAs
+# over those and the TM + TN shared-memory loads and loop work of four
+# positions
+_GEMM_ISSUE = tuple(4 * tm * tn / (4 * tm * tn + tm + tn + 2)
+                    for tm, tn, _, _, _ in GEMM_CONFIGS)
+HBM_READ_PER_S = 3.0e12  # what the kernel streams its operands at
+CTA_FILL_S = 1.5e-6      # a CTA's start: its first chunk's copies in flight
+
+
+def gemm_tile(config: int) -> tuple:
+    """(BM, BN): rows of a and of b in a CTA's tile."""
+    tm, tn, wy, wx, _ = GEMM_CONFIGS[config]
+    return tm * wy, tn * wx
+
+
+def gemm_smem(config: int) -> int:
+    """Bytes of shared memory a CTA takes: two chunks of its tile, rows
+    of KC + 4 floats."""
+    bm, bn = gemm_tile(config)
+    return 2 * (bm + bn) * (GEMM_KC + 4) * 4
+
+
+class GemmPlan(NamedTuple):
+    config: int
+    splits: int     # shares of the chunks
+    seconds: float  # the modelled time
+
+
+def gemm_plan(N: int, M: int, K: int, S: int, sms: int) -> GemmPlan:
+    """The launch plan for a (N, M, S) and b (N, K, S) on a card of
+    ``sms`` SMs: the instance and the number of shares of least modelled
+    time.  The model takes the larger of the FMA time (waves of CTAs,
+    each walking its share of the chunks, padded tiles included) and the
+    bytes read (a once per column of tiles, b once per row), and adds each
+    wave's start and the sum of the shares."""
+    chunks = -(-N * S // GEMM_KC)
+    best = None
+    for config, (tm, tn, wy, wx, minb) in enumerate(GEMM_CONFIGS):
+        bm, bn = gemm_tile(config)
+        tiles_m, tiles_n = -(-M // bm), -(-K // bn)
+        tiles = tiles_m * tiles_n
+        slots = sms * minb
+        chunk_s = bm * bn * GEMM_KC * minb / (SM_FMA_PER_S
+                                              * _GEMM_ISSUE[config])
+        read_s = 4 * N * S * (M * tiles_n + K * tiles_m) / HBM_READ_PER_S
+        cands = {1} | {max(1, k * slots // tiles) for k in range(1, 9)}
+        for splits in sorted(c for c in cands if c <= chunks):
+            waves = -(-tiles * splits // slots)
+            per = -(-chunks // splits)
+            t = max(waves * per * chunk_s, read_s) + waves * CTA_FILL_S
+            if splits > 1:
+                t += 8 * splits * (M * K + M) / HBM_BYTES_PER_S + LAUNCH_S
+            if best is None or t < best.seconds * 0.99:
+                best = GemmPlan(config, splits, t)
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def device_gemm_plan(N, M, K, S, device) -> GemmPlan:
+    """``gemm_plan`` on ``device``'s SMs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return gemm_plan(N, M, K, S, sms)
+
+
+def _check_gemm(a: torch.Tensor, b: torch.Tensor):
+    if a.ndim != 3 or b.ndim != 3:
+        raise ValueError(f"conv_wgrad_gemm: expected 3D a and b, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.shape[0] != b.shape[0] or a.shape[2] != b.shape[2]:
+        raise ValueError(f"conv_wgrad_gemm: a {tuple(a.shape)} and b "
+                         f"{tuple(b.shape)} differ in batch or positions")
+    if a.dtype != b.dtype or a.device != b.device:
+        raise ValueError(f"conv_wgrad_gemm: a {a.dtype} on {a.device}, b "
+                         f"{b.dtype} on {b.device}")
+
+
+def conv_wgrad_gemm_plain(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(dW (M, K), dB (M,)) for a (N, M, S) and b (N, K, S): one product
+    summed over the batch and the positions, and the sum of a.  Any float
+    type, any device."""
+    _check_gemm(a, b)
+    return torch.einsum("nms,nks->mk", a, b), a.sum(dim=(0, 2))
+
+
+def conv_wgrad_gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Launch ``csrc/conv_wgrad_gemm.cu`` on contiguous float32 CUDA
+    tensors, by ``device_gemm_plan``."""
+    if a.device.type != "cuda":
+        raise ValueError(f"conv_wgrad_gemm kernel: tensor on {a.device}, "
+                         "not CUDA")
+    _check_gemm(a, b)
+    if a.dtype != torch.float32 or not (a.is_contiguous()
+                                        and b.is_contiguous()):
+        raise ValueError(f"conv_wgrad_gemm kernel: expected contiguous "
+                         f"float32, got {a.dtype}")
+    N, M, S = a.shape
+    K = b.shape[1]
+    p = device_gemm_plan(N, M, K, S, a.device)
+    vec = S % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    out = torch.empty(M * K + M, dtype=torch.float32, device=a.device)
+    ws = out if p.splits == 1 else torch.empty(
+        p.splits * (M * K + M), dtype=torch.float32, device=a.device)
+    GEMM.launch(a.device, a.data_ptr(), b.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), N, M, K, S, p.config, p.splits, int(vec),
+                ctypes.c_void_p(
+                    torch.cuda.current_stream(a.device).cuda_stream))
+    return out[:M * K].view(M, K), out[M * K:]
+
+
+def conv_wgrad_gemm(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if a.device.type == "cuda":
+        return conv_wgrad_gemm_cuda(a, b)
+    if a.device.type == "cpu":
+        return conv_wgrad_gemm_plain(a, b)
+    raise ValueError(f"conv_wgrad_gemm: no kernel for device {a.device}")
+
+
+def conv1_wgrad(x: torch.Tensor, dy: torch.Tensor) -> tuple:
+    """(dW (Co, Ci, 1, 1, 1), dB (Co,)) of a pointwise 3D convolution from
+    its input x (N, Ci, D, H, W) and its output's gradient dy (N, Co, D,
+    H, W), both contiguous: ``conv_wgrad_gemm`` of dy and x over the
+    positions."""
+    N, Ci = x.shape[:2]
+    Co = dy.shape[1]
+    dw, db = conv_wgrad_gemm(dy.reshape(N, Co, -1), x.reshape(N, Ci, -1))
+    return dw.view(Co, Ci, 1, 1, 1), db
+
+
+def tap_rows(dy: torch.Tensor, f: tuple) -> torch.Tensor:
+    """The gradient dy (N, Co, f D, f H, f W) of a 3D transposed
+    convolution whose kernel equals its stride f, regrouped by tap into
+    (N, f^3 Co, D H W) by one copy: output (f d + a, f h + b, f w + c)
+    takes input (d, h, w) through tap (a, b, c) alone, so row (a, b, c,
+    co) reads against the input's positions in order."""
+    N, Co, Dz, Dy, Dx = dy.shape
+    fz, fy, fx = f
+    return dy.reshape(N, Co, Dz // fz, fz, Dy // fy, fy, Dx // fx,
+                      fx).permute(0, 3, 5, 7, 1, 2, 4, 6).reshape(
+                          N, fz * fy * fx * Co, -1)
+
+
+def conv_t_wgrad(x: torch.Tensor, dy: torch.Tensor, f: tuple) -> tuple:
+    """(dW (Ci, Co, *f), dB (Co,)) of a 3D transposed convolution whose
+    kernel equals its stride f, from its input x (N, Ci, D, H, W),
+    contiguous, and its output's gradient dy (N, Co, f D, f H, f W):
+    ``conv_wgrad_gemm`` of ``tap_rows(dy, f)`` and x; dB sums the taps'
+    rows."""
+    N, Ci = x.shape[:2]
+    Co = dy.shape[1]
+    dw, db = conv_wgrad_gemm(tap_rows(dy, f), x.reshape(N, Ci, -1))
+    dw = dw.view(*f, Co, Ci).permute(4, 3, 0, 1, 2).contiguous()
+    return dw, db.view(-1, Co).sum(0)

@@ -5,8 +5,10 @@ set-up and step (``portbench/drivers/train_host_sampler.py``
 over a few steps after warm steps.  Each kernel is charged to the
 convolution whose backward launched it: the ``aten::convolution_backward``
 call above it (cuDNN's weight and data gradients), or the route's
-autograd Function (the weight-gradient kernel of ``ops/conv_kernels.py``,
-launched from ``_HandWgradBackward``).  Prints the card's name and power
+autograd Function (the weight-gradient kernels of ``ops/conv_kernels.py``,
+launched from ``_HandWgradBackward`` / ``_GemmWgradBackward``), charged
+to the convolution of the input gradient it asks cuDNN for, or to the
+Function's name where it asks for none.  Prints the card's name and power
 limit and one JSON line per convolution (input and weight shapes, the
 kernels with their ms per step) and a total per kernel name.
 
@@ -39,15 +41,27 @@ def charge(events) -> dict:
     """{(input shape, weight shape) or the call's name: {kernel: ms}} over
     the trees of ``events``: each kernel under the nearest convolution
     backward above it, else under the nearest call named ``*Backward*``
-    (an autograd Function's backward)."""
+    (an autograd Function's backward; a route's ``*Wgrad*`` Function under
+    the first convolution backward inside it, where there is one)."""
     out = collections.defaultdict(lambda: collections.defaultdict(float))
+
+    def first_conv(evt):
+        own = conv_of(evt)
+        if own is not None:
+            return own
+        for c in evt.cpu_children:
+            own = first_conv(c)
+            if own is not None:
+                return own
+        return None
 
     def walk(evt, key):
         own = conv_of(evt)
         if own is not None:
             key = own
         elif key is None and "Backward" in evt.name:
-            key = evt.name
+            key = (first_conv(evt) if "Wgrad" in evt.name else None) \
+                or evt.name
         for k in evt.kernels:
             out[key if key is not None else "other"][k.name] += \
                 k.duration / 1e3

@@ -1,7 +1,8 @@
 """The timers and the bound behind PERF.md's kernel table, shared by the
 kernel scripts (``time_kernels_3d.py``, ``time_kernels_2d.py``,
 ``time_cover_kernels.py``, ``probe_window_cuda.py``,
-``conv_wgrad_cuda.py``); a module, not a script.  Imports torch only
+``conv_wgrad_cuda.py``, ``conv_wgrad_gemm_cuda.py``); a module, not a
+script.  Imports torch only
 inside the timers, so ``bound_ms`` runs without it.
 """
 

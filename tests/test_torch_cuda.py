@@ -13,7 +13,7 @@ Tolerances: consensus 1e-4 absolute and relative, rank 1e-3 absolute /
 half within one rounding step of the stored type (2^-7 relative); the
 row-window probe 1e-4 absolute; the cover kernels K5 / K6 equal to their
 host loops bit for bit (integer counts); the weight gradient within 1e-5
-of its largest value against float64.  An instance map is held to a
+of its largest value against float64 (W1 and W2).  An instance map is held to a
 stored one by ``cases.gate_agreement`` (foreground agreement >= 99.9 %,
 the same instance count, >= 99 % of foreground voxels agreeing after
 best-IoU matching), a training step by ``cases.gate_step`` and scores to
@@ -1195,6 +1195,11 @@ def test_sharded_assembly_and_block_devices_on_the_sample(dev, sample):
 # the U-Net of _small_train with valid padding: its 3x3x3 convolutions,
 # each of which takes the weight-gradient kernel in exact-f32 training
 SMALL_VALID_CONVS = 6
+# the launches of a _small_train step in exact f32, valid or same: W1 for
+# the U-Net's six 3x3x3 convolutions and the decoder's SAME 8 -> 8 pair on
+# 4^3 and 1 -> 1 pair on 8^3, W2 for the two heads, the transposed
+# convolution and the decoder's three pointwise convolutions
+SMALL_W1, SMALL_W2 = SMALL_VALID_CONVS + 4, 6
 
 
 def _small_train(seed=0, padding="same"):
@@ -1221,8 +1226,8 @@ def _small_train(seed=0, padding="same"):
 def test_train_step_on_the_card_equals_the_cpu(dev):
     """One f32 step (TF32 off) with the same corners on the card and on
     the CPU: loss parts and every gradient leaf within 1e-4 relative; with
-    same padding (cuDNN throughout) and with valid padding, where the
-    card's step takes each U-Net weight gradient from the kernel
+    same and with valid padding, where the card's step takes the weight
+    gradients of the routed convolutions from the kernels W1 and W2
     (``ops/conv_kernels.py``) and the CPU's from nn.Conv3d."""
     from patchperpix_tpu_torch import weights
     from patchperpix_tpu_torch.models import PPPModel
@@ -1233,7 +1238,7 @@ def test_train_step_on_the_card_equals_the_cpu(dev):
                                                      compute_losses)
     from patchperpix_tpu_torch.utils.device import exact_f32
 
-    for padding, routed in (("same", 0), ("valid", SMALL_VALID_CONVS)):
+    for padding in ("same", "valid"):
         cfg, raw, labels = _small_train(padding=padding)
         tree = init_tree(cfg, torch.Generator().manual_seed(0))
         gt_fg = torch.from_numpy((labels[:, :, 2:-2, 2:-2, 2:-2] > 0)
@@ -1245,14 +1250,14 @@ def test_train_step_on_the_card_equals_the_cpu(dev):
             model = PPPModel(cfg)
             model.load_state_dict(weights.to_state_dict(tree))
             model.to(d)
-            n0 = CK.WGRAD.launches
-            with exact_f32():
+            with exact_f32(), counted(CK.WGRAD, CK.GEMM) as c:
                 loss, mets = compute_losses(
                     model, cfg, TrainConfig(), torch.from_numpy(raw).to(d),
                     torch.from_numpy(labels).to(d), corners=corners.to(d))
                 loss.backward()
-            assert CK.WGRAD.launches - n0 == (routed if d.type == "cuda"
-                                              else 0), padding
+            on = d.type == "cuda"
+            assert c.n == {CK.WGRAD.name: SMALL_W1 * on,
+                           CK.GEMM.name: SMALL_W2 * on}, padding
             out[d.type] = ({k: float(v) for k, v in mets.items()},
                            {n: p.grad.cpu().numpy()
                             for n, p in model.named_parameters()})
@@ -1310,8 +1315,9 @@ def test_device_loop_step_makes_no_host_sync(dev):
     """What the device loop runs per step (a batch drawn and augmented on
     the card, the step with its code corners, Adam, the schedule) under
     torch's sync debug mode set to raise on any host synchronisation; a
-    valid U-Net in exact f32, so that each step's weight gradients come
-    from the kernel (``ops/conv_kernels.py``) and are held to it too."""
+    valid U-Net in exact f32, so that each step's routed weight gradients
+    come from the kernels W1 and W2 (``ops/conv_kernels.py``) and are held
+    to it too."""
     from patchperpix_tpu_torch.models import PPPModel
     from patchperpix_tpu_torch.ops import conv_kernels as CK
     from patchperpix_tpu_torch.train import data as td
@@ -1337,15 +1343,15 @@ def test_device_loop_step_makes_no_host_sync(dev):
         raw, labels, _ = ds.sample_batch(gen)
         step(raw, labels, gen)                 # first step: lazy state
         torch.cuda.synchronize(dev)
-        n0 = CK.WGRAD.launches
         torch.cuda.set_sync_debug_mode("error")
         try:
-            for _ in range(3):
-                raw, labels, _ = ds.sample_batch(gen)
-                mets = step(raw, labels, gen)
+            with counted(CK.WGRAD, CK.GEMM) as c:
+                for _ in range(3):
+                    raw, labels, _ = ds.sample_batch(gen)
+                    mets = step(raw, labels, gen)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    assert CK.WGRAD.launches - n0 == 3 * SMALL_VALID_CONVS
+    assert c.n == {CK.WGRAD.name: 3 * SMALL_W1, CK.GEMM.name: 3 * SMALL_W2}
     assert np.isfinite(float(mets["loss"]))
 
 
@@ -1395,8 +1401,10 @@ def test_train_step_equals_jax(dev, train_ref, branch):
 def test_conv_wgrad_routed_valid_step_equals_jax(dev):
     """The trained crop code model with valid padding on 52^3 crops, one
     exact-f32 step on the card with its nine narrow valid 3x3x3
-    convolutions on the kernel, against the JAX package's CPU step
-    (parity/torch_port_train_valid_ref_f32.*) under the step limits."""
+    convolutions and the decoder's SAME 1 -> 1 pair on W1, and its heads,
+    transposed and pointwise convolutions on W2, against the JAX
+    package's CPU step (parity/torch_port_train_valid_ref_f32.*) under
+    the step limits."""
     from patchperpix_tpu_torch import models, weights
     from patchperpix_tpu_torch.ops import conv_kernels as CK
     from patchperpix_tpu_torch.train import data as td
@@ -1406,13 +1414,14 @@ def test_conv_wgrad_routed_valid_step_equals_jax(dev):
     raw, labels, _, _ = cs.train_batch(td, ref["centres"],
                                        cs.TRAIN_VALID_EXTENT)
     assert cs.batch_matches(raw, labels, meta["batch"])
-    n0 = CK.WGRAD.launches
-    res = cs.step_errors(
-        dev, "valid", cs.train_model_config(models, cs.CLI_CONFIG,
-                                            padding="valid"),
-        weights.load_npz(), raw, labels, meta["branches"]["valid"], ref,
-        corners=torch.from_numpy(ref["corners"].astype(np.int64)))
-    assert CK.WGRAD.launches - n0 == cs.TRAIN_VALID_ROUTED
+    with counted(CK.WGRAD, CK.GEMM) as c:
+        res = cs.step_errors(
+            dev, "valid", cs.train_model_config(models, cs.CLI_CONFIG,
+                                                padding="valid"),
+            weights.load_npz(), raw, labels, meta["branches"]["valid"], ref,
+            corners=torch.from_numpy(ref["corners"].astype(np.int64)))
+    assert c.n == {CK.WGRAD.name: cs.TRAIN_VALID_ROUTED,
+                   CK.GEMM.name: cs.TRAIN_VALID_GEMM}
     cs.gate_step(res, "the valid step vs JAX")
 
 
@@ -1548,10 +1557,14 @@ def test_mesh_step_equals_one_device_and_jax(dev, train_ref):
     """The data-parallel f32 step with 3 shards on the one card, both
     branches: within the JAX fixture's step limits (cuDNN on), and within
     1e-6 relative of the one-device step when both run the same
-    convolution algorithms (cuDNN off: PyTorch's own convolutions take
-    one sample at a time; cuDNN picks other algorithms for a shard of one
-    crop than for the batch of three); across cards where there are
+    convolution algorithms (cuDNN off and the hand-written weight
+    gradients' routes off through the ``unet._on_card`` seam: PyTorch's
+    own convolutions take one sample at a time; cuDNN picks other
+    algorithms for a shard of one crop than for the batch of three, and
+    the hand-written kernels other shares); across cards where there are
     two."""
+    from patchperpix_tpu_torch.models import unet
+
     n = torch.cuda.device_count()
     meshes = [[dev] * 3] + ([[torch.device("cuda", i % n)
                               for i in range(3)]] if n >= 2 else [])
@@ -1569,11 +1582,13 @@ def test_mesh_step_equals_one_device_and_jax(dev, train_ref):
             saved = torch.backends.cudnn.enabled
             torch.backends.cudnn.enabled = False
             try:
-                cs.step_errors(dev, branch, cfg, tree, raw, labels, want,
-                               ref, corners=corners, grads_out=one)
-                cs.step_errors(dev, branch, cfg, tree, raw, labels, want,
-                               ref, corners=corners, mesh=mesh,
-                               grads_out=dp)
+                with pytest.MonkeyPatch.context() as mp:
+                    mp.setattr(unet, "_on_card", lambda x: False)
+                    cs.step_errors(dev, branch, cfg, tree, raw, labels,
+                                   want, ref, corners=corners, grads_out=one)
+                    cs.step_errors(dev, branch, cfg, tree, raw, labels,
+                                   want, ref, corners=corners, mesh=mesh,
+                                   grads_out=dp)
             finally:
                 torch.backends.cudnn.enabled = saved
             errs = {k: (abs(dp[k] - one[k]) / max(abs(one[k]), 1e-30)
@@ -1718,10 +1733,12 @@ def test_conv_wgrad_wrapper_checks_inputs(dev):
 
 def test_conv_wgrad_takes_each_served_convolution_of_the_published_step(dev):
     """Forward and backward of the published FlyLight model at batch 2 of
-    140^3 in exact f32 under a profiler: one kernel call for each U-Net
-    convolution it serves (9 of 14: the five with 128 or more channels
-    on both sides stay on cuDNN), counted by the wrapper and by the
-    route's counters beside the decoder's five convolutions."""
+    140^3 in exact f32 under a profiler: W1 for each U-Net convolution it
+    serves (9 of 14: the five with 128 or more channels on both sides stay
+    on cuDNN) and the decoder's SAME 1 -> 1 pair, W2 for the two heads,
+    the three transposed convolutions and the decoder's three pointwise
+    ones, counted by the wrappers and by the routes' counters (the
+    decoder's SAME 64 -> 64 pair on cuDNN)."""
     from patchperpix_tpu_torch.models import PPPConfig, PPPModel, unet
     from patchperpix_tpu_torch.ops import conv_kernels as CK
     from patchperpix_tpu_torch.utils import trace
@@ -1739,17 +1756,98 @@ def test_conv_wgrad_takes_each_served_convolution_of_the_published_step(dev):
     raw = torch.rand((2, 3, 140, 140, 140), generator=gen, device=dev)
     codes = torch.rand((64, cfg.code_units), generator=gen, device=dev)
     trace.summary()
-    n0 = CK.WGRAD.launches
     with exact_f32(), torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]):
+            activities=[torch.profiler.ProfilerActivity.CPU]), \
+            counted(CK.WGRAD, CK.GEMM) as c:
         with trace.span("test.step"):
             h1, h2 = model(raw)
             (h1.sum() + h2.sum() + model.decode(codes).sum()).backward()
     counts = trace.summary()["counts"]
-    assert CK.WGRAD.launches - n0 == 9
-    assert counts["conv.wgrad_hand"] == 9
-    assert counts["conv.wgrad_cudnn"] == 5 + 5
+    assert c.n == {CK.WGRAD.name: 9 + 2, CK.GEMM.name: 8}
+    assert counts["conv.wgrad_hand"] == 12
+    assert counts["conv.wgrad_cudnn"] == 5 + 2
+    assert counts["conv.head_up_wgrad_hand"] == 7
+    assert "conv.head_up_wgrad_cudnn" not in counts
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+# -- W2: the weight gradient of pointwise and kernel = stride convolutions ----
+
+@pytest.mark.parametrize("ci,co,e,n,f", cs.GEMM_SHAPES)
+def test_conv_wgrad_gemm_kernel_matches_plain_at_the_cells_shapes(
+        dev, ci, co, e, n, f):
+    """W2 against its plain version in float64 at each of its eight
+    convolutions of the published step: dW and dB within 1e-5 of their
+    largest value (float32 sums of up to 2 M products in split-K order),
+    one launch a call, and the same bits from a second call (a fixed
+    order of summation)."""
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+
+    a, b = cs.gemm_operands(ci, co, e, n, f, dev)
+    with counted(CK.GEMM) as c:
+        dw, db = CK.conv_wgrad_gemm(a, b)
+    assert c.n == {CK.GEMM.name: 1}
+    rw, rb = CK.conv_wgrad_gemm_plain(a.double(), b.double())
+    for got, want in ((dw, rw), (db, rb)):
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        assert err <= cs.WGRAD_TOL, err
+    dw2, db2 = CK.conv_wgrad_gemm(a, b)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("ci,co,e,n", cs.SAME_SHAPES)
+def test_conv_wgrad_same_route_at_the_decoders_shapes(dev, ci, co, e, n):
+    """The decoder's SAME 3x3x3 convolutions as ``unet.Conv3d`` in exact
+    f32: the 1 -> 1 pair's rows of 10 take W1 on the zero-padded input
+    (one launch), the 64 -> 64 pair's rows of 6 cuDNN; dW, dB and the
+    input's gradient within 1e-5 of their largest value against float64
+    autograd of ``nn.Conv3d``."""
+    from patchperpix_tpu_torch.models import unet
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    torch.manual_seed(0)
+    ref = torch.nn.Conv3d(ci, co, 3, padding=1).double().to(dev)
+    hand = unet.Conv3d(ci, co, 3, padding=1).to(dev)
+    hand.load_state_dict(ref.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x0 = torch.randn((n, ci, e, e, e), generator=gen, device=dev)
+    dy = torch.randn((n, co, e, e, e), generator=gen, device=dev)
+    grads = []
+    for mod, x in ((ref, x0.double()), (hand, x0.clone())):
+        x.requires_grad_(True)
+        with exact_f32(), counted(CK.WGRAD) as c:
+            mod(x).backward(dy.to(x.dtype))
+        grads.append((mod.weight.grad, mod.bias.grad, x.grad, c.n))
+    assert grads[1][3] == {CK.WGRAD.name: int(CK.serves(ci, co, e + 2))}
+    assert CK.serves(ci, co, e + 2) == (ci == 1)
+    for want, got in zip(grads[0][:3], grads[1][:3]):
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        assert err <= cs.WGRAD_TOL, err
+
+
+def test_conv_wgrad_gemm_wrapper_checks_inputs(dev):
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+
+    a = torch.zeros(2, 3, 8, device=dev)
+    b = torch.zeros(2, 4, 8, device=dev)
+    with pytest.raises(ValueError):
+        CK.conv_wgrad_gemm_cuda(a.double(), b.double())
+    with pytest.raises(ValueError):
+        CK.conv_wgrad_gemm_cuda(
+            torch.zeros(2, 8, 3, device=dev).transpose(1, 2), b)
+    with pytest.raises(ValueError):
+        CK.conv_wgrad_gemm_cuda(a, b[:, :, :4])
+    with pytest.raises(ValueError):
+        CK.conv_wgrad_gemm_cuda(a, b.cpu())
+    # positions not a multiple of 4 and an operand off 16-byte alignment
+    # stage by 4-byte copies: the same result as the plain version
+    a, b = (torch.randn(3, 5, 7, device=dev),
+            torch.randn(3 * 6 * 7 + 1, device=dev)[1:].view(3, 6, 7))
+    for got, want in zip(CK.conv_wgrad_gemm_cuda(a, b),
+                         CK.conv_wgrad_gemm_plain(a.double(), b.double())):
+        assert float((got.double() - want).abs().max()) <= \
+            cs.WGRAD_TOL * float(want.abs().max())
 
 
 # -- the ISBI 2012 protocol ---------------------------------------------------

@@ -3,11 +3,11 @@
 2D (``csrc/consensus2d.cu``, ``csrc/rank2d.cu``), with
 ``csrc/fill_zero.cuh``, of the row-window probe (``csrc/probe_window.cu``)
 of the cover loops (``csrc/cover_cascade.cu``, ``csrc/thin_cover.cu``,
-with ``csrc/cover_window.cuh``) and of the convolutions' weight gradient
-(``csrc/conv3d_wgrad.cu``): compiled by g++ against the small mock of
-the CUDA headers in ``tests/cuda_mock/`` and run on the CPU, the grid as
-loops and one host thread per CUDA thread of a block, against their plain
-versions at tiny shapes.
+with ``csrc/cover_window.cuh``) and of the convolutions' weight gradients
+(``csrc/conv3d_wgrad.cu``, ``csrc/conv_wgrad_gemm.cu``): compiled by g++
+against the small mock of the CUDA headers in ``tests/cuda_mock/`` and run
+on the CPU, the grid as loops and one host thread per CUDA thread of a
+block, against their plain versions at tiny shapes.
 
 This checks the kernels' indexing, gates and sums before any time on a
 card is spent; what only nvcc and the card can say (that the source
@@ -20,7 +20,7 @@ relative (2^-7 relative for a bf16 half), rank 1e-3 absolute / 1e-4
 relative, the probe 1e-4 absolute (it sums in the plain version's order,
 so it is also held to equal bits); the pack pass's words and planes are
 compared exactly, and so are the cover loops' selections and
-still-uncovered volumes (their counts are integers); the weight gradient
+still-uncovered volumes (their counts are integers); the weight gradients
 within 1e-5 of its largest value against the plain version in float64
 (float32 sums in split-K order), and equal bits from two runs.
 """
@@ -113,7 +113,8 @@ def libs(tmp_path_factory):
                              ("thin_cover", "thin_cover", []),
                              ("thin_cover_list2", "thin_cover",
                               ["-DPPP_THIN_LIST=2"]),
-                             ("conv3d_wgrad", "conv3d_wgrad", [])):
+                             ("conv3d_wgrad", "conv3d_wgrad", []),
+                             ("conv_wgrad_gemm", "conv_wgrad_gemm", [])):
         so = out / f"lib{name}_host.so"
         subprocess.run(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", *flags,
@@ -1009,4 +1010,51 @@ def test_conv3d_wgrad_source_refuses_a_bad_plan(libs):
                      ("splits", 5)):
         args = dict(ok, **{key: bad})
         assert fn(_ptr(x), _ptr(dy), _ptr(o), _ptr(o), *args.values(),
+                  None) != 0, key
+
+
+# (N, M, K, S, config, splits, vec): every instance, ragged tiles of both
+# operands, one share and several (a share ending inside an element),
+# depths that end inside a chunk, 16-byte and 4-byte staging (S not a
+# multiple of 4)
+_GEMM_CASES = [(2, 5, 7, 36, 0, 1, 1), (3, 130, 9, 52, 1, 3, 1),
+               (1, 17, 70, 45, 2, 2, 0), (4, 3, 33, 24, 3, 3, 1),
+               (5, 1, 40, 7, 4, 2, 0), (2, 65, 3, 52, 4, 3, 1)]
+
+
+@pytest.mark.parametrize("case", _GEMM_CASES)
+def test_conv_wgrad_gemm_source_matches_plain_on_host(libs, case):
+    N, M, K, S, config, splits, vec = case
+    g = torch.Generator().manual_seed(M)
+    a = torch.randn((N, M, S), generator=g)
+    b = torch.randn((N, K, S), generator=g)
+    fn = libs["conv_wgrad_gemm"].ppp_conv_wgrad_gemm
+    fn.argtypes = WG.GEMM.argtypes
+    fn.restype = ctypes.c_int
+    outs = []
+    for _ in range(2):
+        out = torch.full((M * K + M,), 7.0)
+        ws = torch.full((splits * (M * K + M),), 9.0)
+        assert fn(_ptr(a), _ptr(b), _ptr(ws), _ptr(out), N, M, K, S, config,
+                  splits, vec, None) == 0
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    dw, db = WG.conv_wgrad_gemm_plain(a.double(), b.double())
+    for got, want in ((outs[0][:M * K].view(M, K), dw), (outs[0][M * K:], db)):
+        err = float((got.double() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def test_conv_wgrad_gemm_source_refuses_a_bad_plan(libs):
+    fn = libs["conv_wgrad_gemm"].ppp_conv_wgrad_gemm
+    fn.argtypes = WG.GEMM.argtypes
+    fn.restype = ctypes.c_int
+    a, b, o = torch.zeros(1, 2, 64), torch.zeros(1, 3, 64), torch.zeros(16)
+    # N, M, K, S, then the plan: config, splits (at most the 2 chunks), vec
+    ok = dict(N=1, M=2, K=3, S=64, config=4, splits=2, vec=1)
+    assert fn(_ptr(a), _ptr(b), _ptr(o), _ptr(o), *ok.values(), None) == 0
+    for key, bad in (("config", 5), ("splits", 3), ("splits", 0),
+                     ("S", 62), ("M", 0)):
+        args = dict(ok, **{key: bad})
+        assert fn(_ptr(a), _ptr(b), _ptr(o), _ptr(o), *args.values(),
                   None) != 0, key

@@ -6,11 +6,13 @@ JAX step's own: ``sample_fg_corners`` under the key the JAX step received,
 fed to the port through ``corners=``.  The JAX step runs with an optax
 transformation that returns the gradients as its state, so they are read
 exactly.  Code and dense branches, ``overlapping_inst`` true and false, the
-partly-labeled mask on and off, same and valid padding; the valid U-Net's
-3x3x3 convolutions take the port's exact-f32 route on the card
-(``unet.Conv3d.routed``: the weight gradient from ``conv3d_wgrad``, here
-its plain version), with the card's test replaced by the seam
-``unet._on_card`` and TF32 off.  Limits: loss parts rtol 1e-5, per-leaf
+partly-labeled mask on and off, same and valid padding; every 3D
+convolution takes the port's exact-f32 route on the card
+(``unet.Conv3d.route``, ``unet.ConvTranspose3d.route``: the weight
+gradient of the 3x3x3 ones from ``conv3d_wgrad``, of the pointwise and
+transposed ones from ``conv1_wgrad`` / ``conv_t_wgrad``, here their plain
+versions), with the card's test replaced by the seam ``unet._on_card``
+and TF32 off.  Limits: loss parts rtol 1e-5, per-leaf
 relative L2 error of the gradients <= 1e-5 (XLA-CPU's and torch's float32
 sums run in other orders).  Every metric of the dict within 1e-5.
 """
@@ -41,9 +43,13 @@ B, PS = 2, 5
 # input and output extents: same padding keeps 8; the valid U-Net (one
 # level of 2, two convolutions a level) takes 20 to 16, 8, 4, 8 and 4
 EXTENT = {"same": (8, 8), "valid": (20, 4)}
-# the valid U-Net's six 3x3x3 convolutions (2 -> 4, 4 -> 4, 4 -> 8, 8 ->
-# 8, 12 -> 4, 4 -> 4), all routed
-N_ROUTED = 6
+# to W1: the U-Net's six 3x3x3 convolutions, valid or SAME (narrow: fewer
+# than 512 channel pairs, so rows of 6 route too), and the
+# decoder's SAME 4 -> 4 pair on 4^3 and 1 -> 1 pair on 8^3
+N_ROUTED, N_ROUTED_DECODER = 6, 4
+# to W2: the two heads and the transposed convolution, and the decoder's
+# pointwise ConvPass_0 and its two upsampling convolutions
+N_GEMM, N_GEMM_DECODER = 3, 3
 
 
 def _kw(code, ov, padding="same"):
@@ -113,13 +119,15 @@ def test_train_step_equals_jax(code, ov, partly, padding, monkeypatch):
 
     model = PPPModel(PPPConfig(**kw))
     model.load_state_dict(weights.to_state_dict(params), strict=True)
-    wgrad_calls, real_wgrad = [], unet.conv3d_wgrad
+    calls = {"conv3d_wgrad": [], "conv1_wgrad": [], "conv_t_wgrad": []}
 
-    def wgrad(x, dy):
-        wgrad_calls.append(tuple(x.shape))
-        return real_wgrad(x, dy)
+    def counted(name):
+        real = getattr(unet, name)
+        return lambda x, *a: calls[name].append(tuple(x.shape)) or \
+            real(x, *a)
     monkeypatch.setattr(unet, "_on_card", lambda x: True)
-    monkeypatch.setattr(unet, "conv3d_wgrad", wgrad)
+    for name in calls:
+        monkeypatch.setattr(unet, name, counted(name))
     with exact_f32():
         loss, mets = compute_losses(
             model, model.cfg,
@@ -128,7 +136,10 @@ def test_train_step_equals_jax(code, ov, partly, padding, monkeypatch):
             partly=None if pmask is None else torch.from_numpy(pmask),
             corners=corners)
         loss.backward()
-    assert len(wgrad_calls) == (N_ROUTED if padding == "valid" else 0)
+    assert len(calls["conv3d_wgrad"]) == N_ROUTED + code * N_ROUTED_DECODER
+    assert len(calls["conv1_wgrad"]) + len(calls["conv_t_wgrad"]) == \
+        N_GEMM + code * N_GEMM_DECODER
+    assert len(calls["conv_t_wgrad"]) == 1
     grads = {k: v.numpy() for k, v in weights.from_state_dict(
         {n: p.grad for n, p in model.named_parameters()}).items()}
 
