@@ -13,6 +13,12 @@ the MLP and ``PatchMerging`` ``Dense``, the patch embed and the decoder's
 transposed convs keep ``lecun_normal``; ``LayerNorm`` scales are one and
 its biases zero.
 
+The published Swin UNETR (``network_style = "swinunetr_monai"``, which
+the JAX package does not have) starts as MONAI's does: every ``Dense``
+kernel and relative-position table draws ``trunc_normal_`` with
+deviation 0.02 cut at +-2 (absolute, so hardly cut), its convolutions
+``kaiming_normal``; the heads and the code decoder draw as above.
+
 Flax's normal initialisers are *truncated*: cut at +-2 standard deviations
 of a unit normal and rescaled by 1 / 0.87962566 so that the variance is
 the one asked for.  Their fan-in comes from the Flax kernel layout ``(*k,
@@ -45,15 +51,20 @@ def flax_leaves(cfg: PPPConfig, input_shape=None) -> list[tuple[str, tuple]]:
     return [(k, tuple(v.shape)) for k, v in from_state_dict(sd).items()]
 
 
-def initializer(name: str) -> str:
-    """The Flax initialiser of one leaf: 'zeros', 'ones',
-    'kaiming_normal', 'lecun_normal', 'xavier_uniform' or
-    'truncated_normal' (stddev 0.02)."""
+def initializer(name: str, style: str = "unet") -> str:
+    """The initialiser of one leaf of a model of network ``style``:
+    'zeros', 'ones', 'kaiming_normal', 'lecun_normal', 'xavier_uniform',
+    'truncated_normal' (Flax's, stddev 0.02) or 'monai_normal' (MONAI's
+    ``trunc_normal_(std=0.02)``)."""
     parts = name.split("/")
     if parts[-1] == "bias":
         return "zeros"
     if parts[-1] == "scale":
         return "ones"
+    if style == "swinunetr_monai" and parts[1] == "unet":
+        if parts[-1] == "rel_pos_bias" or parts[-2].startswith("Dense"):
+            return "monai_normal"
+        return "kaiming_normal"
     if parts[-1] == "rel_pos_bias":
         return "truncated_normal"
     if parts[-2] == "head_code_affs" \
@@ -74,9 +85,10 @@ def _fans(shape) -> tuple[int, int]:
     return shape[-2] * receptive, shape[-1] * receptive
 
 
-def draw(name: str, shape, generator: torch.Generator) -> torch.Tensor:
+def draw(name: str, shape, generator: torch.Generator,
+         style: str = "unet") -> torch.Tensor:
     """One leaf in the Flax layout, float32 on the generator's device."""
-    kind = initializer(name)
+    kind = initializer(name, style)
     dev = generator.device
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if kind == "zeros":
@@ -87,6 +99,9 @@ def draw(name: str, shape, generator: torch.Generator) -> torch.Tensor:
         torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
         return out.mul_(0.02)
+    if kind == "monai_normal":
+        return torch.nn.init.trunc_normal_(out, 0.0, 0.02, -2.0, 2.0,
+                                           generator=generator)
     fan_in, fan_out = _fans(shape)
     if kind == "xavier_uniform":
         limit = math.sqrt(3.0 * 1.0 / ((fan_in + fan_out) / 2.0))
@@ -104,5 +119,6 @@ def init_tree(cfg: PPPConfig, generator: torch.Generator,
     numpy array} in the Flax layout, with the leaf names and shapes of the
     JAX package's ``full_init`` (the decoder included when ``train_code``),
     drawn from ``generator`` leaf by leaf in module order."""
-    return {name: draw(name, shape, generator).cpu().numpy()
+    return {name: draw(name, shape, generator,
+                       cfg.network_style).cpu().numpy()
             for name, shape in flax_leaves(cfg, input_shape)}

@@ -8,7 +8,11 @@ at stage i; same-size output, the heads on ``feature_size`` channels),
 in 3D and in 2D (``patchshape`` (1, p, p): ``spatial_dims`` 2, the
 leading size-1 axis squeezed out of the per-level factors, ``Conv2d``
 modules, raw (N, C, H, W)).  The API boundary is channels-first
-(C, *spatial), like the JAX package's.
+(C, *spatial), like the JAX package's.  A third style, in 3D only and
+not in the JAX package: the published Swin UNETR, ``swinunetr_monai``
+(``models/swin_unetr.py``: ``feature_size = num_fmaps``, the stages'
+depths and heads and the window from ``swin_depths``, ``swin_heads``
+and ``swin_window``).
 
 ``dtype="bfloat16"`` in the JAX package computes every conv in bf16 from
 float32 parameters that Flax casts on each call.  Here the module is cast
@@ -34,7 +38,7 @@ from .unet import HEAD_UP_COUNTER, Conv3d, UNet
 class PPPConfig:
     patchshape: tuple = (7, 7, 7)
     num_channels: int = 1
-    # "unet" | "swinunetr"
+    # "unet" | "swinunetr" | "swinunetr_monai"
     network_style: str = "unet"
     num_fmaps: int = 20
     fmap_inc_factors: tuple = (3, 3, 3)
@@ -60,6 +64,10 @@ class PPPConfig:
     ae_upsampling: str = "resize_conv"
     num_code_samples: int = 1024
     dtype: str = "float32"
+    # the swinunetr_monai style's stages and window
+    swin_depths: tuple = (2, 2, 2, 2)
+    swin_heads: tuple = (3, 6, 12, 24)
+    swin_window: int = 7
 
     @classmethod
     def from_config(cls, cfg: dict) -> "PPPConfig":
@@ -98,7 +106,10 @@ class PPPConfig:
             ae_num_repetitions=ae.get("num_repetitions", 2),
             ae_upsampling=ae.get("upsampling", "resize_conv"),
             num_code_samples=ae.get("num_code_samples", 1024),
-            dtype=cfg.get("dtype", "float32"))
+            dtype=cfg.get("dtype", "float32"),
+            swin_depths=tuple(cfg.get("swin_depths", (2, 2, 2, 2))),
+            swin_heads=tuple(cfg.get("swin_heads", (3, 6, 12, 24))),
+            swin_window=cfg.get("swin_window", 7))
 
     @property
     def patchshape_squeezed(self) -> tuple:
@@ -149,6 +160,15 @@ class PPPModel(nn.Module):
                 spatial_dims=nd,
                 input_shape=(None if input_shape is None
                              else tuple(input_shape)[-nd:]))
+        elif cfg.network_style == "swinunetr_monai":
+            from .swin_unetr import SwinUNETR
+
+            if nd != 3:
+                raise ValueError("the swinunetr_monai style is 3D only")
+            self.unet = SwinUNETR(
+                cfg.num_channels, feature_size=cfg.num_fmaps,
+                depths=cfg.swin_depths, num_heads=cfg.swin_heads,
+                window_size=cfg.swin_window)
         elif cfg.network_style == "unet":
             self.unet = UNet(
                 cfg.num_channels, num_fmaps=cfg.num_fmaps,
@@ -161,7 +181,7 @@ class PPPModel(nn.Module):
         else:
             raise ValueError(
                 f"invalid network style: {cfg.network_style!r} "
-                "(expected 'unet' or 'swinunetr')")
+                "(expected 'unet', 'swinunetr' or 'swinunetr_monai')")
         feats = self.unet.out_channels
         # 3D heads: unet.Conv3d, whose weight gradient in exact-f32
         # training on the card comes from W2 (ops/conv_kernels.py)

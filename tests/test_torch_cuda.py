@@ -1771,6 +1771,107 @@ def test_conv_wgrad_takes_each_served_convolution_of_the_published_step(dev):
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
+def test_swin_unetr_takes_the_routes_of_the_published_step(dev):
+    """Forward and backward of the published Swin UNETR ppp+dec model
+    (``swinunetr_monai``, portbench/configs/flylight_swin_unetr.json) at
+    batch 4 of 96^3 in exact f32 under a profiler: W1 for the 12 SAME
+    3x3x3 convolutions it serves (below 128 channels on a side: the
+    encoder's blocks on the input, h0 and h1 and the last three up
+    blocks) and the decoder's 1 -> 1 pair, W2 for the six residual 1x1
+    convolutions, the five transposed ones, the two heads and the
+    decoder's three pointwise ones; cuDNN for the eight wide 3x3x3 ones,
+    the stride-2 patch embed and the decoder's 64 -> 64 pair, counted by
+    the wrappers and by the routes' counters."""
+    from patchperpix_tpu_torch.models import PPPConfig, PPPModel
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+    from patchperpix_tpu_torch.utils import trace
+    from patchperpix_tpu_torch.utils.device import exact_f32
+
+    with open(os.path.join(cs.REPO, "portbench", "configs",
+                           "flylight_swin_unetr.json")) as f:
+        cfg = PPPConfig.from_config(json.load(f)["model"])
+    model = PPPModel(cfg).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.rand((4, 3, 96, 96, 96), generator=gen, device=dev)
+    codes = torch.rand((64, cfg.code_units), generator=gen, device=dev)
+    trace.summary()
+    with exact_f32(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]), \
+            counted(CK.WGRAD, CK.GEMM) as c:
+        with trace.span("test.step"):
+            h1, h2 = model(raw)
+            (h1.sum() + h2.sum() + model.decode(codes).sum()).backward()
+    counts = trace.summary()["counts"]
+    assert c.n == {CK.WGRAD.name: 12 + 2, CK.GEMM.name: 6 + 5 + 2 + 3}
+    assert counts["conv.wgrad_hand"] == 12 + 6 + 3
+    assert counts["conv.wgrad_cudnn"] == 8 + 1 + 2
+    assert counts["conv.head_up_wgrad_hand"] == 5 + 2 + 2
+    assert "conv.head_up_wgrad_cudnn" not in counts
+    assert counts["swin.tokens"] / counts["swin.window_tokens"] == \
+        pytest.approx(126_360 / 142_561)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+def test_swin_unetr_step_equals_the_reference(dev):
+    """One exact-f32 training step (Adam) of the Swin UNETR ppp+dec model
+    at a reduced size (feature 12, heads 3/6/12/24, batch 2 of 64^3, its
+    convolutions on their routes) against the benchmark's plain reference
+    (portbench/reference/swin_unetr.py) on the card: the loss within 1e-6
+    relative (the forward alone), the first gradients and the change
+    within the cell's limits of ``correct`` (its ``grad_err`` and
+    ``change_err``: float32 sums in another order, PERF.md section 2)."""
+    from patchperpix_tpu_torch import weights
+    from patchperpix_tpu_torch.models import PPPConfig, PPPModel
+    from patchperpix_tpu_torch.models.init import init_tree
+    from patchperpix_tpu_torch.ops import conv_kernels as CK
+    from patchperpix_tpu_torch.train import trainer as T
+    from patchperpix_tpu_torch.utils.device import exact_f32
+    from portbench.reference import model as ref_model
+    from portbench.reference import swin_unetr as R
+    from portbench.reference import train as ref_train
+
+    with open(os.path.join(cs.REPO, "portbench", "configs",
+                           "flylight_swin_unetr.json")) as f:
+        bench = json.load(f)
+    small = dict(bench["model"], num_fmaps=12)
+    small["autoencoder"] = dict(small["autoencoder"], num_fmaps=[8, 16],
+                                num_code_samples=64)
+    cfg = PPPConfig.from_config(small)
+    tree = init_tree(cfg, torch.Generator().manual_seed(0))
+    model = PPPModel(cfg).to(dev)
+    model.load_state_dict(weights.to_state_dict(tree), strict=True)
+    tcfg = T.TrainConfig(lr=1e-4, use_gt_extra=True)
+    opt, sched = T.make_optimizer(tcfg, model.parameters())
+    step, _ = T.make_train_step(model.train(), cfg, tcfg, opt, sched)
+    rng = np.random.RandomState(1)
+    raw = torch.from_numpy(rng.rand(2, 3, 64, 64, 64).astype(np.float32))
+    labels = np.zeros((2, 2, 70, 70, 70), np.int32)
+    labels[:, 0, 4:40, 6:44, 8:40] = 1
+    labels[:, 1, 30:66, 20:60, 10:50] = 2
+    labels = torch.from_numpy(labels)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    state = gen.get_state()
+    named = dict(model.named_parameters())
+    start = {k: p.detach().clone() for k, p in named.items()}
+    with exact_f32(), counted(CK.WGRAD, CK.GEMM) as c:
+        mets = step(raw.to(dev), labels.to(dev), gen)
+    assert c.n[CK.WGRAD.name] > 0 and c.n[CK.GEMM.name] > 0
+    grad1 = weights.from_state_dict({k: opt.state[p]["exp_avg"] / 0.1
+                                     for k, p in named.items()})
+    change = weights.from_state_dict({k: p.detach() - start[k]
+                                      for k, p in named.items()})
+    ref = R.reference_steps(ref_model.net_config({"model": small}), tree,
+                            [(raw.numpy(), labels.numpy())], [state], dev,
+                            lr=1e-4)
+    lim = bench["limits"]
+    assert abs(float(mets["loss"]) - ref["losses"][0][0]) <= \
+        1e-6 * abs(ref["losses"][0][0])
+    assert ref_train.leaf_gaps(grad1, ref["grad1"]) <= lim["grad_err"]
+    kept = ref_train.moved_leaves(ref["grad1"])
+    assert ref_train.leaf_gaps(change, ref["change"], kept) <= \
+        lim["change_err"]
+
+
 # -- W2: the weight gradient of pointwise and kernel = stride convolutions ----
 
 @pytest.mark.parametrize("ci,co,e,n,f", cs.GEMM_SHAPES)
